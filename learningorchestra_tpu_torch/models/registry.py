@@ -1,0 +1,132 @@
+"""Classifier registry — the reference's switcher.
+
+The reference maps ``{"lr", "dt", "rf", "gb", "nb"}`` to pyspark.ml
+classifiers (reference model_builder.py:152-158) and returns 409 for unknown
+names (ModelBuilderRequestValidator, model_builder.py:284-292). Same five
+names here. The JAX package's extensions "mlp" and "tx" are not ported
+yet: asking for them raises a ValueError that says so.
+"""
+
+from __future__ import annotations
+
+from functools import partial
+from typing import Any, Callable, Dict, Tuple
+
+from learningorchestra_tpu_torch.models import logistic, naive_bayes, trees
+
+CLASSIFIERS: Dict[str, Callable] = {
+    "lr": logistic.fit,
+    "dt": trees.fit_dt,
+    "rf": trees.fit_rf,
+    "gb": trees.fit_gb,
+    "nb": naive_bayes.fit,
+}
+
+#: Families of the JAX package that this package does not have yet.
+NOT_YET_PORTED = ("mlp", "tx")
+
+
+def _int_range(lo: int, hi: int) -> Tuple[Callable, str]:
+    return (lambda v: isinstance(v, int) and not isinstance(v, bool)
+            and lo <= v <= hi, f"an integer in [{lo}, {hi}]")
+
+
+def _positive() -> Tuple[Callable, str]:
+    return (lambda v: isinstance(v, (int, float))
+            and not isinstance(v, bool) and v > 0, "a number > 0")
+
+
+def _nonneg() -> Tuple[Callable, str]:
+    return (lambda v: isinstance(v, (int, float))
+            and not isinstance(v, bool) and v >= 0, "a number >= 0")
+
+
+def _choice(*opts: str) -> Tuple[Callable, str]:
+    return (lambda v: v in opts, f"one of {sorted(opts)}")
+
+
+#: Per-family user-settable hyperparameters with their legal ranges —
+#: the single validation table behind the 406s on ``POST /models`` and
+#: ``POST /tune``. Keys the builder injects itself (``edges``, ``ckpt``)
+#: are deliberately absent: a request naming them is rejected as
+#: unknown instead of silently colliding with the injected values. The
+#: tree-depth/bin caps mirror the builders' structural limits (uint8
+#: bin codes; 2^(depth+1)-1 node arrays).
+_SEED = _int_range(0, 2 ** 31 - 1)
+HPARAM_SPECS: Dict[str, Dict[str, Tuple[Callable, str]]] = {
+    "lr": {"seed": _SEED, "iters": _int_range(1, 1_000_000),
+           "lr": _positive(), "l2": _nonneg(),
+           "solver": _choice("auto", "newton", "adam")},
+    "dt": {"seed": _SEED, "max_depth": _int_range(1, 12),
+           "n_bins": _int_range(2, 256)},
+    "rf": {"seed": _SEED, "max_depth": _int_range(1, 12),
+           "n_bins": _int_range(2, 256), "n_trees": _int_range(1, 1024),
+           "mtry": _int_range(1, 65536)},
+    "gb": {"seed": _SEED, "max_depth": _int_range(1, 12),
+           "n_bins": _int_range(2, 256), "n_rounds": _int_range(1, 4096),
+           "step_size": _positive()},
+    "nb": {"seed": _SEED, "smoothing": _positive(),
+           "event_model": _choice("gaussian", "multinomial")},
+}
+
+
+def validate_hparams(classifier: str, hparams: Any) -> None:
+    """Reject unknown hyperparameter names and out-of-range values with a
+    ValueError NAMING the offending key (the serving tier maps it to a
+    406) — instead of the TypeError-500 a bad ``**kwargs`` splat would
+    raise from deep inside a trainer."""
+    get_trainer(classifier)  # unknown classifier: its own ValueError
+    if hparams in (None, {}):
+        return
+    if not isinstance(hparams, dict):
+        raise ValueError(
+            f"hparams for classifier {classifier!r} must be an object of "
+            f"name->value, got {type(hparams).__name__}")
+    spec = HPARAM_SPECS[classifier]
+    for key, value in hparams.items():
+        if key not in spec:
+            raise ValueError(
+                f"unknown hparam {key!r} for classifier {classifier!r}; "
+                f"known: {sorted(spec)}")
+        check, expect = spec[key]
+        if not check(value):
+            raise ValueError(
+                f"hparam {key!r} for classifier {classifier!r} is out of "
+                f"range: expected {expect}, got {value!r}")
+
+
+def get_trainer(name: str) -> Callable:
+    try:
+        return CLASSIFIERS[name]
+    except KeyError:
+        if name in NOT_YET_PORTED:
+            raise ValueError(
+                f"classifier {name!r} is not yet ported to the PyTorch "
+                f"package; choose from {sorted(CLASSIFIERS)}") from None
+        raise ValueError(
+            f"invalid classifier {name!r}; choose from "
+            f"{sorted(CLASSIFIERS)}") from None
+
+
+def predictor_for(kind: str, hparams: Dict) -> Callable:
+    """Rebuild the (params, X) -> probs function for a persisted model.
+
+    Every family's predictor is a module function parameterized only by
+    static hparams, so a checkpoint of (kind, hparams, params) fully
+    reconstructs a servable model (models/persistence.py)."""
+    if kind in ("dt", "rf"):
+        return partial(trees._forest_proba_static,
+                       max_depth=int(hparams["max_depth"]))
+    if kind == "gb":
+        # ovr_classes marks a one-vs-rest multiclass booster stack
+        # (leading class axis on the tree params); absent = binary.
+        fn = (trees._gbt_ovr_proba_static if hparams.get("ovr_classes")
+              else trees._gbt_proba_static)
+        return partial(fn, max_depth=int(hparams["max_depth"]))
+    if kind == "lr":
+        return logistic._predict_proba
+    if kind == "nb":
+        return (naive_bayes._predict_multinomial
+                if hparams.get("event_model") == "multinomial"
+                else naive_bayes._predict_proba)
+    raise ValueError(f"no predictor for classifier kind {kind!r}")

@@ -1,0 +1,406 @@
+"""Tree-ensemble trainers: "dt", "rf", "gb" — histogram-split trees.
+
+The reference fits ``pyspark.ml`` DecisionTreeClassifier,
+RandomForestClassifier and GBTClassifier (reference
+model_builder.py:153-155). Spark's tree algorithm is histogram-based
+(maxBins feature quantization + per-node sufficient statistics), and so is
+this one, level by level as in the JAX package
+(``learningorchestra_tpu/models/trees.py``):
+
+- Features are quantized once to ``n_bins`` quantile bins (Spark's maxBins).
+- A tree grows *level-wise*: every node at a level gets a (node, feature,
+  bin, stat) histogram in one pass over the rows (``tree_histogram``),
+  split quality for every candidate comes from a cumulative sum over bins,
+  the best split is an argmax, and one routing pass
+  (``tree_route_level``) moves rows to their children.
+- One generic builder serves all three families: classification trees carry
+  per-class weight stats (gini criterion); boosted trees carry
+  gradient/hessian stats (Newton gain, XGBoost-hist style).
+
+The histogram, leaf-statistics, routing and descent passes are the
+hand-written CUDA kernels of ``ops/tree_kernels.py``; everything between
+them is a few small tensor ops per level. Node ids, the fixed per-level
+width and the split arithmetic follow the JAX package exactly, so a fit
+on the same bins and stats gives the same trees.
+
+Defaults match Spark 2.4's: maxDepth=5, maxBins=32, numTrees=20 (rf),
+maxIter=20 + stepSize=0.1 (gb).
+"""
+
+from __future__ import annotations
+
+from functools import partial
+from typing import Optional
+
+import numpy as np
+import torch
+
+from learningorchestra_tpu_torch.models.base import TrainedModel, as_design
+from learningorchestra_tpu_torch.ops import tree_kernels
+from learningorchestra_tpu_torch.parallel.runtime import DeviceRuntime
+
+NEG = -1e30
+#: Rows per block of ``bin_features`` (bounds its (blk, d, n_bins-1)
+#: comparison transient).
+_BIN_BLOCK = 1 << 18
+
+
+# ---------------------------------------------------------------------------
+# Quantization (Spark's maxBins analogue)
+# ---------------------------------------------------------------------------
+
+def quantile_edges(X: np.ndarray, n_bins: int,
+                   sample: int = 200_000) -> np.ndarray:
+    """Per-feature bin edges from quantiles of a row sample. (d, n_bins-1)."""
+    n = len(X)
+    if n > sample:
+        idx = np.random.default_rng(0).choice(n, sample, replace=False)
+        Xs = X[idx]
+    else:
+        Xs = X
+    qs = np.linspace(0, 1, n_bins + 1)[1:-1]
+    edges = np.quantile(Xs, qs, axis=0).T.astype(np.float32)  # (d, n_bins-1)
+    return np.ascontiguousarray(edges)
+
+
+def validate_n_bins(n_bins: int) -> None:
+    """Single guard for the uint8 bin-code representation ``bin_features``
+    produces — every tree entry point funnels through it."""
+    if n_bins > 256:
+        raise ValueError("n_bins is capped at 256 (uint8 bin codes)")
+
+
+def bin_features(X: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
+    """float features → uint8 bin codes: code = #edges strictly below x
+    (NaN lands in bin 0, as in the JAX package). Row-blocked compare+sum."""
+    n, d = X.shape
+    out = torch.empty((n, d), dtype=torch.uint8, device=X.device)
+    for i in range(0, n, _BIN_BLOCK):
+        out[i:i + _BIN_BLOCK] = (
+            X[i:i + _BIN_BLOCK, :, None] > edges[None, :, :]).sum(
+            dim=-1, dtype=torch.int32).to(torch.uint8)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Generic level-wise histogram tree builder
+# ---------------------------------------------------------------------------
+
+def _build_tree(B, stats_T, feat_gain_mask, *, max_depth, n_bins,
+                gain_fn, weight_fn, min_child_weight, min_gain):
+    """Grow one tree.
+
+    B: (n, d) uint8 bin codes. stats_T: (S, n) float32 per-row sufficient
+    statistics (zero columns for excluded rows). feat_gain_mask: (d,)
+    float32 — 0 allows a feature, NEG forbids it (random-forest per-tree
+    feature subsampling). gain_fn(left, total) -> gain over the trailing
+    stat dim; weight_fn(stat_sums) -> node weight for min_child_weight.
+
+    Returns (feat (M,), thr (M,), is_internal (M,), leaf_stats (M, S))
+    with M = 2^(max_depth+1) - 1 nodes; children of i at 2i+1 / 2i+2.
+    """
+    n, d = B.shape
+    dev = B.device
+    M = 2 ** (max_depth + 1) - 1
+    #: Fixed per-level node width, as in the JAX builder: every level runs
+    #: at the deepest level's width 2^(max_depth-1). Slots past a level's
+    #: real node count carry zero stats, so their gain is NEG and they
+    #: never split; their node-id writes land in ids later levels rewrite.
+    NL = 2 ** max(max_depth - 1, 0)
+    feat = torch.zeros((M,), dtype=torch.int32, device=dev)
+    thr = torch.zeros((M,), dtype=torch.int32, device=dev)
+    is_internal = torch.zeros((M,), dtype=torch.bool, device=dev)
+    assign = torch.zeros((n,), dtype=torch.int32, device=dev)
+    slots = torch.arange(NL, device=dev)
+    for level in range(max_depth):
+        offset = (1 << level) - 1
+        rel = assign - offset
+        active = (rel >= 0) & (rel < offset + 1)
+        rel = torch.where(active, rel, torch.zeros_like(rel))
+
+        hist = tree_kernels.tree_histogram(B, stats_T, rel, active,
+                                           n_nodes=NL, n_bins=n_bins)
+        left = torch.cumsum(hist, dim=2)                         # ≤ bin t
+        total = left[:, :, -1:, :]                               # (NL,d,1,S)
+        gain = gain_fn(left, total)                              # (NL,d,nb)
+        # A split at the last bin sends everything left — forbid it.
+        gain[:, :, -1] = NEG
+        lw = weight_fn(left)
+        rw = weight_fn(total) - lw
+        ok = (lw >= min_child_weight) & (rw >= min_child_weight)
+        gain = (torch.where(ok, gain, torch.full_like(gain, NEG))
+                + feat_gain_mask[None, :, None])
+
+        flat = gain.reshape(NL, d * n_bins)
+        best = torch.argmax(flat, dim=1)
+        best_gain = flat.gather(1, best[:, None])[:, 0]
+        best_f = (best // n_bins).int()
+        best_t = (best % n_bins).int()
+        split = best_gain > min_gain
+
+        node_ids = offset + slots
+        feat[node_ids] = torch.where(split, best_f, 0).int()
+        thr[node_ids] = torch.where(split, best_t, 0).int()
+        is_internal[node_ids] = split
+
+        assign = tree_kernels.tree_route_level(B, rel.int(), active, assign,
+                                               best_f, best_t, split)
+
+    # Leaf sufficient statistics over ALL nodes (every row sits at a leaf).
+    leaf = tree_kernels.tree_leaf_stats(assign, stats_T, n_nodes=M).T
+    return feat, thr, is_internal, leaf.contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Criteria
+# ---------------------------------------------------------------------------
+
+def _gini_gain(left, total):
+    """Weighted gini impurity decrease; stats are per-class weights."""
+    right = total - left
+    lw = left.sum(-1)
+    rw = right.sum(-1)
+    tw = total.sum(-1)
+
+    def gini_w(counts, w):
+        # w * gini = w - sum(c^2)/w
+        return w - (counts ** 2).sum(-1) / torch.clamp(w, min=1e-12)
+
+    parent = gini_w(total, tw)
+    child = gini_w(left, lw) + gini_w(right, rw)
+    return (parent - child) / torch.clamp(tw, min=1e-12)
+
+
+def _make_newton_gain(lam: float):
+    """XGBoost-style gain on [grad, hess] stats."""
+
+    def gain(left, total):
+        right = total - left
+        gl, hl = left[..., 0], left[..., 1]
+        gr, hr = right[..., 0], right[..., 1]
+        g, h = total[..., 0], total[..., 1]
+        return (gl ** 2 / (hl + lam) + gr ** 2 / (hr + lam)
+                - g ** 2 / (h + lam))
+
+    return gain
+
+
+# ---------------------------------------------------------------------------
+# dt / rf  (classification trees, gini)
+# ---------------------------------------------------------------------------
+
+def _edge_prep(X, n_bins: int = 32, **_ignored) -> dict:
+    """Host-side prep shared by every tree family: per-feature quantile
+    bin edges from a row sample. Exposed as the trainers' ``host_prep``
+    hook so the pipelined builder runs it outside the device phase —
+    overlapping another family's device work. Deterministic (seeded
+    sampler)."""
+    validate_n_bins(n_bins)
+    X = as_design(X)
+    if not isinstance(X, np.ndarray):
+        raise NotImplementedError(
+            "streamed (chunked) design matrices are not yet ported")
+    return {"edges": quantile_edges(X, n_bins)}
+
+
+def _tree_draw(n, d, mtry, generator, device):
+    """One tree's Poisson(1) bootstrap weights (n,) and feature subset
+    (d,) bool, drawn on ``device`` from ``generator``."""
+    w = torch.poisson(torch.ones((n,), dtype=torch.float32, device=device),
+                      generator=generator)
+    perm = torch.randperm(d, generator=generator, device=device)
+    allowed = torch.zeros((d,), dtype=torch.bool, device=device)
+    allowed[perm[:mtry]] = True
+    return w, allowed
+
+
+def _fit_cls_trees(kind, runtime, X, y, num_classes, seed, *, n_trees,
+                   max_depth, n_bins, mtry=None, edges=None, weights=None,
+                   feature_allowed=None):
+    validate_n_bins(n_bins)
+    X = as_design(X)
+    if edges is None:
+        edges = _edge_prep(X, n_bins)["edges"]
+    # One cached host→device copy of X shared with every other family in a
+    # multi-classifier build; binning runs on the device.
+    X_dev, n = runtime.shard_rows(X)
+    B = bin_features(X_dev, runtime.replicate(edges))
+    y_dev, _ = runtime.shard_rows(np.asarray(y, np.int32))
+    d = X.shape[1]
+    dev = B.device
+    classes = torch.arange(num_classes, dtype=torch.int32, device=dev)
+    base_stats = (y_dev[None, :] == classes[:, None]).float()    # (C, n)
+    mtry = mtry or max(1, int(np.sqrt(d)))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    trees = []
+    for t in range(n_trees):
+        if n_trees == 1:
+            stats = base_stats
+            fmask = torch.zeros((d,), dtype=torch.float32, device=dev)
+        else:
+            w, allowed = _tree_draw(n, d, mtry, gen, dev)
+            if weights is not None:
+                w = torch.as_tensor(weights[t], dtype=torch.float32,
+                                    device=dev)
+            if feature_allowed is not None:
+                allowed = torch.as_tensor(feature_allowed[t], device=dev)
+            stats = base_stats * w[None, :]
+            fmask = torch.where(allowed.bool(), 0.0, NEG).float()
+        trees.append(_build_tree(
+            B, stats.contiguous(), fmask, max_depth=max_depth,
+            n_bins=n_bins, gain_fn=_gini_gain,
+            weight_fn=lambda s: s.sum(-1), min_child_weight=1.0,
+            min_gain=1e-9))
+    feat, thr, internal, leaf = (torch.stack(p) for p in zip(*trees))
+    params = {"edges": runtime.replicate(edges), "feat": feat, "thr": thr,
+              "internal": internal, "leaf": leaf}
+    return TrainedModel(
+        kind=kind, params=params,
+        predict_proba_fn=partial(_forest_proba_static, max_depth=max_depth),
+        num_classes=num_classes,
+        hparams={"n_trees": n_trees, "max_depth": max_depth,
+                 "n_bins": n_bins})
+
+
+def _forest_proba_static(params, X, *, max_depth):
+    B = bin_features(X, params["edges"])
+    assign = tree_kernels.tree_descend(
+        B, params["feat"], params["thr"], params["internal"],
+        max_depth=max_depth).long()                              # (T, n)
+    leaf = params["leaf"]                                        # (T, M, S)
+    counts = leaf.gather(1, assign[:, :, None].expand(-1, -1, leaf.shape[2]))
+    probs = counts / torch.clamp(counts.sum(-1, keepdim=True), min=1e-12)
+    return probs.mean(dim=0)
+
+
+def fit_dt(runtime: DeviceRuntime, X, y, num_classes, seed=0, *,
+           max_depth: int = 5, n_bins: int = 32,
+           edges=None) -> TrainedModel:
+    return _fit_cls_trees("dt", runtime, X, y, num_classes, seed,
+                          n_trees=1, max_depth=max_depth, n_bins=n_bins,
+                          edges=edges)
+
+
+def fit_rf(runtime: DeviceRuntime, X, y, num_classes, seed=0, *,
+           n_trees: int = 20, max_depth: int = 5,
+           n_bins: int = 32, mtry: Optional[int] = None,
+           edges=None, weights=None, feature_allowed=None) -> TrainedModel:
+    """Random forest. Bootstrap weights and feature subsets come from a
+    ``torch.Generator`` seeded with ``seed``, unless given: ``weights``
+    (n_trees, n) and ``feature_allowed`` (n_trees, d) bool replace the
+    draws (the parity tests feed the JAX package's own draws)."""
+    return _fit_cls_trees("rf", runtime, X, y, num_classes, seed,
+                          n_trees=n_trees, max_depth=max_depth,
+                          n_bins=n_bins, mtry=mtry, edges=edges,
+                          weights=weights, feature_allowed=feature_allowed)
+
+
+fit_dt.host_prep = _edge_prep
+fit_rf.host_prep = _edge_prep
+
+
+# ---------------------------------------------------------------------------
+# gb  (gradient-boosted trees, logistic loss — as Spark's GBT)
+# ---------------------------------------------------------------------------
+
+def _fit_gbt(B, yf, *, max_depth, n_bins, n_rounds, step_size=0.1,
+             lam=1.0):
+    """Binary boosting: per round, a Newton tree on the logistic loss's
+    gradient/hessian, then the margin moves by the new tree's leaf values
+    (``tree_descend`` finds every row's leaf). Returns stacked per-round
+    (feat, thr, internal, leaf_val)."""
+    gain_fn = _make_newton_gain(lam)
+    n, d = B.shape
+    margin = torch.zeros((n,), dtype=torch.float32, device=B.device)
+    zero_mask = torch.zeros((d,), dtype=torch.float32, device=B.device)
+    rounds = []
+    for _ in range(n_rounds):
+        p = torch.sigmoid(margin)
+        g = p - yf                                  # d loss / d margin
+        h = torch.clamp(p * (1 - p), min=1e-6)
+        stats = torch.stack([g, h], dim=0)          # (2, n)
+        feat, thr, internal, leaf = _build_tree(
+            B, stats, zero_mask, max_depth=max_depth, n_bins=n_bins,
+            gain_fn=gain_fn, weight_fn=lambda s: s[..., 1],
+            min_child_weight=1e-3, min_gain=1e-9)
+        leaf_val = -leaf[:, 0] / (leaf[:, 1] + lam)       # (M,)
+        assign = tree_kernels.tree_descend(B, feat, thr, internal,
+                                           max_depth=max_depth)
+        margin = margin + step_size * leaf_val[assign.long()]
+        rounds.append((feat, thr, internal, leaf_val))
+    return tuple(torch.stack(p) for p in zip(*rounds))
+
+
+def _gbt_proba_static(params, X, *, max_depth):
+    B = bin_features(X, params["edges"])
+    # One descent launch for all rounds of the booster.
+    assign = tree_kernels.tree_descend(
+        B, params["feat"], params["thr"], params["internal"],
+        max_depth=max_depth).long()                              # (R, n)
+    leaf_val = params["leaf_val"]
+    margin = params["step_size"] * leaf_val.gather(1, assign).sum(dim=0)
+    p1 = torch.sigmoid(margin)
+    return torch.stack([1 - p1, p1], dim=1)
+
+
+def _gbt_ovr_proba_static(params, X, *, max_depth):
+    """Multiclass gb probabilities: per-class booster margins (leading
+    class axis on every tree param), class scores p_k = σ(margin_k),
+    normalized — standard one-vs-rest calibration."""
+    B = bin_features(X, params["edges"])
+    C, R, M = params["feat"].shape
+    flat = [params[k].reshape(C * R, M)
+            for k in ("feat", "thr", "internal", "leaf_val")]
+    assign = tree_kernels.tree_descend(B, flat[0], flat[1], flat[2],
+                                       max_depth=max_depth).long()
+    vals = flat[3].gather(1, assign)                              # (C·R, n)
+    margins = vals.reshape(C, R, -1).sum(dim=1)                  # (C, n)
+    p = torch.sigmoid(params["step_size"] * margins).T           # (n, C)
+    return p / torch.clamp(p.sum(dim=1, keepdim=True), min=1e-12)
+
+
+def fit_gb(runtime: DeviceRuntime, X, y, num_classes, seed=0, *,
+           n_rounds: int = 20, max_depth: int = 5, n_bins: int = 32,
+           step_size: float = 0.1, edges=None) -> TrainedModel:
+    """Gradient-boosted trees. Binary is the reference-parity path (one
+    booster, Spark 2.4's GBTClassifier). ``num_classes > 2`` fits one
+    booster per class on labels ``y == k`` over the same bins, and
+    normalizes the sigmoid scores (one-vs-rest)."""
+    validate_n_bins(n_bins)
+    X = as_design(X)
+    if edges is None:
+        edges = _edge_prep(X, n_bins)["edges"]
+    X_dev, n = runtime.shard_rows(X)
+    B = bin_features(X_dev, runtime.replicate(edges))
+    y_dev, _ = runtime.shard_rows(np.asarray(y, np.int32))
+    hparams = {"n_rounds": n_rounds, "max_depth": max_depth,
+               "n_bins": n_bins, "step_size": step_size}
+    kw = dict(max_depth=max_depth, n_bins=n_bins, n_rounds=n_rounds,
+              step_size=step_size)
+    step = torch.tensor(step_size, dtype=torch.float32, device=B.device)
+    if num_classes == 2:
+        feat, thr, internal, leaf_val = _fit_gbt(B, y_dev.float(), **kw)
+        params = {"edges": runtime.replicate(edges), "feat": feat,
+                  "thr": thr, "internal": internal, "leaf_val": leaf_val,
+                  "step_size": step}
+        return TrainedModel(
+            kind="gb", params=params,
+            predict_proba_fn=partial(_gbt_proba_static,
+                                     max_depth=max_depth),
+            num_classes=2, hparams=hparams)
+    per_class = [_fit_gbt(B, (y_dev == k).float(), **kw)
+                 for k in range(num_classes)]
+    feat, thr, internal, leaf_val = (
+        torch.stack([pc[i] for pc in per_class]) for i in range(4))
+    params = {"edges": runtime.replicate(edges), "feat": feat, "thr": thr,
+              "internal": internal, "leaf_val": leaf_val, "step_size": step}
+    return TrainedModel(
+        kind="gb", params=params,
+        predict_proba_fn=partial(_gbt_ovr_proba_static,
+                                 max_depth=max_depth),
+        num_classes=num_classes,
+        hparams=dict(hparams, ovr_classes=num_classes))
+
+
+fit_gb.host_prep = _edge_prep
