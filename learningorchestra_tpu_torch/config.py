@@ -112,6 +112,17 @@ class Settings:
     scrub_on_load: bool = field(
         default_factory=lambda: _env("LO_TPU_SCRUB_ON_LOAD", False, bool)
     )
+    #: Commit (journal-fsync + metadata write) cadence, in bytes of
+    #: appended chunk data, for ops that stream a dataset into a new one
+    #: (ops/projection.py); 0 = commit every chunk (max durability).
+    ingest_commit_bytes: int = field(
+        default_factory=lambda: _env("LO_TPU_INGEST_COMMIT_BYTES", 64 << 20)
+    )
+    #: Directory where viz services write PNGs (reference volumes
+    #: tsne:/images, pca:/images, docker-compose.yml:289-290).
+    image_root: str = field(
+        default_factory=lambda: _env("LO_TPU_IMAGE_ROOT", "/tmp/lo_tpu_images")
+    )
 
     # --- training ----------------------------------------------------------
     #: Max concurrently running model fits (reference: 5 classifiers through

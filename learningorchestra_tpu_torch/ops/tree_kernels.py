@@ -29,22 +29,14 @@ leaf stats (S, M), node ids int32.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import threading
-import time
-from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "tree_kernels.cu"
-#: Build products live beside the package, in a directory git ignores.
-BUILD_DIR = _PKG.parent / "build" / "tree_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+from learningorchestra_tpu_torch.ops._cuda_build import (  # noqa: F401
+    NVCC_FLAGS, CudaLibrary, LaunchCounter, check_launch as _check,
+    need as _need, num_sms as _num_sms, on_cuda as _on_cuda,
+    stream as _stream)
 
 #: Dynamic shared memory one block may use on Hopper (227 KiB), and an
 #: SM's whole shared memory (228 KiB; each resident block also holds 1 KiB
@@ -65,125 +57,38 @@ _REF_BLOCK = 1 << 18
 KERNELS = ("tree_histogram", "tree_leaf_stats", "tree_route_level",
            "tree_descend")
 
-_count_lock = threading.Lock()
-_counts: Dict[str, int] = {k: 0 for k in KERNELS}
-
-
-def _count(name: str) -> None:
-    with _count_lock:
-        _counts[name] += 1
+_counter = LaunchCounter(KERNELS)
+_count = _counter.add
 
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per wrapper since the last reset."""
-    with _count_lock:
-        return dict(_counts)
+    return _counter.snapshot()
 
 
 def reset_launch_counts() -> None:
-    with _count_lock:
-        for k in _counts:
-            _counts[k] = 0
+    _counter.reset()
 
 
 # ---------------------------------------------------------------------------
-# Build + load
+# Build + load (ops/_cuda_build.py)
 # ---------------------------------------------------------------------------
 
-_lib: Optional[ctypes.CDLL] = None
-_lib_lock = threading.Lock()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {
+_LIB = CudaLibrary("tree_kernels", {
     "lo_tree_hist_u8": [_P, _P, _P, _P, _P, _P] + [_I] * 9 + [_P],
     "lo_tree_leaf_i32": [_P, _P, _P, _P] + [_I] * 6 + [_P],
     "lo_tree_route": [_P] * 6 + [_I] * 4 + [_P],
     "lo_tree_descend": [_P] * 3 + [_I] * 6 + [_P],
-}
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME); nvcc "
-                           "is needed to build the tree kernels")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
-
-
-def library_path() -> Path:
-    """The shared library for the current source (content-addressed, so
-    an edited source never loads a stale build)."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"libtree_kernels-{digest[:16]}.so"
-
-
-def build() -> Path:
-    """Compile the kernels if this source has no library yet; returns the
-    library's path."""
-    so = library_path()
-    if so.exists():
-        return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, so)
-    return so
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            so = build()
-            lib = ctypes.CDLL(str(so))
-            for name, args in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = args
-                fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
-
-
-def _check(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def _num_sms(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-def _on_cuda(*tensors: torch.Tensor) -> bool:
-    """True for CUDA inputs, False for CPU ones; anything else — mixed
-    devices or another device type — is refused."""
-    devs = {t.device for t in tensors}
-    if len(devs) != 1:
-        raise ValueError(
-            f"inputs on several devices: {sorted(map(str, devs))}")
-    dev = devs.pop()
-    if dev.type == "cpu":
-        return False
-    if dev.type == "cuda":
-        return True
-    raise ValueError(f"tree kernels run on cuda or cpu, not {dev.type}")
-
-
-def _need(t: torch.Tensor, name: str, dtype: torch.dtype,
-          shape: Tuple[int, ...]) -> None:
-    if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
-        raise ValueError(f"{name}: expected contiguous {dtype} {shape}, got "
-                         f"{t.dtype} {tuple(t.shape)} "
-                         f"contiguous={t.is_contiguous()}")
+})
+SOURCE = _LIB.source
+BUILD_DIR = _LIB.build_dir
+#: The shared library for the current source (content-addressed).
+library_path = _LIB.path
+#: Compile the kernels if this source has no library yet.
+build = _LIB.build
+_library = _LIB.load
 
 
 # ---------------------------------------------------------------------------
