@@ -4,19 +4,26 @@
 
 Phases, one JSON line each (any failure exits non-zero):
 
-1. card: name and power limit (nvidia-smi), torch and CUDA versions;
+1. card: name and power limit (nvidia-smi), the SM's maximum clock,
+   torch and CUDA versions;
 2. build: compiles ``learningorchestra_tpu_torch/csrc/tree_kernels.cu``
    and ``csrc/tsne_kernels.cu`` with nvcc for sm_90a, one nvcc per
-   source, all started together; each timed, ``fresh`` per source;
+   source, all started together; each timed, ``fresh`` per source; per
+   kernel its registers and spill bytes (ptxas -v) and its shared-atomic,
+   special-function, shuffle and float-to-int instructions (cuobjdump);
 3. one line per tree kernel at the HIGGS-sweep shapes (n train rows,
    d=28, 32 bins, depth 5): the kernel against its plain PyTorch version
    on the same inputs (bit-identical for node ids and integer-valued
-   histograms; rtol 1e-5 with atol 1e-6·Σ|stats| for float stats, whose
-   summation order differs), and their times beside the card's bound;
+   histograms; rtol 1e-5 with atol 1e-6·Σ|stats| for float stats, which
+   the card sums in fixed point), two calls bit-identical, and their
+   times beside the card's bound;
 4. the t-SNE repulsion kernel at the MNIST-60k shape (60,416 rows, 60,000
-   valid) against its plain version (Z rtol 1e-4, max|F − F_ref| ≤
-   1e-4·max|F_ref|), and its row form over two halves (Z partials sum to
-   the whole Z within rtol 1e-5; F halves match the whole F);
+   valid), at 60,000 rows with no padding, and with 1% of the rows
+   invalid at random positions and parked at 0, each against its plain
+   version (Z rtol 1e-4, max|F − F_ref| ≤ 1e-4·max|F_ref|); two calls
+   bit-identical; its row form over two halves (Z partials sum to the
+   whole Z within rtol 1e-5; F halves match the whole F within the F
+   tolerance);
 5. small-input references: dt and gb fitted on the card and on the CPU
    (the plain versions) from the same data give the same trees; one
    t-SNE step on 2,048 rows agrees (rtol 1e-4, atol 1e-6) and a
@@ -44,6 +51,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -70,10 +78,16 @@ KERNELS = {
 }
 #: The t-SNE workload: MNIST-60k's shape, padded to whole 1024-row tiles.
 TSNE_ROWS, TSNE_DIMS, TSNE_PADDED = 60_000, 784, 60_416
-#: Float operations per (row, column) pair of the repulsion kernel
-#: (csrc/tsne_kernels.cu: two differences, two FMAs for the distance, the
-#: reciprocal, the mask, q², the Z sum and two force FMAs).
-TSNE_OPS_PER_PAIR = 14
+#: Float operations per unordered pair of the whole-embedding repulsion
+#: kernel, an FMA counted as two (csrc/tsne_kernels.cu: two differences,
+#: two FMAs for the distance, the reciprocal, q², the Z sum and four force
+#: FMAs).
+TSNE_OPS_PER_PAIR = 17
+#: The ordered-pair count of the direct form (14 a pair, the bound the
+#: first port of the kernel was held to), reported beside it.
+TSNE_OPS_PER_ORDERED_PAIR = 14
+#: SASS opcodes the build line counts per kernel.
+SASS_OPS = ("ATOMS", "MUFU", "SHFL", "F2I")
 ROOT = os.path.dirname(os.path.abspath(__file__))
 #: Held-out rows of the HIGGS-like sweep.
 TEST_ROWS = 100_000
@@ -112,11 +126,63 @@ def bound(nbytes: float, ops: float = 0.0):
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
-def card_line() -> str:
+def card_line(fields: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+#: An instruction line of cuobjdump -sass: address, predicate, opcode.
+_SASS_LINE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                        r"([A-Z][A-Z0-9_.]*)")
+
+
+def _kernel_label(mangled: str) -> str:
+    """A readable kernel name from a mangled one: ``hist_slice_kernel
+    <uint8_t>`` from ``_ZN..17hist_slice_kernelIhEEv...``."""
+    m = re.search(r"\d([a-z][a-z_]*_kernel)(?:I(\w)E)?E", mangled)
+    if not m:
+        return mangled
+    targ = {"h": "uint8_t", "i": "int32_t"}.get(m.group(2) or "", "")
+    return m.group(1) + (f"<{targ}>" if targ else "")
+
+
+def kernel_report(mod) -> dict:
+    """Per kernel of a built library: registers and spill bytes from
+    ptxas -v (the build's log) and the counts of the SASS_OPS
+    instructions it compiled to (cuobjdump -sass)."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    report, cur = {}, None
+    for line in mod.log_path().read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = report.setdefault(_kernel_label(m.group(1)), {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur is not None:
+            cur["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    dump = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
+    if not os.path.exists(dump):
+        return report
+    sass = subprocess.run([dump, "-sass", str(mod.library_path())],
+                          capture_output=True, text=True, check=True).stdout
+    cur = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = report.setdefault(_kernel_label(m.group(1)), {})
+            cur["sass"] = {}
+            continue
+        m = _SASS_LINE.search(line)
+        if m and cur is not None and m.group(1).startswith(SASS_OPS):
+            cur["sass"][m.group(1)] = cur["sass"].get(m.group(1), 0) + 1
+    return report
 
 
 def check_kernels(n: int, n_test: int, dev) -> dict:
@@ -141,13 +207,14 @@ def check_kernels(n: int, n_test: int, dev) -> dict:
                            dtype=torch.int32)
     results = {}
 
-    def record(name, err, ms, plain_ms, nbytes, ops, library_ms, exact):
+    def record(name, err, ms, plain_ms, nbytes, ops, library_ms, exact,
+               **extra):
         b_ms, b_by = bound(nbytes, ops)
         results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": b_ms, "bound_by": b_by,
                          "library_ms": library_ms}
         emit({"phase": "kernel", "name": name, "exact": exact,
-              **results[name]})
+              **results[name], **extra})
 
     # K1, histogram form: integer-valued stats must match exactly; float
     # stats to rtol 1e-5 + atol 1e-6·Σ|stats| (summation order).
@@ -155,12 +222,30 @@ def check_kernels(n: int, n_test: int, dev) -> dict:
     h_int = tk.tree_histogram(codes, counts, rel, active, **kw)
     r_int = tk.tree_histogram_ref(codes, counts, rel, active, **kw)
     check(torch.equal(h_int, r_int), "tree_histogram: integer stats differ")
+    # dt's stats: a class one-hot, half of them zero.
+    y = torch.randint(0, S, (n,), generator=g, device=dev)
+    onehot = torch.nn.functional.one_hot(y, S).T.float().contiguous()
+    check(torch.equal(tk.tree_histogram(codes, onehot, rel, active, **kw),
+                      tk.tree_histogram_ref(codes, onehot, rel, active,
+                                            **kw)),
+          "tree_histogram: one-hot stats differ")
     h = tk.tree_histogram(codes, grads, rel, active, **kw)
     r = tk.tree_histogram_ref(codes, grads, rel, active, **kw)
     atol = 1e-6 * float(grads.abs().sum())
     err = float((h - r).abs().max())
     check(torch.allclose(h, r, rtol=1e-5, atol=atol),
           f"tree_histogram: float stats err {err} > atol {atol}")
+    check(torch.equal(h, tk.tree_histogram(codes, grads, rel, active, **kw)),
+          "tree_histogram: two calls on float stats differ")
+    # models/trees.py computes the scales once per tree and passes them
+    # to every level: time the kernel as a level calls it, and the scale
+    # pass on its own.
+    g_max = tk.stat_max_abs(grads)
+    oh_max = tk.stat_max_abs(onehot)
+    extra = {
+        "ms_onehot": time_ms(lambda: tk.tree_histogram(
+            codes, onehot, rel, active, max_abs=oh_max, **kw), 10),
+        "stat_max_abs_ms": time_ms(lambda: tk.stat_max_abs(grads), 10)}
     key = (rel.long()[:, None] * (d * nb)
            + torch.arange(d, device=dev) * nb + codes.long())[active]
     src = grads.T[active][:, None, :].expand(-1, d, S).reshape(-1, S)
@@ -168,15 +253,16 @@ def check_kernels(n: int, n_test: int, dev) -> dict:
     lib_out = torch.zeros((NL * d * nb, S), device=dev)
     n_act = int(active.sum())
     record("tree_histogram", err,
-           time_ms(lambda: tk.tree_histogram(codes, grads, rel, active, **kw),
-                   10),
+           time_ms(lambda: tk.tree_histogram(codes, grads, rel, active,
+                                             max_abs=g_max, **kw), 10),
            time_ms(lambda: tk.tree_histogram_ref(codes, grads, rel, active,
                                                  **kw), 2),
            # Flags and node ids of every row; codes and stats of the
            # active rows; the histogram written once.
            n + 4 * n + n_act * (d + 4 * S) + 4 * NL * d * nb * S,
            n_act * d * S,
-           time_ms(lambda: lib_out.index_add_(0, flat_key, src), 5), True)
+           time_ms(lambda: lib_out.index_add_(0, flat_key, src), 5), True,
+           **extra)
 
     # K1, leaf form.
     l_int = tk.tree_leaf_stats(assign, counts, n_nodes=M)
@@ -188,11 +274,14 @@ def check_kernels(n: int, n_test: int, dev) -> dict:
     err = float((lk - lr_).abs().max())
     check(torch.allclose(lk, lr_, rtol=1e-5, atol=atol),
           f"tree_leaf_stats: err {err}")
+    check(torch.equal(lk, tk.tree_leaf_stats(assign, grads, n_nodes=M)),
+          "tree_leaf_stats: two calls on float stats differ")
     leaf_out = torch.zeros((M, S), device=dev)
     along = assign.long()
     gT = grads.T
     record("tree_leaf_stats", err,
-           time_ms(lambda: tk.tree_leaf_stats(assign, grads, n_nodes=M), 10),
+           time_ms(lambda: tk.tree_leaf_stats(assign, grads, n_nodes=M,
+                                              max_abs=g_max), 10),
            time_ms(lambda: tk.tree_leaf_stats_ref(assign, grads, n_nodes=M),
                    3),
            4 * n + 4 * S * n + 4 * M * S, n * S,
@@ -301,7 +390,8 @@ def manifold_mix(n, d, rng, n_cls=10):
 
 def check_tsne_kernel(dev) -> dict:
     """The repulsion kernel against its plain version at the 60k embed's
-    shape, whole and as two row halves."""
+    shape, unpadded, and with invalid rows scattered; twice on the same
+    inputs; and as two row halves."""
     import torch
 
     from learningorchestra_tpu_torch.ops import tsne_kernels as tsk
@@ -309,17 +399,34 @@ def check_tsne_kernel(dev) -> dict:
     n, nv = TSNE_PADDED, TSNE_ROWS
     g = torch.Generator(device=dev)
     g.manual_seed(1)
+
+    def against_plain(Y, valid, what):
+        Z, F = tsk.tsne_repulsion(Y, valid)
+        Zr, Fr = tsk.tsne_repulsion_ref(Y, valid)
+        f_tol = 1e-4 * float(Fr.abs().max())
+        err = float((F - Fr).abs().max())
+        check(abs(float(Z) - float(Zr)) <= 1e-4 * abs(float(Zr)),
+              f"tsne_repulsion {what}: Z {float(Z)} vs plain {float(Zr)}")
+        check(err <= f_tol, f"tsne_repulsion {what}: F err {err} > {f_tol}")
+        return Z, F, Zr, f_tol, err
+
     # Spread like a late embedding (the explore line's embed_abs_max);
     # padding rows masked.
     Y = torch.randn((n, 2), generator=g, device=dev) * 10.0
     valid = (torch.arange(n, device=dev) < nv).float()
-    Z, F = tsk.tsne_repulsion(Y, valid)
-    Zr, Fr = tsk.tsne_repulsion_ref(Y, valid)
-    f_tol = 1e-4 * float(Fr.abs().max())
-    err = float((F - Fr).abs().max())
-    check(abs(float(Z) - float(Zr)) <= 1e-4 * abs(float(Zr)),
-          f"tsne_repulsion Z {float(Z)} vs plain {float(Zr)}")
-    check(err <= f_tol, f"tsne_repulsion F err {err} > {f_tol}")
+    Z, F, Zr, f_tol, err = against_plain(Y, valid, "60,416 rows")
+    Z2, F2 = tsk.tsne_repulsion(Y, valid)
+    check(torch.equal(Z, Z2) and torch.equal(F, F2),
+          "tsne_repulsion: two calls differ")
+    # No padding: a ragged last tile.
+    ragged = against_plain(Y[:nv].contiguous(),
+                           torch.ones((nv,), device=dev), "60,000 rows")
+    # 1% of the rows invalid at random positions, parked at 0 as the
+    # descent parks them.
+    scattered = (torch.rand((n,), generator=g, device=dev) >= 0.01).float()
+    Ys = Y * scattered[:, None]
+    sc = against_plain(Ys, scattered, "scattered invalid rows")
+    # The row form, over two halves.
     h = n // 2
     Z0, F0 = tsk.tsne_repulsion_rows(Y[:h], valid[:h], Y, valid, 0)
     Z1, F1 = tsk.tsne_repulsion_rows(Y[h:], valid[h:], Y, valid, h)
@@ -328,16 +435,27 @@ def check_tsne_kernel(dev) -> dict:
           f"row halves' Z {float(Z0 + Z1)} vs whole {float(Z)}")
     check(split_err <= f_tol, f"row halves' F err {split_err}")
     # Needed bytes: Y and valid read once, F and Z written once. Needed
-    # operations: every pair of valid rows.
-    b_ms, b_by = bound(20 * n + 4, TSNE_OPS_PER_PAIR * nv * (nv - 1))
+    # operations: each unordered pair of valid rows once.
+    pairs = nv * (nv - 1) / 2
+    b_ms, b_by = bound(20 * n + 4, TSNE_OPS_PER_PAIR * pairs)
+    ordered_ms, _ = bound(20 * n + 4,
+                          TSNE_OPS_PER_ORDERED_PAIR * 2 * pairs)
     result = {"max_abs_err": err, "ms": time_ms(
         lambda: tsk.tsne_repulsion(Y, valid), 50),
         "plain_ms": time_ms(lambda: tsk.tsne_repulsion_ref(Y, valid), 3),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
     emit({"phase": "kernel", "name": "tsne_repulsion", "n": n,
           "n_valid": nv, "Z": float(Z), "Z_plain": float(Zr),
-          "f_tol": f_tol, "halves_Z": float(Z0 + Z1),
-          "halves_max_abs_err": split_err, **result})
+          "f_tol": f_tol, "ragged_max_abs_err": ragged[4],
+          "ragged_f_tol": ragged[3], "scattered_invalid": int(
+              (scattered == 0).sum()),
+          "scattered_max_abs_err": sc[4], "scattered_f_tol": sc[3],
+          "halves_Z": float(Z0 + Z1), "halves_max_abs_err": split_err,
+          # The direct (row-range) form over the whole embedding, timed
+          # in the same run, and the ordered-pair bound it was held to.
+          "rows_form_ms": time_ms(
+              lambda: tsk.tsne_repulsion_rows(Y, valid, Y, valid, 0), 20),
+          "ordered_pair_bound_ms": ordered_ms, **result})
     return result
 
 
@@ -640,7 +758,8 @@ def build_all() -> None:
         t0 = time.time()
         mod.build()
         return {"source": os.path.relpath(mod.SOURCE, ROOT),
-                "seconds": time.time() - t0, "fresh": fresh}
+                "seconds": time.time() - t0, "fresh": fresh,
+                "kernels": kernel_report(mod)}
 
     t0 = time.time()
     with ThreadPoolExecutor(2) as pool:
@@ -663,6 +782,7 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     emit({"phase": "card", "nvidia_smi": card_line(),
+          "clocks_max_sm": card_line("clocks.max.sm"),
           "torch": torch.__version__, "cuda": torch.version.cuda})
     build_all()
     results = check_kernels(args.train_rows, TEST_ROWS, dev)

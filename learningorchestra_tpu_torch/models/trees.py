@@ -112,6 +112,9 @@ def _build_tree(B, stats_T, feat_gain_mask, *, max_depth, n_bins,
     is_internal = torch.zeros((M,), dtype=torch.bool, device=dev)
     assign = torch.zeros((n,), dtype=torch.int32, device=dev)
     slots = torch.arange(NL, device=dev)
+    # The histogram kernel's fixed-point scales: one pass over the stats,
+    # which every level of the tree shares.
+    max_abs = tree_kernels.stat_max_abs(stats_T)
     for level in range(max_depth):
         offset = (1 << level) - 1
         rel = assign - offset
@@ -119,7 +122,8 @@ def _build_tree(B, stats_T, feat_gain_mask, *, max_depth, n_bins,
         rel = torch.where(active, rel, torch.zeros_like(rel))
 
         hist = tree_kernels.tree_histogram(B, stats_T, rel, active,
-                                           n_nodes=NL, n_bins=n_bins)
+                                           n_nodes=NL, n_bins=n_bins,
+                                           max_abs=max_abs)
         left = torch.cumsum(hist, dim=2)                         # ≤ bin t
         total = left[:, :, -1:, :]                               # (NL,d,1,S)
         gain = gain_fn(left, total)                              # (NL,d,nb)
@@ -147,7 +151,8 @@ def _build_tree(B, stats_T, feat_gain_mask, *, max_depth, n_bins,
                                                best_f, best_t, split)
 
     # Leaf sufficient statistics over ALL nodes (every row sits at a leaf).
-    leaf = tree_kernels.tree_leaf_stats(assign, stats_T, n_nodes=M).T
+    leaf = tree_kernels.tree_leaf_stats(assign, stats_T, n_nodes=M,
+                                        max_abs=max_abs).T
     return feat, thr, is_internal, leaf.contiguous()
 
 

@@ -29,7 +29,7 @@ _PKG = Path(__file__).resolve().parent.parent
 #: Build products live beside the package, in a directory git ignores.
 BUILD_ROOT = _PKG.parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _nvcc() -> str:
@@ -61,9 +61,14 @@ class CudaLibrary:
                                 + " ".join(NVCC_FLAGS).encode()).hexdigest()
         return self.build_dir / f"lib{self.name}-{digest[:16]}.so"
 
+    def log_path(self) -> Path:
+        """nvcc's output for the current library (ptxas's registers,
+        shared memory and spills per kernel)."""
+        return self.path().with_suffix(".log")
+
     def build(self) -> Path:
-        """Compile the source if it has no library yet; returns the
-        library's path."""
+        """Compile the source if it has no library yet (nvcc's output
+        kept at ``log_path()``); returns the library's path."""
         so = self.path()
         if so.exists():
             return so
@@ -75,6 +80,9 @@ class CudaLibrary:
             raise RuntimeError(f"nvcc failed on {self.source.name} "
                                f"({proc.returncode}):\n"
                                f"{proc.stdout}{proc.stderr}")
+        log = Path(f"{tmp}.log")
+        log.write_text(proc.stdout + proc.stderr)
+        os.replace(log, self.log_path())
         os.replace(tmp, so)
         return so
 

@@ -43,10 +43,21 @@ from learningorchestra_tpu_torch.ops._cuda_build import (  # noqa: F401
 #: of it for the system).
 SMEM_BYTES = 232_448
 _SM_SMEM_BYTES = 233_472
-#: Histogram row chunk floor; 512-thread blocks fit at most 4 to an SM.
+#: Shared memory per histogram slot: two 32-bit fixed-point words.
+SLOT_BYTES = 8
+#: Histogram row chunk floor; 1024-thread blocks fit at most 2 to an SM.
 _HIST_MIN_ROWS = 2048
-_HIST_MAX_BLOCKS_PER_SM = 4
-#: Cap on the per-chunk partial histograms of one launch.
+_HIST_MAX_BLOCKS_PER_SM = 2
+#: Row cap of one histogram block, so its 32-bit words cannot overflow
+#: (kMaxRowsPerChunk in csrc/tree_kernels.cu, which refuses more).
+HIST_MAX_ROWS = 1 << 17
+#: Fixed point of the histogram kernel (csrc/tree_kernels.cu): each value
+#: becomes rint(v · 2^k) with |·| ≤ 2^HIST_VALUE_BITS, split into words
+#: of HIST_LO_BITS low bits and the signed rest.
+HIST_VALUE_BITS = 27
+HIST_LO_BITS = 14
+#: Cap on the per-chunk int64 partial histograms of one launch (lifted
+#: where the row cap needs more chunks).
 _PARTIAL_BYTES = 512 << 20
 #: Grid cap (in units of SMs) for the one-thread-per-row kernels, whose
 #: blocks stride over rows so each loads its node table once.
@@ -77,8 +88,8 @@ def reset_launch_counts() -> None:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LIB = CudaLibrary("tree_kernels", {
-    "lo_tree_hist_u8": [_P, _P, _P, _P, _P, _P] + [_I] * 9 + [_P],
-    "lo_tree_leaf_i32": [_P, _P, _P, _P] + [_I] * 6 + [_P],
+    "lo_tree_hist_u8": [_P] * 7 + [_I] * 9 + [_P],
+    "lo_tree_leaf_i32": [_P] * 5 + [_I] * 6 + [_P],
     "lo_tree_route": [_P] * 6 + [_I] * 4 + [_P],
     "lo_tree_descend": [_P] * 3 + [_I] * 6 + [_P],
 })
@@ -86,6 +97,8 @@ SOURCE = _LIB.source
 BUILD_DIR = _LIB.build_dir
 #: The shared library for the current source (content-addressed).
 library_path = _LIB.path
+#: nvcc's output for that library (ptxas registers and spills).
+log_path = _LIB.log_path
 #: Compile the kernels if this source has no library yet.
 build = _LIB.build
 _library = _LIB.load
@@ -95,29 +108,57 @@ _library = _LIB.load
 # K1 — histogram and leaf statistics
 # ---------------------------------------------------------------------------
 
+def hist_smem_bytes(NG: int, CG: int, S: int) -> int:
+    """Dynamic shared memory of one histogram block: the slice's slots
+    and the S fixed-point scales."""
+    return NG * CG * S * SLOT_BYTES + 4 * S
+
+
 def hist_plan(n: int, d: int, n_bins: int, S: int, n_nodes: int,
               n_sms: int) -> Tuple[int, int, int, int]:
     """Launch shape of the histogram kernel: (NG nodes and CG of the
     d·n_bins columns per shared-memory slice, R row chunks, rows per
     chunk). The slice is the whole accumulator when it fits the block's
     shared memory; past that, node groups halve first, then columns. Row
-    chunks fill one wave of resident blocks."""
+    chunks fill one wave of resident blocks, with at most HIST_MAX_ROWS
+    rows each."""
     DC = d * n_bins
     NG, CG = max(n_nodes, 1), max(DC, 1)
-    while NG * CG * S * 4 > SMEM_BYTES and NG > 1:
+    while hist_smem_bytes(NG, CG, S) > SMEM_BYTES and NG > 1:
         NG = -(-NG // 2)
-    while NG * CG * S * 4 > SMEM_BYTES and CG > 1:
+    while hist_smem_bytes(NG, CG, S) > SMEM_BYTES and CG > 1:
         CG = -(-CG // 2)
-    if NG * CG * S * 4 > SMEM_BYTES:
+    if hist_smem_bytes(NG, CG, S) > SMEM_BYTES:
         raise ValueError(f"{S} stats per row do not fit a histogram slice")
     slices = -(-n_nodes // NG) * -(-DC // CG)
     # One wave: as many row chunks as the SMs hold blocks at once.
-    per_sm = max(1, min(_HIST_MAX_BLOCKS_PER_SM,
-                        _SM_SMEM_BYTES // (NG * CG * S * 4 + 1024)))
+    per_sm = max(1, min(_HIST_MAX_BLOCKS_PER_SM, _SM_SMEM_BYTES
+                        // (hist_smem_bytes(NG, CG, S) + 1024)))
     R = max(1, min(-(-n // _HIST_MIN_ROWS), -(-per_sm * n_sms // slices)))
-    R = min(R, max(1, _PARTIAL_BYTES // max(n_nodes * DC * S * 4, 1)))
+    R = min(R, max(1, _PARTIAL_BYTES // max(n_nodes * DC * S * 8, 1)))
+    R = max(R, -(-n // HIST_MAX_ROWS))
     rows = max(1, -(-n // R))
     return NG, CG, max(1, -(-n // rows)), rows
+
+
+def stat_max_abs(stats_T: torch.Tensor) -> torch.Tensor:
+    """max |stats_T[s]| per stat row, (S,) float32 on the stats' device:
+    the histogram kernel's fixed-point scale input. Compute it once for
+    stats that several histograms share (a tree's levels)."""
+    if stats_T.shape[1] == 0:
+        return torch.zeros((stats_T.shape[0],), dtype=torch.float32,
+                           device=stats_T.device)
+    return stats_T.abs().amax(dim=1).float().contiguous()
+
+
+def _max_abs_arg(stats_T, max_abs):
+    if max_abs is None:
+        return stat_max_abs(stats_T)
+    _need(max_abs, "max_abs", torch.float32, (stats_T.shape[0],))
+    if max_abs.device != stats_T.device:
+        raise ValueError(f"max_abs on {max_abs.device}, stats on "
+                         f"{stats_T.device}")
+    return max_abs
 
 
 def tree_histogram_ref(codes, stats_T, rel, active, *, n_nodes: int,
@@ -142,13 +183,18 @@ def tree_histogram_ref(codes, stats_T, rel, active, *, n_nodes: int,
 
 
 def tree_histogram(codes, stats_T, rel, active, *, n_nodes: int,
-                   n_bins: int) -> torch.Tensor:
+                   n_bins: int, max_abs=None) -> torch.Tensor:
     """Per-level (node, feature, bin, stat) sums of ``stats_T`` over the
     active rows, grouped by ``rel``.
 
     codes: (n, d) uint8 bin codes; stats_T: (S, n) float32; rel: (n,)
     int32 node id relative to the level (0 for inactive rows); active:
-    (n,) bool. Returns (n_nodes, d, n_bins, S) float32."""
+    (n,) bool; max_abs: ``stat_max_abs(stats_T)`` if the caller has it
+    (computed here otherwise; unused on the CPU). Returns (n_nodes, d,
+    n_bins, S) float32. On the card the sums are exact integer sums of
+    the stats in fixed point (csrc/tree_kernels.cu): integer-valued stats
+    give the plain version's float sums exactly, float stats agree within
+    max|v|·2^-27 a row, and every run gives the same bits."""
     if not _on_cuda(codes, stats_T, rel, active):
         return tree_histogram_ref(codes, stats_T, rel, active,
                                   n_nodes=n_nodes, n_bins=n_bins)
@@ -158,17 +204,18 @@ def tree_histogram(codes, stats_T, rel, active, *, n_nodes: int,
     _need(stats_T, "stats_T", torch.float32, (S, n))
     _need(rel, "rel", torch.int32, (n,))
     _need(active, "active", torch.bool, (n,))
+    max_abs = _max_abs_arg(stats_T, max_abs)
     dev = codes.device
     NG, CG, R, rows = hist_plan(n, d, n_bins, S, n_nodes, _num_sms(dev))
     out = torch.empty((n_nodes, d, n_bins, S), dtype=torch.float32,
                       device=dev)
-    partial = (torch.empty((R, out.numel()), dtype=torch.float32, device=dev)
-               if R > 1 else out)
+    partial = torch.empty((R, out.numel()), dtype=torch.int64, device=dev)
     lib = _library()
     _check(lib.lo_tree_hist_u8(
-        codes.data_ptr(), stats_T.data_ptr(), rel.data_ptr(),
-        active.data_ptr(), out.data_ptr(), partial.data_ptr(), n, d, n_bins,
-        S, n_nodes, NG, CG, R, rows, _stream(dev)), "tree_histogram")
+        codes.data_ptr(), stats_T.data_ptr(), max_abs.data_ptr(),
+        rel.data_ptr(), active.data_ptr(), out.data_ptr(),
+        partial.data_ptr(), n, d, n_bins, S, n_nodes, NG, CG, R, rows,
+        _stream(dev)), "tree_histogram")
     _count("tree_histogram")
     return out
 
@@ -182,10 +229,12 @@ def tree_leaf_stats_ref(assign, stats_T, *, n_nodes: int) -> torch.Tensor:
     return out.T
 
 
-def tree_leaf_stats(assign, stats_T, *, n_nodes: int) -> torch.Tensor:
+def tree_leaf_stats(assign, stats_T, *, n_nodes: int,
+                    max_abs=None) -> torch.Tensor:
     """Per-node sums of ``stats_T`` over the rows' final node ids — the
-    histogram kernel with one synthetic feature whose code is the node id.
-    assign: (n,) int32 in [0, n_nodes); stats_T: (S, n) float32. Returns
+    histogram kernel with one synthetic feature whose code is the node id,
+    in the same fixed point. assign: (n,) int32 in [0, n_nodes); stats_T:
+    (S, n) float32; max_abs as for ``tree_histogram``. Returns
     (S, n_nodes) float32 (a transposed view)."""
     if not _on_cuda(assign, stats_T):
         return tree_leaf_stats_ref(assign, stats_T, n_nodes=n_nodes)
@@ -193,16 +242,16 @@ def tree_leaf_stats(assign, stats_T, *, n_nodes: int) -> torch.Tensor:
     S = stats_T.shape[0]
     _need(assign, "assign", torch.int32, (n,))
     _need(stats_T, "stats_T", torch.float32, (S, n))
+    max_abs = _max_abs_arg(stats_T, max_abs)
     dev = assign.device
     _, CG, R, rows = hist_plan(n, 1, n_nodes, S, 1, _num_sms(dev))
     out = torch.empty((n_nodes, S), dtype=torch.float32, device=dev)
-    partial = (torch.empty((R, out.numel()), dtype=torch.float32, device=dev)
-               if R > 1 else out)
+    partial = torch.empty((R, out.numel()), dtype=torch.int64, device=dev)
     lib = _library()
     _check(lib.lo_tree_leaf_i32(
-        assign.data_ptr(), stats_T.data_ptr(), out.data_ptr(),
-        partial.data_ptr(), n, n_nodes, S, CG, R, rows, _stream(dev)),
-        "tree_leaf_stats")
+        assign.data_ptr(), stats_T.data_ptr(), max_abs.data_ptr(),
+        out.data_ptr(), partial.data_ptr(), n, n_nodes, S, CG, R, rows,
+        _stream(dev)), "tree_leaf_stats")
     _count("tree_leaf_stats")
     return out.T
 

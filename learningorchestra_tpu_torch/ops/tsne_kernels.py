@@ -4,9 +4,12 @@ plain PyTorch version.
 The JAX package runs the O(n²) repulsion of every t-SNE descent step as
 a Pallas TPU kernel (``learningorchestra_tpu/ops/pallas_kernels.py``
 ``_repulsion_kernel``, through ``tsne_repulsion_rows`` and
-``tsne_repulsion``). Here it is a CUDA kernel in
+``tsne_repulsion``). Here it is two CUDA kernels in
 ``csrc/tsne_kernels.cu`` (design notes there), built with ``nvcc`` for
-``sm_90a`` at first use and bound with ctypes.
+``sm_90a`` at first use and bound with ctypes: ``tsne_repulsion`` over
+the whole embedding evaluates each unordered pair once and credits both
+rows; ``tsne_repulsion_rows`` over a row range sums each query row over
+every column (the direct form).
 
 For query rows ``Yq`` (global row ids ``offset + i``) against every row
 of ``Y``, with ``q_ij = 1 / (1 + |y_i − y_j|²)`` masked where either
@@ -20,7 +23,9 @@ gives the whole embedding's Z.
 The wrapper takes the plain version only for tensors on the CPU; for
 CUDA tensors it launches its kernel or raises. Each launch adds one to
 ``launch_counts()["tsne_repulsion"]``. Unlike the Pallas kernel, neither
-form needs n or nq to be a multiple of a tile.
+form needs n or nq to be a multiple of a tile. The two forms group their
+float sums differently, so a row range agrees with the whole call to
+rounding, not bit for bit.
 """
 
 from __future__ import annotations
@@ -54,11 +59,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LIB = CudaLibrary("tsne_kernels", {
     "lo_tsne_repulsion": [_P] * 4 + [_I] * 3 + [_P] * 5,
+    "lo_tsne_repulsion_sym": [_P, _P, _I] + [_P] * 5,
+    "lo_tsne_sym_tile": [],
     "lo_tsne_rows_per_block": [],
     "lo_tsne_cols_per_chunk": [],
 })
 SOURCE = _LIB.source
 library_path = _LIB.path
+#: nvcc's output for that library (ptxas registers and spills).
+log_path = _LIB.log_path
 build = _LIB.build
 
 
@@ -100,15 +109,8 @@ def tsne_repulsion_rows(Yq: torch.Tensor, validq: torch.Tensor,
     if not on_cuda(Yq, validq, Y, valid):
         return tsne_repulsion_rows_ref(Yq, validq, Y, valid, offset)
     nq, n = Yq.shape[0], Y.shape[0]
-    if nq < 1 or n < 1:
-        raise ValueError(f"tsne_repulsion needs rows: nq={nq}, n={n}")
-    need(Yq, "Yq", torch.float32, (nq, 2))
-    need(validq, "validq", torch.float32, (nq,))
-    need(Y, "Y", torch.float32, (n, 2))
-    need(valid, "valid", torch.float32, (n,))
-    for name, t in (("Yq", Yq), ("Y", Y)):
-        if t.data_ptr() % 8:
-            raise ValueError(f"{name}: rows must be 8-byte aligned")
+    _check_inputs(Yq, validq, "Yq", "validq")
+    _check_inputs(Y, valid, "Y", "valid")
     dev = Y.device
     lib = _LIB.load()
     row_blocks = -(-nq // lib.lo_tsne_rows_per_block())
@@ -133,5 +135,36 @@ def tsne_repulsion_ref(Y: torch.Tensor, valid: torch.Tensor):
 
 def tsne_repulsion(Y: torch.Tensor, valid: torch.Tensor):
     """Exact t-SNE repulsion over all pairs of a 2-D embedding: Y (n, 2)
-    float32, valid (n,) float32 masks padding rows. Returns (Z, F)."""
-    return tsne_repulsion_rows(Y, valid, Y, valid, 0)
+    float32, valid (n,) float32 (1 or 0) masks padding rows, which may
+    sit anywhere. Returns (Z 0-d float32, F (n, 2) float32) on Y's
+    device."""
+    if not on_cuda(Y, valid):
+        return tsne_repulsion_ref(Y, valid)
+    n = Y.shape[0]
+    _check_inputs(Y, valid, "Y", "valid")
+    dev = Y.device
+    lib = _LIB.load()
+    nt = -(-n // lib.lo_tsne_sym_tile())
+    part = torch.empty((nt, nt, lib.lo_tsne_sym_tile(), 2),
+                       dtype=torch.float32, device=dev)
+    zpart = torch.empty((nt * (nt + 1) // 2,), dtype=torch.float32,
+                        device=dev)
+    F = torch.empty((n, 2), dtype=torch.float32, device=dev)
+    Z = torch.empty((), dtype=torch.float32, device=dev)
+    check_launch(lib.lo_tsne_repulsion_sym(
+        Y.data_ptr(), valid.data_ptr(), n, part.data_ptr(),
+        zpart.data_ptr(), F.data_ptr(), Z.data_ptr(), stream(dev)),
+        "tsne_repulsion")
+    _counter.add("tsne_repulsion")
+    return Z, F
+
+
+def _check_inputs(Y: torch.Tensor, valid: torch.Tensor, y_name: str,
+                  v_name: str) -> None:
+    n = Y.shape[0]
+    if n < 1:
+        raise ValueError(f"tsne_repulsion needs rows: {y_name} has none")
+    need(Y, y_name, torch.float32, (n, 2))
+    need(valid, v_name, torch.float32, (n,))
+    if Y.data_ptr() % 8:
+        raise ValueError(f"{y_name}: rows must be 8-byte aligned")

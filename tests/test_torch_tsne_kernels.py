@@ -118,3 +118,90 @@ def test_wrapper_refuses_other_devices():
     with pytest.raises(ValueError):
         tsk.tsne_repulsion(Y, v)
     assert tsk.launch_counts() == {"tsne_repulsion": 0}
+
+
+# ---------------------------------------------------------------------------
+# The card's whole-embedding kernel (each unordered pair once), modelled
+# in PyTorch
+# ---------------------------------------------------------------------------
+
+def _symmetric_repulsion(Y, valid, tile):
+    """What csrc/tsne_kernels.cu's whole-embedding kernel computes, tile
+    pair by tile pair: square tiles of ``tile`` rows (the last one ragged,
+    its missing rows invalid); for tile pairs I < J every pair once, its
+    q²·(y_i − y_j) added to row i and subtracted from row j and 2q to Z,
+    q masked only where a tile holds an invalid row; diagonal tiles in the
+    direct form over ordered pairs with the self pair masked; each row's
+    slots then summed in slot order."""
+    n = Y.shape[0]
+    nt = -(-n // tile)
+    pad = nt * tile - n
+    Yp = torch.cat([Y, torch.zeros((pad, 2))])
+    vp = torch.cat([valid, torch.zeros(pad)])
+    part = torch.zeros((nt, nt, tile, 2))
+    zparts = []
+    for i in range(nt):
+        yi, vi = Yp[i * tile:(i + 1) * tile], vp[i * tile:(i + 1) * tile]
+        for j in range(i, nt):
+            yj, vj = Yp[j * tile:(j + 1) * tile], vp[j * tile:(j + 1) * tile]
+            dx = yi[:, 0:1] - yj[None, :, 0]
+            dy = yi[:, 1:2] - yj[None, :, 1]
+            q = 1.0 / (1.0 + dx * dx + dy * dy)
+            if i == j:
+                q = q * (vi[:, None] * vj[None, :])
+                q.fill_diagonal_(0.0)
+            elif not (bool((vi == 1).all()) and bool((vj == 1).all())):
+                q = q * (vi[:, None] * vj[None, :])
+            q2 = q * q
+            part[i, j, :, 0] = (q2 * dx).sum(1)
+            part[i, j, :, 1] = (q2 * dy).sum(1)
+            if i != j:
+                part[j, i, :, 0] = -(q2 * dx).sum(0)
+                part[j, i, :, 1] = -(q2 * dy).sum(0)
+            zparts.append(q.sum() * (1.0 if i == j else 2.0))
+    F = part.sum(dim=1).reshape(nt * tile, 2)[:n]
+    return torch.stack(zparts).sum(), F
+
+
+def _scattered_invalid(n, seed):
+    """Inputs with invalid rows scattered among the valid ones and parked
+    at 0, as the descent parks them, plus a trailing invalid tail."""
+    rng = np.random.default_rng(seed)
+    Y = rng.normal(size=(n, 2)).astype(np.float32) * 3.0
+    valid = (rng.random(n) >= 0.05).astype(np.float32)
+    valid[-40:] = 0.0
+    Y[valid == 0] = 0.0
+    return Y, valid
+
+
+@pytest.mark.parametrize("n,tile,scattered", [(640, 256, False),
+                                              (640, 256, True),
+                                              (384, 256, True),
+                                              (512, 128, True)])
+def test_symmetric_repulsion_matches_pallas(n, tile, scattered):
+    """Tile pairs over the upper triangle, an n off the modelled tile
+    (a ragged last tile) and invalid rows trailing or scattered at 0,
+    against the Pallas kernel (tile 128) at this file's tolerances: Z
+    rtol 1e-5; F rtol 1e-4, atol 1e-5."""
+    Y, valid = (_scattered_invalid(n, seed=6) if scattered
+                else _inputs(n, n - 100, seed=6))
+    Z_ref, F_ref = pk.tsne_repulsion(jnp.asarray(Y), jnp.asarray(valid),
+                                     tile=TILE)
+    Z, F = _symmetric_repulsion(*_torch(Y, valid), tile)
+    assert np.isclose(float(Z), float(Z_ref), rtol=1e-5)
+    np.testing.assert_allclose(F.numpy(), np.asarray(F_ref), rtol=1e-4,
+                               atol=1e-5)
+    assert not F[torch.from_numpy(valid) == 0].any()
+
+
+def test_symmetric_repulsion_matches_the_plain_version():
+    """The model and the port's plain version (direct form) agree on a
+    size no Pallas tile divides, two points sharing a parked coordinate
+    included: invalid rows at the same place add nothing (Z rtol 1e-5;
+    F rtol 1e-4, atol 1e-5)."""
+    Y, valid = _scattered_invalid(300, seed=7)
+    Z, F = _symmetric_repulsion(*_torch(Y, valid), 128)
+    Z_ref, F_ref = tsk.tsne_repulsion_ref(*_torch(Y, valid))
+    assert np.isclose(float(Z), float(Z_ref), rtol=1e-5)
+    np.testing.assert_allclose(F.numpy(), F_ref.numpy(), rtol=1e-4,
+                               atol=1e-5)
