@@ -16,7 +16,15 @@ Phases, one JSON line each (any failure exits non-zero):
    on the same inputs (bit-identical for node ids and integer-valued
    histograms; rtol 1e-5 with atol 1e-6·Σ|stats| for float stats, which
    the card sums in fixed point), two calls bit-identical, and their
-   times beside the card's bound;
+   times beside the card's bound; routing also from the feature-major
+   codes and without them, and descent of a 20-tree forest over the test
+   and the train rows, each beside the floor the row-major layout forces
+   (``layout_floor_ms``), and the rate of a device-to-device copy of the
+   codes in the same run; the feature-major copy against ``.t()
+   .contiguous()``; routing and descent also bit for bit at a
+   ragged n, d = 6, 256 bins, unaligned inputs, a depth-12 forest in
+   several table chunks, rows of 128 and 300 bytes (two rows and one row
+   a thread) and a 784-wide row on the direct path;
 4. the t-SNE repulsion kernel at the MNIST-60k shape (60,416 rows, 60,000
    valid), at 60,000 rows with no padding, and with 1% of the rows
    invalid at random positions and parked at 0, each against its plain
@@ -68,12 +76,15 @@ FP32_OPS_S = 67e12
 PALLAS = "learningorchestra_tpu/ops/pallas_kernels.py"
 TREE_SOURCE = "learningorchestra_tpu_torch/csrc/tree_kernels.cu"
 TSNE_SOURCE = "learningorchestra_tpu_torch/csrc/tsne_kernels.cu"
-#: kernel → (source in the repo, the TPU kernel it replaces).
+#: kernel → (source in the repo, the TPU kernel it replaces; None for a
+#: kernel that is part of another's port).
 KERNELS = {
     "tree_histogram": (TREE_SOURCE, f"{PALLAS}:208"),
     "tree_leaf_stats": (TREE_SOURCE, f"{PALLAS}:299"),
     "tree_route_level": (TREE_SOURCE, f"{PALLAS}:321"),
     "tree_descend": (TREE_SOURCE, f"{PALLAS}:372"),
+    # The layout K2's port reads (the TPU kernel read row-major codes).
+    "feature_major": (TREE_SOURCE, None),
     "tsne_repulsion": (TSNE_SOURCE, f"{PALLAS}:51"),
 }
 #: The t-SNE workload: MNIST-60k's shape, padded to whole 1024-row tiles.
@@ -140,11 +151,14 @@ _SASS_LINE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
 
 def _kernel_label(mangled: str) -> str:
     """A readable kernel name from a mangled one: ``hist_slice_kernel
-    <uint8_t>`` from ``_ZN..17hist_slice_kernelIhEEv...``."""
-    m = re.search(r"\d([a-z][a-z_]*_kernel)(?:I(\w)E)?E", mangled)
+    <uint8_t>`` from ``_ZN..17hist_slice_kernelIhEEv...``,
+    ``descend_staged_kernel<4>`` from ``..descend_staged_kernelILi4EEEv``."""
+    m = re.search(r"\d([a-z][a-z_]*_kernel)(?:I(?:(\w)|Li(\d+)E)E)?E",
+                  mangled)
     if not m:
         return mangled
-    targ = {"h": "uint8_t", "i": "int32_t"}.get(m.group(2) or "", "")
+    targ = {"h": "uint8_t", "i": "int32_t"}.get(m.group(2) or "",
+                                                m.group(3) or "")
     return m.group(1) + (f"<{targ}>" if targ else "")
 
 
@@ -208,11 +222,13 @@ def check_kernels(n: int, n_test: int, dev) -> dict:
     results = {}
 
     def record(name, err, ms, plain_ms, nbytes, ops, library_ms, exact,
-               **extra):
+               layout_floor_ms=None, **extra):
         b_ms, b_by = bound(nbytes, ops)
         results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": b_ms, "bound_by": b_by,
                          "library_ms": library_ms}
+        if layout_floor_ms is not None:
+            results[name]["layout_floor_ms"] = layout_floor_ms
         emit({"phase": "kernel", "name": name, "exact": exact,
               **results[name], **extra})
 
@@ -287,7 +303,9 @@ def check_kernels(n: int, n_test: int, dev) -> dict:
            4 * n + 4 * S * n + 4 * M * S, n * S,
            time_ms(lambda: leaf_out.index_add_(0, along, gT), 5), True)
 
-    # K2: routing at the deepest level's width.
+    # K2: routing at the deepest level's width, from the feature-major
+    # codes as every level of a fit calls it, and without them (the
+    # wrapper makes its own copy).
     best_f = torch.randint(0, d, (NL,), generator=g, device=dev,
                            dtype=torch.int32)
     best_t = torch.randint(0, nb, (NL,), generator=g, device=dev,
@@ -295,20 +313,49 @@ def check_kernels(n: int, n_test: int, dev) -> dict:
     split = torch.rand((NL,), generator=g, device=dev) < 0.7
     base = torch.full((n,), NL - 1, dtype=torch.int32, device=dev) + rel
     args = (codes, rel, active, base, best_f, best_t, split)
-    out = tk.tree_route_level(*args)
+    codes_T = tk.feature_major(codes)
+    plain_T = tk.feature_major_ref(codes)
+    check(torch.equal(codes_T, plain_T), "feature_major differs")
+    check(torch.equal(tk.feature_major(codes), codes_T),
+          "feature_major: two calls differ")
+    del plain_T
+    # Codes read once, written once.
+    record("feature_major", 0.0,
+           time_ms(lambda: tk.feature_major(codes), 10),
+           time_ms(lambda: tk.feature_major_ref(codes), 10),
+           2 * n * d, 0, time_ms(lambda: codes.t().contiguous(), 10), True)
+    out = tk.tree_route_level(*args, codes_T=codes_T)
     ref = tk.tree_route_level_ref(*args)
     check(torch.equal(out, ref), "tree_route_level differs")
+    check(torch.equal(tk.tree_route_level(*args), ref),
+          "tree_route_level differs without codes_T")
+    check(torch.equal(tk.tree_route_level(*args, codes_T=codes_T), out),
+          "tree_route_level: two calls differ")
     # Needed bytes: flags, node ids, ids in and out for every row, and one
-    # code byte for each row that moves to a child.
-    moved = int((active & split[rel.long()]).sum())
+    # code byte for each row that moves to a child. The row-major layout
+    # makes a warp fetch its rows' whole spans (d bytes a row); the
+    # feature-major one a 32-B sector per distinct (feature, 32-row run)
+    # among the rows that move.
+    moving = active & split[rel.long()]
+    moved = int(moving.sum())
+    ids = n + 3 * 4 * n
+    run = torch.arange(n, device=dev)[moving] // 32
+    sectors = torch.unique(best_f.long()[rel.long()][moving] * -(-n // 32)
+                           + run).numel()
     record("tree_route_level", float((out - ref).abs().max()),
-           time_ms(lambda: tk.tree_route_level(*args), 20),
+           time_ms(lambda: tk.tree_route_level(*args, codes_T=codes_T), 20),
            time_ms(lambda: tk.tree_route_level_ref(*args), 3),
-           n + 3 * 4 * n + moved + 4 * 3 * NL, 0, None, True)
+           ids + moved + 4 * 3 * NL, 0, None, True,
+           layout_floor_ms=bound(ids + n * d)[0],
+           feature_major_floor_ms=bound(ids + 32 * sectors)[0],
+           ms_without_codes_T=time_ms(lambda: tk.tree_route_level(*args), 10),
+           codes_T_ms=results["feature_major"]["ms"],
+           cases=route_cases(dev))
+    del codes_T
 
     # K3: a random full tree; one tree over the train rows (the gb fit's
-    # per-round descent) and a 20-tree forest over the test rows (a
-    # forest predict's single launch).
+    # per-round descent), a 20-tree forest over the test rows (a forest
+    # predict's single launch) and over all train rows.
     feat = torch.randint(0, d, (20, M), generator=g, device=dev,
                          dtype=torch.int32)
     thr = torch.randint(0, nb, (20, M), generator=g, device=dev,
@@ -320,24 +367,168 @@ def check_kernels(n: int, n_test: int, dev) -> dict:
     out = tk.tree_descend(*one, max_depth=depth)
     ref = tk.tree_descend_ref(*one, max_depth=depth)
     check(torch.equal(out, ref), "tree_descend differs (one tree)")
+    check(torch.equal(tk.tree_descend(*one, max_depth=depth), out),
+          "tree_descend: two calls differ")
+    forest = (feat, thr, internal)
     test_codes = codes[:n_test]
-    out_f = tk.tree_descend(test_codes, feat, thr, internal, max_depth=depth)
-    ref_f = tk.tree_descend_ref(test_codes, feat, thr, internal,
-                                max_depth=depth)
-    check(torch.equal(out_f, ref_f), "tree_descend differs (forest)")
+    out_f = tk.tree_descend(test_codes, *forest, max_depth=depth)
+    check(torch.equal(out_f, tk.tree_descend_ref(test_codes, *forest,
+                                                 max_depth=depth)),
+          "tree_descend differs (forest, test rows)")
+    out_f = tk.tree_descend(codes, *forest, max_depth=depth)
+    check(torch.equal(out_f, tk.tree_descend_ref(codes, *forest,
+                                                 max_depth=depth)),
+          "tree_descend differs (forest, train rows)")
+    del out_f
     # Needed bytes: one code byte per internal node a row passes through,
-    # the table, and the leaf ids written.
-    visits, a = 0, torch.zeros((n,), dtype=torch.long, device=dev)
-    for _ in range(depth):
-        go = internal[0].long()[a] != 0
-        visits += int(go.sum())
-        v = codes.gather(1, feat[0].long()[a][:, None])[:, 0]
-        a = torch.where(go, 2 * a + 1 + (v > thr[0][a]).long(), a)
+    # the tables, and the leaf ids written. The layout forces each row's
+    # d bytes once a launch (the staged stream) and the leaf ids.
+    visits = descent_visits(codes, *forest, depth)
+    T = feat.shape[0]
+    plan = tk.descend_plan(n, d, depth, T, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    # What the card's memory gives a plain stream in this run: a
+    # device-to-device copy of the codes (read and written once).
+    copy = torch.empty_like(codes)
+    copy_ms = time_ms(lambda: copy.copy_(codes), 20)
+    del copy
     record("tree_descend", float((out - ref).abs().max()),
            time_ms(lambda: tk.tree_descend(*one, max_depth=depth), 20),
            time_ms(lambda: tk.tree_descend_ref(*one, max_depth=depth), 3),
-           visits + 4 * 3 * M + 4 * n, 0, None, True)
+           visits[0] + 4 * 3 * M + 4 * n, 0, None, True,
+           layout_floor_ms=bound(n * d + 4 * n)[0],
+           forest_test_ms=time_ms(lambda: tk.tree_descend(
+               test_codes, *forest, max_depth=depth), 20),
+           forest_train_ms=time_ms(lambda: tk.tree_descend(
+               codes, *forest, max_depth=depth), 10),
+           forest_train_bound_ms=bound(sum(visits) + 4 * 3 * M * T
+                                       + 4 * n * T)[0],
+           forest_train_layout_floor_ms=bound(n * d + 4 * n * T)[0],
+           copy_tb_s=2 * n * d / copy_ms / 1e9,
+           plan=plan._asdict(), cases=descend_cases(dev))
     return results
+
+
+def descent_visits(codes, feat, thr, internal, depth) -> list:
+    """Per tree, the internal nodes the rows pass through on their walks:
+    the code bytes a descent needs."""
+    import torch
+
+    visits = []
+    for t in range(feat.shape[0]):
+        f, th, go = feat[t].long(), thr[t], internal[t].long()
+        a = torch.zeros((codes.shape[0],), dtype=torch.long,
+                        device=codes.device)
+        count = 0
+        for _ in range(depth):
+            on = go[a] != 0
+            count += int(on.sum())
+            v = codes.gather(1, f[a][:, None])[:, 0]
+            a = torch.where(on, 2 * a + 1 + (v > th[a]).long(), a)
+        visits.append(count)
+    return visits
+
+
+def route_cases(dev) -> list:
+    """K2 against its plain version, with and without codes_T, where the
+    HIGGS case does not reach: a ragged n, d = 6, 256 bins, a depth-12
+    level's 2,048 nodes, thresholds past the codes' range, and id arrays
+    that are unaligned views (the kernel's scalar form). Its own seed, so
+    the timed cases' inputs do not depend on these."""
+    import torch
+
+    from learningorchestra_tpu_torch.ops import tree_kernels as tk
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    cases = []
+    for n, d, nb, NL, off in ((1_000_003, 6, 256, 16, 0),
+                              (1_000_003, 28, 256, 2048, 1)):
+        codes = torch.randint(0, nb, (n, d), generator=g, device=dev,
+                              dtype=torch.uint8)
+        rel = torch.randint(0, NL, (n + off,), generator=g, device=dev,
+                            dtype=torch.int32)
+        active = torch.rand((n + off,), generator=g, device=dev) < 0.8
+        rel = torch.where(active, rel, torch.zeros_like(rel))
+        rel, active, assign = rel[off:], active[off:], (rel + NL - 1)[off:]
+        best_f = torch.randint(0, d, (NL,), generator=g, device=dev,
+                               dtype=torch.int32)
+        picks = torch.tensor([-5, -1, 0, 3, 254, 255, 300], device=dev,
+                             dtype=torch.int32)
+        best_t = picks[torch.randint(0, len(picks), (NL,), generator=g,
+                                     device=dev)]
+        split = torch.rand((NL,), generator=g, device=dev) < 0.7
+        args = (codes, rel, active, assign, best_f, best_t, split)
+        ref = tk.tree_route_level_ref(*args)
+        codes_T = tk.feature_major(codes)
+        check(torch.equal(codes_T, tk.feature_major_ref(codes)),
+              f"feature_major differs: n={n} d={d}")
+        for codes_T in (None, codes_T):
+            check(torch.equal(tk.tree_route_level(*args, codes_T=codes_T),
+                              ref),
+                  f"tree_route_level differs: n={n} d={d} bins={nb} "
+                  f"NL={NL} offset={off} codes_T={codes_T is not None}")
+        cases.append({"n": n, "d": d, "n_bins": nb, "NL": NL,
+                      "id_offset": off, "exact": True})
+    return cases
+
+
+def descend_cases(dev) -> list:
+    """K3 against its plain version where the HIGGS case does not reach:
+    a ragged n with d = 6 and 256 bins, codes starting off a 16-B
+    boundary, a depth-12 forest whose tables take several chunks, rows
+    of 128 and 300 bytes (the staged kernel with two rows a thread and
+    with one), and a 784-wide row on the direct path; each twice, bit for
+    bit. Its own seed, so the timed cases' inputs do not depend on
+    these."""
+    import torch
+
+    from learningorchestra_tpu_torch.ops import tree_kernels as tk
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cases = []
+    for n, d, nb, depth, T, off in ((1_000_003, 6, 256, 5, 3, 0),
+                                    (100_000, 28, 32, 5, 20, 1),
+                                    (200_003, 28, 32, 12, 20, 0),
+                                    (100_003, 128, 32, 5, 3, 0),
+                                    (100_003, 300, 32, 12, 5, 0),
+                                    (100_003, 784, 2, 5, 3, 0)):
+        M = 2 ** (depth + 1) - 1
+        codes = torch.randint(0, nb, (n + off, d), generator=g, device=dev,
+                              dtype=torch.uint8)[off:]
+        feat = torch.randint(0, d, (T, M), generator=g, device=dev,
+                             dtype=torch.int32)
+        thr = torch.randint(-1, nb + 1, (T, M), generator=g, device=dev,
+                            dtype=torch.int32)
+        internal = torch.rand((T, M), generator=g, device=dev) < 0.9
+        out = tk.tree_descend(codes, feat, thr, internal, max_depth=depth)
+        what = f"n={n} d={d} bins={nb} depth={depth} T={T} offset={off}"
+        check(torch.equal(out, tk.tree_descend_ref(codes, feat, thr,
+                                                   internal,
+                                                   max_depth=depth)),
+              f"tree_descend differs: {what}")
+        check(torch.equal(out, tk.tree_descend(codes, feat, thr, internal,
+                                               max_depth=depth)),
+              f"tree_descend: two calls differ: {what}")
+        if d > 32:
+            check(torch.equal(tk.feature_major(codes),
+                              tk.feature_major_ref(codes)),
+                  f"feature_major differs: n={n} d={d}")
+        plan = tk.descend_plan(n, d, depth, T, sms)
+        cases.append({"n": n, "d": d, "n_bins": nb, "depth": depth, "T": T,
+                      "byte_offset": off * d, "staged": plan.staged,
+                      "rows_per_thread": plan.rows_per_tile
+                      // tk.DESCEND_THREADS, "chunks": plan.chunks,
+                      "exact": True})
+    check(cases[2]["chunks"] > 1 and cases[2]["staged"],
+          "the depth-12 forest should take several staged chunks")
+    for i, k in ((0, 4), (1, 4), (2, 4), (3, 2), (4, 1)):
+        check(cases[i]["staged"] and cases[i]["rows_per_thread"] == k,
+              f"descent case {i} should walk {k} rows a thread")
+    check(not cases[5]["staged"], "d = 784 should take the direct path")
+    return cases
 
 
 def check_small_reference(dev) -> None:
@@ -696,6 +887,8 @@ def main_path(n_train: int, n_test: int, dev) -> dict:
         mb = ModelBuilder(store, runtime, cfg)
         families = ["lr", "dt", "rf", "gb", "nb"]
         torch.cuda.synchronize()
+        # The sweep's own peak, not the kernel checks' before it.
+        torch.cuda.reset_peak_memory_stats(dev)
         tk.reset_launch_counts()
         t0 = time.time()
         with tracing.trace("chip_smoke.build", sampled=True) as ctx:
@@ -793,6 +986,7 @@ def main() -> int:
     counts = main_path(args.train_rows, TEST_ROWS, dev)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         **({} if rep else {"part_of": "tree_route_level"}),
          "launches": counts[name], **results[name]}
         for name, (src, rep) in KERNELS.items()]})
     emit({"ok": True, "device": {"platform": "gpu",

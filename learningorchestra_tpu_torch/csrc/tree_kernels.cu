@@ -59,16 +59,73 @@
 //     shape (16 nodes x 28 features x 32 bins x 2 stats x 8 B = 224 KiB)
 //     there is one slice, so one read of the rows by one wave of blocks.
 //
-// K2  tree_route       replaces _tree_route_kernel (tree_route_level).
-// K3  tree_descend     replaces _tree_descend_kernel (tree_descend).
-//     What bounds them: memory — one byte of codes per level (a gather
-//     within the row's d bytes) plus 4-13 B of node ids per row. The TPU
-//     kernels emulated the per-row table lookups with one-hot masked
-//     sums; here one thread owns a row, the node tables sit in shared
-//     memory (up to 3 x 8191 int32 = 96 KiB for K3 at depth 12), and all
-//     arithmetic is integer, so results are bit-identical to the plain
-//     versions. K3 takes a leading tree axis (grid.y) so one launch
-//     serves a whole forest predict.
+// K2 and K3 pack their node tables as each block loads them into shared
+// memory, so the wrapper spends no tensor operations on them, and a
+// lookup is one 32-bit shared-memory load. A split compares code[f] with
+// tt = thr + 1 clamped to [0, 256], what a uint8 code can meet (code >
+// thr iff code >= tt); a split on a feature outside [0, d) compares code
+// 0, as the Pallas kernels' one-hot select does, so it is packed as
+// feature 0 with a fixed side (split_tt). All arithmetic is integer, so
+// node ids are bit-identical to the plain versions.
+// - Node word (pack_node; K2, and K3's direct path): bit 31 set keeps
+//   the row where it is (a node that does not split, a leaf); bits 30..9
+//   hold f (the wrapper refuses d > 2^22); bits 8..0 hold tt.
+// - Staged entry (pack_step; K3's staged path): (key << 9) | f with key
+//   = ((2a + 1) << 8) + 256 - tt, so a level is a' = (key + code[f]) >> 8
+//   with no branch: the key's low 9 bits plus the code carry into bit 8
+//   iff code >= tt. A node that keeps its rows has key a << 8.
+//
+// K2  tree_route       replaces learningorchestra_tpu/ops/pallas_kernels.py
+//                      _tree_route_kernel (:321, tree_route_level :342).
+//     The bound counts 13 B of node ids a row (rel, assign, out 4 B each,
+//     the active flag 1 B) and one code byte for each row that moves.
+//     What the layout forces: read from the row-major (n, d) codes, a
+//     warp's 32 rows span 32 * d bytes (28 sectors at d = 28), and rows
+//     at random features fetch nearly all of them, so d bytes a row: 41 B
+//     a row at the HIGGS shape, 3x the bound. The design reads codes
+//     from a feature-major (d, n) copy, codes_T, made once per bin matrix
+//     by the fits (models/trees.py; feature_major_kernel below) and shared
+//     by every level of every tree: a warp's rows that read feature f
+//     read one contiguous run, so a sector is fetched once per distinct
+//     feature among its rows' nodes (1 at level 0, about 8-9 at the
+//     deepest HIGGS level, never d), and rows that do not move read none.
+//     Each thread takes four consecutive rows: rel and assign as one 16-B
+//     load each, the four flags as one word, four independent code loads
+//     in flight, one 16-B store.
+//
+// K3  tree_descend     replaces _tree_descend_kernel (:372, tree_descend
+//                      :470).
+//     The bound counts one code byte per internal node a row passes and
+//     4 B of leaf id a row and tree. What the layout forces: a row's
+//     codes are d contiguous bytes and a walk touches up to depth of them
+//     at data-dependent places, so a warp fetches the row's whole span:
+//     d bytes a row, once per launch at best. A kernel with one thread a
+//     row, codes read from device memory at each level and one grid.y a
+//     tree pays five dependent loads a row and reads the codes again for
+//     every tree of a forest. The design, staged path: a block streams
+//     tiles of consecutive rows (one contiguous span of rows * d bytes)
+//     into shared memory with 16-B cp.async copies, double-buffered so
+//     the next tile's copy overlaps this tile's walk, and walks every
+//     tree of its chunk over the staged tile, so device memory sees
+//     exactly d bytes a row once per launch plus the leaf ids written.
+//     The trees' tables sit beside the two tiles; where all T do not fit
+//     (depth 12: 4,095 entries a tree), trees go in chunks, one grid.y
+//     each, and each chunk reads the codes once. A forest's walks are
+//     bound by shared memory, not device memory: a level is two
+//     dependent shared loads (entry, code) and about six integer
+//     instructions, so each thread walks its tile rows (up to four) at
+//     once, four independent chains; the root's entry is read once per
+//     tree and thread. Banks: lanes of a warp read rows d bytes apart, so
+//     where they share a feature (the root, always) the code loads are
+//     conflict-free where d <= 4 or d is 4 times an odd number (d = 28:
+//     7 words), 2-way at d = 6 and the other small d, and gcd(d / 4,
+//     32)-way where d is a multiple of 8 (8-way at d = 32); deeper levels
+//     add conflicts between lanes on different features (about 3-way at
+//     the HIGGS shape's fourth level). Direct path: where d exceeds 32 B
+//     (a sector) times the depth, staging a row costs more bytes than a
+//     walk can touch (a 784-column one-hot design), so each thread walks
+//     its row's codes in device memory over node words in shared memory.
+//     ops/tree_kernels.py descend_plan chooses the path by shape.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -279,51 +336,345 @@ __global__ void sum_partials_kernel(const long long* __restrict__ partial,
   }
 }
 
-__global__ void route_kernel(const uint8_t* __restrict__ codes,
-                             const int32_t* __restrict__ rel,
-                             const uint8_t* __restrict__ active,
-                             const int32_t* __restrict__ assign,
-                             const int32_t* __restrict__ tbl,
-                             int32_t* __restrict__ out, int n, int d,
-                             int NL) {
-  extern __shared__ int32_t s_tbl[];  // [feat | thr | split], NL each
-  for (int i = threadIdx.x; i < 3 * NL; i += blockDim.x) s_tbl[i] = tbl[i];
+// The packed node word (see K2 and K3 above): the feature and the
+// threshold field; a word < 0 keeps the row where it is.
+constexpr int kTtBits = 9;
+constexpr uint32_t kFeatMask = (1u << 22) - 1u;
+constexpr int32_t kStay = (int32_t)(0x80000000u | 256u);
+
+// A split's feature and tt: the row goes right iff code[f] >= tt. A
+// feature outside [0, d) reads code 0, so it becomes feature 0 with a
+// fixed side.
+__device__ __forceinline__ int split_tt(int& f, int thr, int d) {
+  if (f >= 0 && f < d) return thr < 0 ? 0 : thr > 255 ? 256 : thr + 1;
+  f = 0;
+  return thr < 0 ? 0 : 256;
+}
+
+__device__ __forceinline__ int32_t pack_node(int f, int thr, bool go,
+                                             int d) {
+  if (!go) return kStay;
+  const int tt = split_tt(f, thr, d);
+  return (int32_t)(((uint32_t)f << kTtBits) | (uint32_t)tt);
+}
+
+__device__ __forceinline__ int node_feat(int32_t w) {
+  return (int)(((uint32_t)w >> kTtBits) & kFeatMask);
+}
+
+__device__ __forceinline__ int node_tt(int32_t w) {
+  return w & ((1 << kTtBits) - 1);
+}
+
+// Rows a routing thread takes: one 16-B load of rel and of assign.
+constexpr int kRouteRows = 4;
+
+__global__ void __launch_bounds__(kThreads) route_kernel(
+    const uint8_t* __restrict__ codes_T, const int32_t* __restrict__ rel,
+    const uint8_t* __restrict__ active, const int32_t* __restrict__ assign,
+    const int32_t* __restrict__ best_f, const int32_t* __restrict__ best_t,
+    const uint8_t* __restrict__ split, int32_t* __restrict__ out, int n,
+    int d, int NL, bool vec) {
+  extern __shared__ int32_t s_node[];  // NL packed node words
+  for (int i = threadIdx.x; i < NL; i += blockDim.x)
+    s_node[i] = pack_node(best_f[i], best_t[i], split[i] != 0, d);
   __syncthreads();
-  for (long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       row < n; row += (long long)gridDim.x * blockDim.x) {
-    const int a = assign[row];
-    const int r = rel[row];
-    int next = a;
-    if (active[row] && r >= 0 && r < NL && s_tbl[2 * NL + r] != 0) {
-      const int f = s_tbl[r];
-      const int v = (f >= 0 && f < d) ? (int)codes[row * d + f] : 0;
-      next = 2 * a + 1 + (v > s_tbl[NL + r] ? 1 : 0);
+  const long long groups = ((long long)n + kRouteRows - 1) / kRouteRows;
+  for (long long gi = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       gi < groups; gi += (long long)gridDim.x * blockDim.x) {
+    const long long r0 = gi * kRouteRows;
+    const bool whole = vec && r0 + kRouteRows <= n;
+    int a[kRouteRows], r[kRouteRows];
+    uint32_t act = 0;
+    if (whole) {
+      const int4 av = *reinterpret_cast<const int4*>(assign + r0);
+      const int4 rv = *reinterpret_cast<const int4*>(rel + r0);
+      act = *reinterpret_cast<const uint32_t*>(active + r0);
+      a[0] = av.x; a[1] = av.y; a[2] = av.z; a[3] = av.w;
+      r[0] = rv.x; r[1] = rv.y; r[2] = rv.z; r[3] = rv.w;
+    } else {
+#pragma unroll
+      for (int k = 0; k < kRouteRows; ++k) {
+        const bool in = r0 + k < n;
+        a[k] = in ? assign[r0 + k] : 0;
+        r[k] = in ? rel[r0 + k] : -1;
+        act |= (in ? (uint32_t)active[r0 + k] : 0u) << (8 * k);
+      }
     }
-    out[row] = next;
+    // Every row's node word first, then its code load, so a thread has
+    // its four code loads in flight together.
+    int32_t w[kRouteRows];
+#pragma unroll
+    for (int k = 0; k < kRouteRows; ++k)
+      w[k] = ((act >> (8 * k)) & 0xFFu) != 0 && (unsigned)r[k] < (unsigned)NL
+                 ? s_node[r[k]]
+                 : -1;
+    int next[kRouteRows];
+#pragma unroll
+    for (int k = 0; k < kRouteRows; ++k) {
+      next[k] = a[k];
+      if (w[k] >= 0) {
+        const int v = codes_T[(long long)node_feat(w[k]) * n + r0 + k];
+        next[k] = 2 * a[k] + 1 + (v >= node_tt(w[k]) ? 1 : 0);
+      }
+    }
+    if (whole) {
+      *reinterpret_cast<int4*>(out + r0) =
+          make_int4(next[0], next[1], next[2], next[3]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kRouteRows; ++k)
+        if (r0 + k < n) out[r0 + k] = next[k];
+    }
   }
 }
 
-__global__ void descend_kernel(const uint8_t* __restrict__ codes,
-                               const int32_t* __restrict__ tbl,
-                               int32_t* __restrict__ out, int n, int d,
-                               int M, int max_depth) {
-  extern __shared__ int32_t s_tbl[];  // [feat | thr | internal], M each
-  const int32_t* t = tbl + (long long)blockIdx.y * 3 * M;
-  for (int i = threadIdx.x; i < 3 * M; i += blockDim.x) s_tbl[i] = t[i];
+// Threads of a descent block (DESCEND_THREADS in ops/tree_kernels.py).
+constexpr int kDescendThreads = 256;
+
+// Tiles of the feature-major copy: rows (a multiple of 4) x features.
+constexpr int kTransRows = 1024;
+constexpr int kTransFeats = 32;
+
+// codes (n, d) -> out (d, n), one tile of rows x features a block: each
+// warp reads whole rows' feature slices (consecutive lanes on consecutive
+// bytes), then each thread writes four rows of one feature as one word
+// (consecutive lanes on consecutive words). The tile's row stride in
+// shared memory is odd, so the write phase's lanes, four rows apart,
+// fall on distinct banks.
+__global__ void __launch_bounds__(kDescendThreads) feature_major_kernel(
+    const uint8_t* __restrict__ codes, uint8_t* __restrict__ out, int n,
+    int d, bool words) {
+  __shared__ uint8_t s_tile[kTransRows * (kTransFeats + 1)];
+  const long long r0 = (long long)blockIdx.x * kTransRows;
+  const int f0 = blockIdx.y * kTransFeats;
+  const int F = min(kTransFeats, d - f0);
+  const int S = F | 1;
+  const int R = (int)min((long long)kTransRows, (long long)n - r0);
+  const int lane = threadIdx.x % 32;
+  // Unrolled so that a warp has several rows' loads in flight.
+#pragma unroll 8
+  for (int r = threadIdx.x / 32; r < R; r += blockDim.x / 32)
+    if (lane < F) s_tile[r * S + lane] = codes[(r0 + r) * d + f0 + lane];
   __syncthreads();
-  int32_t* o = out + (long long)blockIdx.y * n;
+  constexpr int kQuads = kTransRows / 4;
+  for (int e = threadIdx.x; e < F * kQuads; e += blockDim.x) {
+    const int f = e / kQuads;
+    const int r = 4 * (e % kQuads);
+    if (r >= R) continue;
+    const uint8_t* src = s_tile + r * S + f;
+    uint8_t* dst = out + (long long)(f0 + f) * n + r0 + r;
+    if (words && r + 4 <= R) {
+      *reinterpret_cast<uint32_t*>(dst) =
+          (uint32_t)src[0] | (uint32_t)src[S] << 8 |
+          (uint32_t)src[2 * S] << 16 | (uint32_t)src[3 * S] << 24;
+    } else {
+      for (int k = 0; k < 4 && r + k < R; ++k) dst[k] = src[k * S];
+    }
+  }
+}
+
+// K3's staged entry of node a, one 32-bit word: e = (key << 9) | f, so
+// that a level of the walk is a' = (e + (code[f] << 9)) >> 17 = (key +
+// code[f]) >> 8, branch-free. A split has key = ((2a + 1) << 8) + 256 -
+// tt: its low 9 bits plus a uint8 code carry into bit 8 iff code >= tt.
+// A node that keeps its rows (a leaf, or an id past the table's M nodes)
+// has key = a << 8 and f = 0, so every later level leaves a where it is,
+// as the fixed-depth reference loop does. f < 512 and key + code < 2^23
+// hold for d <= 448 and depth <= 14, the staged path's shapes.
+__device__ __forceinline__ uint32_t pack_step(int a, int f, int thr,
+                                              bool go, int d) {
+  if (!go) return (uint32_t)a << 17;
+  const int tt = split_tt(f, thr, d);
+  return (uint32_t)(((2 * a + 1) << 8) + 256 - tt) << 9 | (uint32_t)f;
+}
+
+// One level of a walk over staged entries: entry e, the row's codes.
+__device__ __forceinline__ uint32_t step(uint32_t e, const uint8_t* row) {
+  return (e + ((uint32_t)row[e & 511u] << 9)) >> 17;
+}
+
+
+// One row's walk over node words (pack_node: any d), the direct path's
+// table: a leaf keeps its id for the remaining levels.
+__device__ __forceinline__ int walk_words(const int32_t* __restrict__ node,
+                                          const uint8_t* row, int depth) {
+  int a = 0;
+  for (int l = 0; l < depth; ++l) {
+    const int32_t w = node[a];
+    if (w < 0) break;
+    a = 2 * a + 1 + (row[node_feat(w)] >= node_tt(w) ? 1 : 0);
+  }
+  return a;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int src_bytes) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
+  // Copies src_bytes (1..16) and zero-fills the rest of the 16 bytes.
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most one committed group is in flight.
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Stage bytes [b0, b1) of codes (n * d bytes at codes) into dst, as the
+// 16-B aligned chunks that cover them: byte b lands at dst[(codes + b) -
+// align16(codes + b0)]. Chunks that start inside the buffer are cp.async
+// copies (the buffer's last chunk reads only its own bytes, zero-filling
+// the rest); a chunk that starts before an unaligned buffer is copied
+// byte by byte, since the bytes before the buffer are not its own.
+__device__ __forceinline__ void stage_rows(uint8_t* dst,
+                                           const uint8_t* codes,
+                                           long long total, long long b0,
+                                           long long b1) {
+  const uintptr_t base = reinterpret_cast<uintptr_t>(codes);
+  const uintptr_t end = base + (uintptr_t)total;
+  const uintptr_t g0 = (base + (uintptr_t)b0) & ~(uintptr_t)15;
+  const uintptr_t g1 = (base + (uintptr_t)b1 + 15) & ~(uintptr_t)15;
+  const int chunks = (int)((g1 - g0) / 16);
+  for (int c = threadIdx.x; c < chunks; c += blockDim.x) {
+    const uintptr_t g = g0 + 16 * (uintptr_t)c;
+    uint8_t* s = dst + 16 * c;
+    if (g >= base) {
+      const uintptr_t left = end - g;
+      cp_async16(s, reinterpret_cast<const void*>(g),
+                 left < 16 ? (int)left : 16);
+    } else {
+      for (int i = 0; i < 16; ++i) {
+        const uintptr_t p = g + i;
+        s[i] = p >= base && p < end ? *reinterpret_cast<const uint8_t*>(p)
+                                    : 0;
+      }
+    }
+  }
+}
+
+// The (T, M) node tables of the trees of this block's chunk, as W
+// entries a tree in shared memory (staged entries, or node words):
+// nodes past M keep their rows, as ids past the table do in the Pallas
+// kernel.
+struct Trees {
+  const int32_t* feat;
+  const int32_t* thr;
+  const uint8_t* internal;
+  int M, W, T;
+};
+
+template <bool kSteps>
+__device__ __forceinline__ int load_chunk(uint32_t* s_tbl, Trees tr, int d,
+                                          int trees_per_chunk) {
+  const int t0 = blockIdx.y * trees_per_chunk;
+  const int nt = min(trees_per_chunk, tr.T - t0);
+  for (int i = threadIdx.x; i < nt * tr.W; i += blockDim.x) {
+    const int a = i % tr.W;
+    const long long j = (long long)(t0 + i / tr.W) * tr.M + a;
+    const bool in = a < tr.M;
+    const int f = in ? tr.feat[j] : 0;
+    const int thr = in ? tr.thr[j] : 0;
+    const bool go = in && tr.internal[j] != 0;
+    s_tbl[i] = kSteps ? pack_step(a, f, thr, go, d)
+                      : (uint32_t)pack_node(f, thr, go, d);
+  }
+  return nt;
+}
+
+// Staged path: grid (tile blocks, chunks). Shared memory: two tile
+// buffers of tile_bytes, then the chunk's tables. A tile has kRows rows a
+// thread (rows_per_tile = kRows * blockDim.x), which each thread walks
+// at once: kRows independent chains of dependent shared-memory loads,
+// interleaved to hide their latency.
+template <int kRows>
+__global__ void __launch_bounds__(kDescendThreads) descend_staged_kernel(
+    const uint8_t* __restrict__ codes, Trees tr, int32_t* __restrict__ out,
+    int n, int d, int depth, int trees_per_chunk, int tile_bytes) {
+  // Named apart from the histogram kernel's int32_t smem: extern shared
+  // arrays of one name must share a type.
+  extern __shared__ __align__(16) uint8_t s_bytes[];
+  uint32_t* s_tbl = reinterpret_cast<uint32_t*>(s_bytes + 2 * tile_bytes);
+  const int W = tr.W;
+  const int nt = load_chunk<true>(s_tbl, tr, d, trees_per_chunk);
+  const int t0 = blockIdx.y * trees_per_chunk;
+  const int rows_per_tile = kRows * blockDim.x;
+  const long long total = (long long)n * d;
+  const long long n_tiles = ((long long)n + rows_per_tile - 1) /
+                            rows_per_tile;
+  const uintptr_t base = reinterpret_cast<uintptr_t>(codes);
+  // This block's k-th tile is tile blockIdx.x + k * gridDim.x, staged in
+  // buffer k % 2; a group is committed per tile, empty past the last.
+  auto stage = [&](long long k) {
+    const long long tile = blockIdx.x + k * gridDim.x;
+    if (tile < n_tiles) {
+      const long long r0 = tile * rows_per_tile;
+      const long long r1 = min((long long)n, r0 + rows_per_tile);
+      stage_rows(s_bytes + (k % 2) * tile_bytes, codes, total, r0 * d,
+                 r1 * d);
+    }
+    cp_async_commit();
+  };
+  stage(0);
+  for (long long k = 0; blockIdx.x + k * gridDim.x < n_tiles; ++k) {
+    // The next tile's copy is in flight while this one is walked; its
+    // buffer was walked at k - 1 (synced below).
+    stage(k + 1);
+    cp_async_wait_one();
+    __syncthreads();
+    const long long r0 = (blockIdx.x + k * gridDim.x) * rows_per_tile;
+    const int rows = (int)min((long long)rows_per_tile, n - r0);
+    const uint8_t* rows0 = s_bytes + (k % 2) * tile_bytes +
+                           ((base + (uintptr_t)(r0 * d)) & 15);
+    // Thread rows r + j * blockDim.x; one past the tile's end walks the
+    // tile's last row instead, unstored. Lookups stay below 2^depth - 1
+    // entries, the table's size.
+    const int r = threadIdx.x;
+    const uint8_t* row[kRows];
+#pragma unroll
+    for (int j = 0; j < kRows; ++j)
+      row[j] = rows0 + min(r + j * (int)blockDim.x, rows - 1) * d;
+    for (int t = 0; t < nt; ++t) {
+      const uint32_t* node = s_tbl + t * W;
+      const uint32_t e0 = node[0];
+      uint32_t a[kRows];
+#pragma unroll
+      for (int j = 0; j < kRows; ++j) a[j] = depth > 0 ? step(e0, row[j]) : 0u;
+      for (int l = 1; l < depth; ++l) {
+#pragma unroll
+        for (int j = 0; j < kRows; ++j) a[j] = step(node[a[j]], row[j]);
+      }
+      int32_t* o = out + (long long)(t0 + t) * n + r0;
+#pragma unroll
+      for (int j = 0; j < kRows; ++j)
+        if (r + j * (int)blockDim.x < rows) o[r + j * blockDim.x] = (int)a[j];
+    }
+    // Every thread is done with this buffer before it is staged again.
+    __syncthreads();
+  }
+}
+
+// Direct path: grid (row blocks, chunks); each thread walks its row's
+// codes in device memory. Shared memory: the chunk's tables.
+__global__ void __launch_bounds__(kDescendThreads) descend_direct_kernel(
+    const uint8_t* __restrict__ codes, Trees tr, int32_t* __restrict__ out,
+    int n, int d, int depth, int trees_per_chunk) {
+  extern __shared__ uint32_t s_word[];
+  const int W = tr.W;
+  const int nt = load_chunk<false>(s_word, tr, d, trees_per_chunk);
+  const int t0 = blockIdx.y * trees_per_chunk;
+  __syncthreads();
   for (long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        row < n; row += (long long)gridDim.x * blockDim.x) {
-    int a = 0;
-    for (int l = 0; l < max_depth; ++l) {
-      // A leaf keeps its id for the remaining levels, as in the
-      // fixed-depth reference loop.
-      if (a >= M || s_tbl[2 * M + a] == 0) break;
-      const int f = s_tbl[a];
-      const int v = (f >= 0 && f < d) ? (int)codes[row * d + f] : 0;
-      a = 2 * a + 1 + (v > s_tbl[M + a] ? 1 : 0);
-    }
-    o[row] = a;
+    const uint8_t* crow = codes + row * d;
+    for (int t = 0; t < nt; ++t)
+      out[(long long)(t0 + t) * n + row] = walk_words(
+          reinterpret_cast<const int32_t*>(s_word) + t * W, crow, depth);
   }
 }
 
@@ -405,33 +756,87 @@ int lo_tree_leaf_i32(const void* assign, const void* stats,
       1, CG, R, rows_per_chunk, (cudaStream_t)stream);
 }
 
-// K2: codes (n, d) uint8, rel/assign (n,) int32, active (n,) bool,
-// tbl (3, NL) int32 [feat; thr; split] -> out (n,) int32.
-int lo_tree_route(const void* codes, const void* rel, const void* active,
-                  const void* assign, const void* tbl, void* out, int n,
+// K2: codes_T (d, n) uint8, rel/assign (n,) int32, active (n,) bool,
+// best_f/best_t (NL,) int32, split (NL,) bool -> out (n,) int32.
+int lo_tree_route(const void* codes_T, const void* rel, const void* active,
+                  const void* assign, const void* best_f,
+                  const void* best_t, const void* split, void* out, int n,
                   int d, int NL, int grid_cap, void* stream) {
-  const size_t smem = (size_t)3 * NL * sizeof(int32_t);
+  const size_t smem = (size_t)NL * sizeof(int32_t);
   int e = prepare_smem(route_kernel, smem);
   if (e) return e;
-  route_kernel<<<row_blocks(n, grid_cap), kThreads, smem,
+  // Four rows a thread as 16-B vectors where the id arrays allow it.
+  const bool vec = reinterpret_cast<uintptr_t>(rel) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(assign) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(active) % 4 == 0;
+  const long long groups = ((long long)n + kRouteRows - 1) / kRouteRows;
+  route_kernel<<<row_blocks(groups, grid_cap), kThreads, smem,
                  (cudaStream_t)stream>>>(
-      (const uint8_t*)codes, (const int32_t*)rel, (const uint8_t*)active,
-      (const int32_t*)assign, (const int32_t*)tbl, (int32_t*)out, n, d, NL);
+      (const uint8_t*)codes_T, (const int32_t*)rel, (const uint8_t*)active,
+      (const int32_t*)assign, (const int32_t*)best_f,
+      (const int32_t*)best_t, (const uint8_t*)split, (int32_t*)out, n, d,
+      NL, vec);
   return (int)cudaGetLastError();
 }
 
-// K3: codes (n, d) uint8, tbl (T, 3, M) int32 [feat; thr; internal]
-// -> out (T, n) int32 leaf ids.
-int lo_tree_descend(const void* codes, const void* tbl, void* out, int n,
-                    int d, int M, int T, int max_depth, int grid_cap,
+// codes (n, d) uint8 -> out (d, n) uint8, K2's feature-major codes.
+int lo_feature_major(const void* codes, void* out, int n, int d,
+                     void* stream) {
+  if (n <= 0 || d <= 0) return 0;
+  const bool words = n % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 4 == 0;
+  const dim3 grid((n + kTransRows - 1) / kTransRows,
+                  (d + kTransFeats - 1) / kTransFeats);
+  feature_major_kernel<<<grid, kDescendThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)codes, (uint8_t*)out, n, d, words);
+  return (int)cudaGetLastError();
+}
+
+// K3: codes (n, d) uint8, feat/thr (T, M) int32, internal (T, M) bool
+// -> out (T, n) int32 leaf ids, walking `depth` levels over tables of
+// W = 2^depth - 1 entries. The plan (ops/tree_kernels.py descend_plan):
+// the direct path (rows_per_tile 0) or the staged one with tiles of
+// rows_per_tile = 1, 2 or 4 rows a thread and buffers of tile_bytes;
+// trees a chunk (one grid.y each) and blocks a chunk.
+int lo_tree_descend(const void* codes, const void* feat, const void* thr,
+                    const void* internal, void* out, int n, int d, int M,
+                    int W, int T, int depth, int rows_per_tile,
+                    int tile_bytes, int trees_per_chunk, int blocks,
                     void* stream) {
-  const size_t smem = (size_t)3 * M * sizeof(int32_t);
-  int e = prepare_smem(descend_kernel, smem);
-  if (e) return e;
-  dim3 grid(row_blocks(n, grid_cap), T);
-  descend_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)codes, (const int32_t*)tbl, (int32_t*)out, n, d, M,
-      max_depth);
+  const Trees tr{(const int32_t*)feat, (const int32_t*)thr,
+                 (const uint8_t*)internal, M, W, T};
+  const int chunks =
+      T > 0 ? (T + trees_per_chunk - 1) / trees_per_chunk : 1;
+  const size_t tables = (size_t)trees_per_chunk * W * sizeof(uint32_t);
+  const dim3 grid(blocks, chunks);
+  int e;
+  if (rows_per_tile) {
+    const int per_thread = rows_per_tile / kDescendThreads;
+    // A tile's rows * d bytes start anywhere in a 16-B chunk: their
+    // chunks span at most (rows * d + 30) / 16 of them. The second
+    // buffer stays 16-B aligned for cp.async.
+    if (rows_per_tile % kDescendThreads ||
+        (per_thread != 1 && per_thread != 2 && per_thread != 4) ||
+        tile_bytes % 16 ||
+        ((long long)rows_per_tile * d + 30) / 16 * 16 > tile_bytes)
+      return (int)cudaErrorInvalidValue;
+    const size_t smem = 2 * (size_t)tile_bytes + tables;
+    auto kernel = per_thread == 4   ? descend_staged_kernel<4>
+                  : per_thread == 2 ? descend_staged_kernel<2>
+                                    : descend_staged_kernel<1>;
+    e = prepare_smem(kernel, smem);
+    if (e) return e;
+    kernel<<<grid, kDescendThreads, smem, (cudaStream_t)stream>>>(
+        (const uint8_t*)codes, tr, (int32_t*)out, n, d, depth,
+        trees_per_chunk, tile_bytes);
+  } else {
+    e = prepare_smem(descend_direct_kernel, tables);
+    if (e) return e;
+    descend_direct_kernel<<<grid, kDescendThreads, tables,
+                            (cudaStream_t)stream>>>(
+        (const uint8_t*)codes, tr, (int32_t*)out, n, d, depth,
+        trees_per_chunk);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -70,6 +70,13 @@ def validate_n_bins(n_bins: int) -> None:
         raise ValueError("n_bins is capped at 256 (uint8 bin codes)")
 
 
+def _route_codes(B: torch.Tensor) -> Optional[torch.Tensor]:
+    """The routing kernel's feature-major copy of a bin matrix on the
+    card, made once and shared by every level of every tree fitted on it;
+    None on the CPU, where routing reads B itself."""
+    return tree_kernels.feature_major(B) if B.is_cuda else None
+
+
 def bin_features(X: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
     """float features → uint8 bin codes: code = #edges strictly below x
     (NaN lands in bin 0, as in the JAX package). Row-blocked compare+sum."""
@@ -87,11 +94,14 @@ def bin_features(X: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _build_tree(B, stats_T, feat_gain_mask, *, max_depth, n_bins,
-                gain_fn, weight_fn, min_child_weight, min_gain):
+                gain_fn, weight_fn, min_child_weight, min_gain,
+                codes_T=None):
     """Grow one tree.
 
-    B: (n, d) uint8 bin codes. stats_T: (S, n) float32 per-row sufficient
-    statistics (zero columns for excluded rows). feat_gain_mask: (d,)
+    B: (n, d) uint8 bin codes; codes_T: ``feature_major(B)`` on the card
+    (the routing kernel's layout, made once per bin matrix). stats_T:
+    (S, n) float32 per-row sufficient statistics (zero columns for
+    excluded rows). feat_gain_mask: (d,)
     float32 — 0 allows a feature, NEG forbids it (random-forest per-tree
     feature subsampling). gain_fn(left, total) -> gain over the trailing
     stat dim; weight_fn(stat_sums) -> node weight for min_child_weight.
@@ -148,7 +158,8 @@ def _build_tree(B, stats_T, feat_gain_mask, *, max_depth, n_bins,
         is_internal[node_ids] = split
 
         assign = tree_kernels.tree_route_level(B, rel.int(), active, assign,
-                                               best_f, best_t, split)
+                                               best_f, best_t, split,
+                                               codes_T=codes_T)
 
     # Leaf sufficient statistics over ALL nodes (every row sits at a leaf).
     leaf = tree_kernels.tree_leaf_stats(assign, stats_T, n_nodes=M,
@@ -230,6 +241,7 @@ def _fit_cls_trees(kind, runtime, X, y, num_classes, seed, *, n_trees,
     # multi-classifier build; binning runs on the device.
     X_dev, n = runtime.shard_rows(X)
     B = bin_features(X_dev, runtime.replicate(edges))
+    B_T = _route_codes(B)
     y_dev, _ = runtime.shard_rows(np.asarray(y, np.int32))
     d = X.shape[1]
     dev = B.device
@@ -256,7 +268,7 @@ def _fit_cls_trees(kind, runtime, X, y, num_classes, seed, *, n_trees,
             B, stats.contiguous(), fmask, max_depth=max_depth,
             n_bins=n_bins, gain_fn=_gini_gain,
             weight_fn=lambda s: s.sum(-1), min_child_weight=1.0,
-            min_gain=1e-9))
+            min_gain=1e-9, codes_T=B_T))
     feat, thr, internal, leaf = (torch.stack(p) for p in zip(*trees))
     params = {"edges": runtime.replicate(edges), "feat": feat, "thr": thr,
               "internal": internal, "leaf": leaf}
@@ -310,11 +322,12 @@ fit_rf.host_prep = _edge_prep
 # ---------------------------------------------------------------------------
 
 def _fit_gbt(B, yf, *, max_depth, n_bins, n_rounds, step_size=0.1,
-             lam=1.0):
+             lam=1.0, codes_T=None):
     """Binary boosting: per round, a Newton tree on the logistic loss's
     gradient/hessian, then the margin moves by the new tree's leaf values
-    (``tree_descend`` finds every row's leaf). Returns stacked per-round
-    (feat, thr, internal, leaf_val)."""
+    (``tree_descend`` finds every row's leaf). codes_T as for
+    ``_build_tree``. Returns stacked per-round (feat, thr, internal,
+    leaf_val)."""
     gain_fn = _make_newton_gain(lam)
     n, d = B.shape
     margin = torch.zeros((n,), dtype=torch.float32, device=B.device)
@@ -328,7 +341,7 @@ def _fit_gbt(B, yf, *, max_depth, n_bins, n_rounds, step_size=0.1,
         feat, thr, internal, leaf = _build_tree(
             B, stats, zero_mask, max_depth=max_depth, n_bins=n_bins,
             gain_fn=gain_fn, weight_fn=lambda s: s[..., 1],
-            min_child_weight=1e-3, min_gain=1e-9)
+            min_child_weight=1e-3, min_gain=1e-9, codes_T=codes_T)
         leaf_val = -leaf[:, 0] / (leaf[:, 1] + lam)       # (M,)
         assign = tree_kernels.tree_descend(B, feat, thr, internal,
                                            max_depth=max_depth)
@@ -382,7 +395,7 @@ def fit_gb(runtime: DeviceRuntime, X, y, num_classes, seed=0, *,
     hparams = {"n_rounds": n_rounds, "max_depth": max_depth,
                "n_bins": n_bins, "step_size": step_size}
     kw = dict(max_depth=max_depth, n_bins=n_bins, n_rounds=n_rounds,
-              step_size=step_size)
+              step_size=step_size, codes_T=_route_codes(B))
     step = torch.tensor(step_size, dtype=torch.float32, device=B.device)
     if num_classes == 2:
         feat, thr, internal, leaf_val = _fit_gbt(B, y_dev.float(), **kw)

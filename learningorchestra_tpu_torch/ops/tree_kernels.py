@@ -14,6 +14,7 @@ wrapper               replaces (pallas_kernels.py)
 ``tree_histogram``    ``tree_histogram`` → ``_tree_hist_kernel``
 ``tree_leaf_stats``   ``tree_leaf_stats`` → ``_tree_hist_kernel``
 ``tree_route_level``  ``tree_route_level`` → ``_tree_route_kernel``
+``feature_major``     (the layout ``tree_route_level`` reads)
 ``tree_descend``      ``tree_descend`` → ``_tree_descend_kernel``
 ====================  ==============================================
 
@@ -23,13 +24,14 @@ plain version only for tensors on the CPU; for CUDA tensors it launches
 its kernel or raises. Each launch adds one to the wrapper's count
 (``launch_counts``), so a run can show which kernels it went through.
 Public layouts are the JAX package's: histograms (n_nodes, d, n_bins, S),
-leaf stats (S, M), node ids int32.
+leaf stats (S, M), node ids int32; the routing kernel also reads a
+feature-major (d, n) copy of the codes, made once per bin matrix.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -59,14 +61,14 @@ HIST_LO_BITS = 14
 #: Cap on the per-chunk int64 partial histograms of one launch (lifted
 #: where the row cap needs more chunks).
 _PARTIAL_BYTES = 512 << 20
-#: Grid cap (in units of SMs) for the one-thread-per-row kernels, whose
-#: blocks stride over rows so each loads its node table once.
+#: Grid cap (in units of SMs) for the routing kernel, whose blocks stride
+#: over rows so each loads its node table once.
 _ROW_BLOCKS_PER_SM = 8
 #: Rows per block of the plain versions.
 _REF_BLOCK = 1 << 18
 
 KERNELS = ("tree_histogram", "tree_leaf_stats", "tree_route_level",
-           "tree_descend")
+           "tree_descend", "feature_major")
 
 _counter = LaunchCounter(KERNELS)
 _count = _counter.add
@@ -90,8 +92,9 @@ _I = ctypes.c_int
 _LIB = CudaLibrary("tree_kernels", {
     "lo_tree_hist_u8": [_P] * 7 + [_I] * 9 + [_P],
     "lo_tree_leaf_i32": [_P] * 5 + [_I] * 6 + [_P],
-    "lo_tree_route": [_P] * 6 + [_I] * 4 + [_P],
-    "lo_tree_descend": [_P] * 3 + [_I] * 6 + [_P],
+    "lo_tree_route": [_P] * 8 + [_I] * 4 + [_P],
+    "lo_feature_major": [_P] * 2 + [_I] * 2 + [_P],
+    "lo_tree_descend": [_P] * 5 + [_I] * 10 + [_P],
 })
 SOURCE = _LIB.source
 BUILD_DIR = _LIB.build_dir
@@ -257,8 +260,50 @@ def tree_leaf_stats(assign, stats_T, *, n_nodes: int,
 
 
 # ---------------------------------------------------------------------------
+# K2 and K3 — the packed node table
+# ---------------------------------------------------------------------------
+
+#: The kernels pack each node into one int32 word as they load their
+#: tables (pack_node in csrc/tree_kernels.cu): bit 31 set keeps the row
+#: where it is; bits 30..9 hold the feature; bits 8..0 hold tt in
+#: [0, 256], and the row goes right iff its code is >= tt.
+NODE_TT_BITS = 9
+#: Features a packed word can name.
+NODE_MAX_D = 1 << 22
+
+
+def check_node_features(d: int) -> None:
+    """Refuse rows wider than a packed node word can name."""
+    if d > NODE_MAX_D:
+        raise ValueError(f"{d} features exceed the {NODE_MAX_D} a packed "
+                         f"node word can name")
+
+
+# ---------------------------------------------------------------------------
 # K2 — per-level routing
 # ---------------------------------------------------------------------------
+
+def feature_major_ref(codes: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``feature_major``."""
+    return codes.t().contiguous()
+
+
+def feature_major(codes: torch.Tensor) -> torch.Tensor:
+    """The (d, n) feature-major copy of (n, d) uint8 bin codes that
+    ``tree_route_level`` reads on the card: a tiled transpose kernel
+    there. Make it once per bin matrix and pass it to every level of
+    every tree."""
+    if not _on_cuda(codes):
+        return feature_major_ref(codes)
+    n, d = codes.shape
+    _need(codes, "codes", torch.uint8, (n, d))
+    out = torch.empty((d, n), dtype=torch.uint8, device=codes.device)
+    _check(_library().lo_feature_major(codes.data_ptr(), out.data_ptr(), n,
+                                       d, _stream(codes.device)),
+           "feature_major")
+    _count("feature_major")
+    return out
+
 
 def tree_route_level_ref(codes, rel, active, assign, best_f, best_t,
                          split) -> torch.Tensor:
@@ -270,28 +315,47 @@ def tree_route_level_ref(codes, rel, active, assign, best_f, best_t,
     return torch.where(go, child, assign).int()
 
 
-def tree_route_level(codes, rel, active, assign, best_f, best_t,
-                     split) -> torch.Tensor:
+def tree_route_level(codes, rel, active, assign, best_f, best_t, split, *,
+                     codes_T=None) -> torch.Tensor:
     """Route rows of split nodes to child ``2a+1+(code[f] > thr)``; other
     rows keep their node. codes (n, d) uint8; rel, assign (n,) int32;
-    active (n,) bool; best_f, best_t (NL,) int32, split (NL,) bool.
-    Returns the new (n,) int32 node ids."""
-    if not _on_cuda(codes, rel, active, assign, best_f, best_t, split):
+    active (n,) bool; best_f, best_t (NL,) int32, split (NL,) bool;
+    codes_T: ``feature_major(codes)`` if the caller has it (made here
+    otherwise on the card; unused on the CPU). Returns the new (n,) int32
+    node ids."""
+    extra = () if codes_T is None else (codes_T,)
+    cuda = _on_cuda(codes, rel, active, assign, best_f, best_t, split,
+                    *extra)
+    n, d = codes.shape
+    if codes_T is not None:
+        _need(codes_T, "codes_T", torch.uint8, (d, n))
+    NL = best_f.shape[0]
+    for name, t in (("best_f", best_f), ("best_t", best_t), ("split", split)):
+        if tuple(t.shape) != (NL,):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, the level "
+                             f"tables ({NL},)")
+    if not cuda:
         return tree_route_level_ref(codes, rel, active, assign, best_f,
                                     best_t, split)
-    n, d = codes.shape
-    NL = best_f.shape[0]
     _need(codes, "codes", torch.uint8, (n, d))
     _need(rel, "rel", torch.int32, (n,))
     _need(active, "active", torch.bool, (n,))
     _need(assign, "assign", torch.int32, (n,))
+    check_node_features(d)
+    if 4 * NL > SMEM_BYTES:
+        raise ValueError(f"a {NL}-node level table does not fit shared "
+                         f"memory")
+    best_f, best_t = best_f.int().contiguous(), best_t.int().contiguous()
+    split = split.bool().contiguous()
+    if codes_T is None:
+        codes_T = feature_major(codes)
     dev = codes.device
-    tbl = torch.stack([best_f.int(), best_t.int(), split.int()]).contiguous()
     out = torch.empty((n,), dtype=torch.int32, device=dev)
     lib = _library()
     _check(lib.lo_tree_route(
-        codes.data_ptr(), rel.data_ptr(), active.data_ptr(),
-        assign.data_ptr(), tbl.data_ptr(), out.data_ptr(), n, d, NL,
+        codes_T.data_ptr(), rel.data_ptr(), active.data_ptr(),
+        assign.data_ptr(), best_f.data_ptr(), best_t.data_ptr(),
+        split.data_ptr(), out.data_ptr(), n, d, NL,
         _ROW_BLOCKS_PER_SM * _num_sms(dev), _stream(dev)),
         "tree_route_level")
     _count("tree_route_level")
@@ -301,6 +365,93 @@ def tree_route_level(codes, rel, active, assign, best_f, best_t,
 # ---------------------------------------------------------------------------
 # K3 — full-tree descent
 # ---------------------------------------------------------------------------
+
+#: Threads of a descent block (kDescendThreads in csrc/tree_kernels.cu).
+DESCEND_THREADS = 256
+#: A direct walk touches at most one 32-B sector of a row a level, so a
+#: row wider than that times the depth is walked in place, not staged.
+SECTOR_BYTES = 32
+#: Rows a thread walks at once in a staged tile (the kernel's kRows), the
+#: most that lets two tiles fit first.
+_DESCEND_ROWS_PER_THREAD = (4, 2, 1)
+#: Bytes of one node's table entry (a staged entry or a node word).
+STEP_BYTES = 4
+#: Deepest walk the kernels take: a staged entry's key holds node ids
+#: below 2^15 (the JAX package's fits go to depth 12).
+MAX_DESCEND_DEPTH = 14
+#: Resident descent blocks an SM holds at most (2,048 threads).
+_DESCEND_BLOCKS_PER_SM = 8
+
+
+class DescendPlan(NamedTuple):
+    """Launch shape of the descent kernel (``descend_plan``)."""
+    staged: bool
+    rows_per_tile: int      # staged path: rows of one tile
+    tile_bytes: int         # staged path: bytes of one of its two buffers
+    trees_per_chunk: int    # trees whose tables share a block
+    chunks: int             # grid.y: each chunk reads the codes once
+    blocks: int             # grid.x
+    smem_bytes: int         # dynamic shared memory of a block
+
+
+def table_words(depth: int) -> int:
+    """Entries a tree's table needs for a walk of ``depth`` levels: the
+    nodes of levels 0 .. depth-1 (at least one)."""
+    return max(2 ** depth - 1, 1)
+
+
+def descend_tile_bytes(rows: int, d: int) -> int:
+    """Bytes of a staged tile buffer: the 16-B chunks that cover rows · d
+    bytes starting anywhere in a chunk."""
+    return (rows * d + 30) // 16 * 16
+
+
+def descend_plan(n: int, d: int, depth: int, T: int,
+                 n_sms: int) -> DescendPlan:
+    """Path and launch shape of ``tree_descend``. Staged where a row is
+    at most SECTOR_BYTES × depth wide and two tiles of DESCEND_THREADS
+    rows fit beside one table, with as many rows a thread (4, 2 or 1) as
+    fit; direct otherwise. Trees go in chunks as large as the shared
+    memory left beside the tiles holds. Raises ``ValueError`` past
+    MAX_DESCEND_DEPTH."""
+    if depth > MAX_DESCEND_DEPTH:
+        raise ValueError(f"a depth-{depth} walk exceeds the "
+                         f"{MAX_DESCEND_DEPTH} levels the descent takes")
+    tb = STEP_BYTES * table_words(depth)
+    T = max(T, 1)
+    rows = tile = 0
+    if d <= SECTOR_BYTES * depth:
+        for k in _DESCEND_ROWS_PER_THREAD:
+            tile = descend_tile_bytes(k * DESCEND_THREADS, d)
+            if 2 * tile + tb <= SMEM_BYTES:
+                rows = k * DESCEND_THREADS
+                break
+    staged = rows > 0
+    if staged:
+        per_chunk = min(T, (SMEM_BYTES - 2 * tile) // tb)
+        smem = 2 * tile + per_chunk * tb
+        units = -(-n // rows)
+    else:
+        tile = 0
+        per_chunk = min(T, SMEM_BYTES // tb)
+        smem = per_chunk * tb
+        units = -(-n // DESCEND_THREADS)
+    chunks = -(-T // per_chunk)
+    resident = max(1, min(_DESCEND_BLOCKS_PER_SM,
+                          _SM_SMEM_BYTES // (smem + 1024)))
+    blocks = max(1, min(units, -(-resident * n_sms // chunks)))
+    # As few blocks as keep the rounds over the units the same, so that
+    # no last round runs a few blocks alone.
+    blocks = -(-units // -(-units // blocks)) if units else 1
+    return DescendPlan(staged, rows, tile, per_chunk, chunks, blocks, smem)
+
+
+def descend_depth(M: int, max_depth: int) -> int:
+    """Levels a walk of max_depth levels over M-node tables needs: none
+    past max_depth, and none whose nodes all lie past M (node ids >= M
+    keep their rows, as in the Pallas kernel)."""
+    return max(0, min(max_depth, M.bit_length()))
+
 
 def tree_descend_ref(codes, feat, thr, internal, *,
                      max_depth: int) -> torch.Tensor:
@@ -326,23 +477,32 @@ def tree_descend_ref(codes, feat, thr, internal, *,
 def tree_descend(codes, feat, thr, internal, *,
                  max_depth: int) -> torch.Tensor:
     """Leaf node id of every binned row. codes (n, d) uint8; feat, thr,
-    internal (M,) for one tree or (T, M) for T trees in one launch.
-    Returns (n,) or (T, n) int32."""
+    internal (M,) for one tree or (T, M) for T trees in one launch, which
+    reads the codes once per chunk of trees (``descend_plan``). Returns
+    (n,) or (T, n) int32."""
     if not _on_cuda(codes, feat, thr, internal):
         return tree_descend_ref(codes, feat, thr, internal,
                                 max_depth=max_depth)
     n, d = codes.shape
     _need(codes, "codes", torch.uint8, (n, d))
+    check_node_features(d)
     single = feat.dim() == 1
-    tbl = torch.stack([feat.int(), thr.int(), internal.int()],
-                      dim=-2).reshape(-1, 3, feat.shape[-1]).contiguous()
-    T, _, M = tbl.shape
+    M = feat.shape[-1]
+    feat, thr = (t.reshape(-1, M).int().contiguous() for t in (feat, thr))
+    internal = internal.reshape(-1, M).bool().contiguous()
+    T = feat.shape[0]
+    _need(thr, "thr", torch.int32, (T, M))
+    _need(internal, "internal", torch.bool, (T, M))
+    depth = descend_depth(M, max_depth)
     dev = codes.device
+    plan = descend_plan(n, d, depth, T, _num_sms(dev))
     out = torch.empty((T, n), dtype=torch.int32, device=dev)
     lib = _library()
     _check(lib.lo_tree_descend(
-        codes.data_ptr(), tbl.data_ptr(), out.data_ptr(), n, d, M, T,
-        max_depth, _ROW_BLOCKS_PER_SM * _num_sms(dev), _stream(dev)),
+        codes.data_ptr(), feat.data_ptr(), thr.data_ptr(),
+        internal.data_ptr(), out.data_ptr(), n, d, M, table_words(depth), T,
+        depth, plan.rows_per_tile, plan.tile_bytes, plan.trees_per_chunk,
+        plan.blocks, _stream(dev)),
         "tree_descend")
     _count("tree_descend")
     return out[0] if single else out
