@@ -24,7 +24,10 @@ Phases, one JSON line each (any failure exits non-zero):
    .contiguous()``; routing and descent also bit for bit at a
    ragged n, d = 6, 256 bins, unaligned inputs, a depth-12 forest in
    several table chunks, rows of 128 and 300 bytes (two rows and one row
-   a thread) and a 784-wide row on the direct path;
+   a thread) and a 784-wide row on the direct path; and descent at the
+   online tier's request sizes (the 20-tree forest and one tree over 1,
+   3, 8, 64 and 256 rows, also from an unaligned view), each call's time
+   beside its byte bound and a same-run empty launch;
 4. the t-SNE repulsion kernel at the MNIST-60k shape (60,416 rows, 60,000
    valid), at 60,000 rows with no padding, and with 1% of the rows
    invalid at random positions and parked at 0, each against its plain
@@ -48,7 +51,19 @@ Phases, one JSON line each (any failure exits non-zero):
    train set against a float64 numpy PCA (|corr| > 0.9999 per
    component), and a t-SNE of a 60,000 × 784 dataset at the service
    defaults (750 iterations, the repulsion kernel launched once per
-   iteration; its 10-NN class agreement above PCA-2's).
+   iteration; its 10-NN class agreement above PCA-2's);
+8. serve: the package's REST server (``serving.App`` on the same
+   catalog, ``serve(background=True)`` on 127.0.0.1:0) driven over HTTP
+   with the standard library: ``POST /models`` (async) of all five
+   families on the same train/test sets, polled to ``finished`` and
+   above the accuracy floors; online requests of 1, 3, 8, 40, 64 and 256
+   rows per model, then 8 client threads × 100 mixed-size requests,
+   every probability row bit-identical to a one-row call through the
+   batch path and to the same row of the model's
+   ``POST /trained-models/{name}/predictions`` dataset; ``GET /metrics``
+   with every row counted once and none rejected or failed; latency,
+   throughput and batch occupancy per family, and the descent kernel's
+   launches in the online phase (counts reset just before it).
 
 Then a ``{"kernels": [...]}`` line and, as the last line,
 ``{"ok": true, "device": {...}}``.
@@ -102,6 +117,15 @@ SASS_OPS = ("ATOMS", "MUFU", "SHFL", "F2I")
 ROOT = os.path.dirname(os.path.abspath(__file__))
 #: Held-out rows of the HIGGS-like sweep.
 TEST_ROWS = 100_000
+#: Batch sizes of the online tier's requests and padding buckets, at
+#: which the descent kernel is checked and timed on its own.
+REQUEST_ROWS = (1, 3, 8, 64, 256)
+#: The serve phase: request sizes, the concurrent load, and the test
+#: rows its requests draw from (each row's one-row oracle is computed).
+SERVE_SIZES = (1, 3, 8, 40, 64, 256)
+SERVE_THREADS, SERVE_REQUESTS, SERVE_POOL = 8, 100, 512
+#: Sequential requests per family timed at 1 and at 64 rows.
+SERVE_LATENCY_REQUESTS = 60
 
 
 def check(ok, what) -> None:
@@ -405,7 +429,8 @@ def check_kernels(n: int, n_test: int, dev) -> dict:
                                        + 4 * n * T)[0],
            forest_train_layout_floor_ms=bound(n * d + 4 * n * T)[0],
            copy_tb_s=2 * n * d / copy_ms / 1e9,
-           plan=plan._asdict(), cases=descend_cases(dev))
+           plan=plan._asdict(), cases=descend_cases(dev),
+           request_sizes=descend_request_cases(dev, forest, depth))
     return results
 
 
@@ -529,6 +554,85 @@ def descend_cases(dev) -> list:
               f"descent case {i} should walk {k} rows a thread")
     check(not cases[5]["staged"], "d = 784 should take the direct path")
     return cases
+
+
+def device_ms(fn, calls: int):
+    """Device time per call of ``fn`` (kernels and copies, from
+    ``torch.profiler``'s CUDA activity) and the profiled window's wall
+    time per call; the device time is None where the profiler records
+    no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    total_us = 0.0
+    for ev in prof.key_averages():
+        total_us += getattr(ev, "self_device_time_total",
+                            getattr(ev, "self_cuda_time_total", 0.0))
+    return (total_us / 1e3 / calls if total_us > 0 else None,
+            wall * 1e3 / calls)
+
+
+def descend_request_cases(dev, forest, depth) -> dict:
+    """K3 at the online tier's request sizes: the sweep's 20-tree forest
+    and one of its trees over REQUEST_ROWS rows, from an aligned and an
+    unaligned view (28 bytes in), bit for bit against the plain version
+    and twice. Each call's time (back-to-back launches, CUDA events)
+    beside its byte bound and, from the same run, the time of an empty
+    launch (a one-element PyTorch kernel) and a synchronize round trip:
+    at these sizes the launch and the wrapper's Python are the cost."""
+    import torch
+
+    from learningorchestra_tpu_torch.ops import tree_kernels as tk
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    d = 28
+    pool = torch.randint(0, 32, (2 * max(REQUEST_ROWS) + 1, d),
+                         generator=g, device=dev, dtype=torch.uint8)
+    tiny = torch.zeros((1,), device=dev)
+    empty_ms = time_ms(lambda: tiny.zero_(), 500, warmup=10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(500):
+        torch.cuda.synchronize()
+    sync_ms = (time.perf_counter() - t0) * 1e3 / 500
+    feat, thr, internal = forest
+    cases = []
+    for tables in ((feat, thr, internal), (feat[0], thr[0], internal[0])):
+        T = 1 if tables[0].dim() == 1 else tables[0].shape[0]
+        for n in REQUEST_ROWS:
+            for off in (0, 1):
+                codes = pool[off:off + n]
+                what = f"request descent: T={T} n={n} row offset {off}"
+                out = tk.tree_descend(codes, *tables, max_depth=depth)
+                check(torch.equal(out, tk.tree_descend_ref(
+                    codes, *tables, max_depth=depth)), f"{what} differs")
+                check(torch.equal(out, tk.tree_descend(
+                    codes, *tables, max_depth=depth)),
+                    f"{what}: two calls differ")
+            codes = pool[:n]
+            M = tables[0].shape[-1]
+            visits = descent_visits(
+                codes, *(t.reshape(-1, M) for t in tables), depth)
+            call = lambda: tk.tree_descend(  # noqa: E731
+                codes, *tables, max_depth=depth)
+            cases.append({
+                "trees": T, "n": n, "exact": True, "unaligned_exact": True,
+                "ms": time_ms(call, 500, warmup=10),
+                # The kernel's own device time, apart from the wrapper.
+                "kernel_device_ms": device_ms(call, 200)[0],
+                "bound_ms": bound(sum(visits) + 4 * 3 * M * T
+                                  + 4 * n * T)[0]})
+    return {"empty_launch_ms": empty_ms, "sync_round_trip_ms": sync_ms,
+            "cases": cases}
 
 
 def check_small_reference(dev) -> None:
@@ -857,9 +961,277 @@ def explore_path(store, runtime, dev) -> dict:
     return counts
 
 
+class JsonHttp:
+    """A keep-alive JSON client on the standard library (the card's
+    machine may have no ``requests``); one per thread."""
+
+    def __init__(self, port: int):
+        import http.client
+
+        self.conn = http.client.HTTPConnection("127.0.0.1", port,
+                                               timeout=600)
+
+    def call(self, method: str, path: str, body=None):
+        data = None if body is None else json.dumps(body).encode()
+        self.conn.request(method, path, body=data,
+                          headers={"Content-Type": "application/json"})
+        resp = self.conn.getresponse()
+        raw = resp.read()
+        return resp.status, (json.loads(raw) if raw else None)
+
+    def close(self) -> None:
+        self.conn.close()
+
+
+def wait_finished(client: JsonHttp, name: str,
+                  timeout_s: float = 900.0) -> dict:
+    """Poll ``GET /files/{name}`` until its metadata is ``finished``, as
+    the client SDK does; a failed job fails the run."""
+    t0 = time.time()
+    while True:
+        status, docs = client.call("GET", f"/files/{name}?limit=1")
+        if status == 200 and docs and docs[0].get("finished"):
+            check(not docs[0].get("error"),
+                  f"{name} failed: {docs[0].get('error')}")
+            return docs[0]
+        check(status in (200, 404), f"GET /files/{name}: {status} {docs}")
+        check(time.time() - t0 < timeout_s, f"{name} never finished")
+        time.sleep(0.25)
+
+
+def _percentile_ms(seconds, q):
+    return float(np.percentile(np.asarray(seconds) * 1e3, q))
+
+
+def serve_path(cfg, store, dev) -> dict:
+    """The REST server on the sweep's catalog: fits through ``POST
+    /models``, online requests checked bit for bit, the predictions
+    route, and the serving metrics. Returns the kernel launches of the
+    phase (fit, online and predictions)."""
+    import threading
+
+    import torch
+
+    from learningorchestra_tpu_torch.models.aot import design_from_rows
+    from learningorchestra_tpu_torch.ops import tree_kernels as tk
+    from learningorchestra_tpu_torch.serving.app import App
+
+    families = ["lr", "dt", "rf", "gb", "nb"]
+    t0 = time.time()
+    # A queue that holds every client thread's largest request at once:
+    # the load is closed-loop, so no request is ever turned away.
+    app = App(cfg.replace(host="127.0.0.1", port=0,
+                          serve_queue_depth=SERVE_THREADS * max(SERVE_SIZES)),
+              device=str(dev))
+    recover_s = time.time() - t0
+    server = app.serve(background=True)
+    phase = {}
+    try:
+        client = JsonHttp(server.port)
+        torch.cuda.synchronize()
+        tk.reset_launch_counts()
+        t0 = time.time()
+        status, body = client.call("POST", "/models", {
+            "training_filename": "train", "test_filename": "test",
+            "prediction_filename": "srv", "classificators_list": families,
+            "label": "label", "sync": False})
+        check(status == 201, f"POST /models: {status} {body}")
+        acc = {c: wait_finished(client, f"srv_{c}")["accuracy"]
+               for c in families}
+        fit_s = time.time() - t0
+        phase["fit"] = tk.launch_counts()
+        for c, floor in ACC_FLOOR.items():
+            check(acc[c] > floor, f"served fit {c}: accuracy {acc[c]} "
+                  f"<= {floor}")
+        status, listed = client.call("GET", "/trained-models")
+        names = {m["name"] for m in listed}
+        check(status == 200 and all(f"srv_{c}" in names for c in families),
+              f"GET /trained-models lacks the served fits: {sorted(names)}")
+
+        # The request rows: the first SERVE_POOL test rows as raw
+        # records; each row's one-row oracle through the batch path.
+        test = store.get("test")
+        fields = [f for f in test.metadata.fields if f != "label"]
+        pool = [{f: float(test.columns[f][i]) for f in fields}
+                for i in range(SERVE_POOL)]
+        oracle = {}
+        for c in families:
+            man, model = app.builder.registry.load(f"srv_{c}")
+            X = design_from_rows(pool, man["preprocess"])
+            oracle[c] = np.concatenate(
+                [model.predict_proba(app.runtime, X[i:i + 1])
+                 for i in range(SERVE_POOL)])
+        answers = {c: [] for c in families}     # (offset, probs)
+
+        def ask(conn, c, off, size, lat=None):
+            t = time.perf_counter()
+            status, out = conn.call(
+                "POST", f"/trained-models/srv_{c}/predict",
+                {"rows": pool[off:off + size]})
+            if lat is not None:
+                lat.append(time.perf_counter() - t)
+            check(status == 200, f"predict srv_{c} ({size} rows): "
+                  f"{status} {out}")
+            probs = np.asarray(out["probabilities"], np.float32)
+            check(probs.shape == (size, oracle[c].shape[1]),
+                  f"srv_{c}: {probs.shape} for {size} rows")
+            check(out["predictions"] == np.argmax(probs, 1).tolist(),
+                  f"srv_{c}: predictions are not the argmax")
+            check(np.array_equal(probs, oracle[c][off:off + size]),
+                  f"srv_{c}: {size} rows at {off} differ from the one-row "
+                  "batch path")
+            answers[c].append((off, probs))
+            return size
+
+        torch.cuda.synchronize()
+        tk.reset_launch_counts()
+        sent = {c: 0 for c in families}
+        fam_doc = {}
+        for c in families:
+            t = time.perf_counter()
+            sent[c] += ask(client, c, 0, 1)       # loads and warms
+            first_s = time.perf_counter() - t
+            for size in SERVE_SIZES:
+                sent[c] += ask(client, c, SERVE_POOL - size, size)
+            lat1, lat64 = [], []
+            for i in range(SERVE_LATENCY_REQUESTS):
+                sent[c] += ask(client, c, i, 1, lat1)
+                sent[c] += ask(client, c, i, 64, lat64)
+            _, m0 = client.call("GET", "/metrics")
+            before = m0["serving"]["models"][f"srv_{c}"]
+            rows_conc = [0] * SERVE_THREADS
+
+            def load(k, c=c, rows_conc=rows_conc):
+                rng = np.random.default_rng(100 + k)
+                conn = JsonHttp(server.port)
+                try:
+                    for _ in range(SERVE_REQUESTS):
+                        size = int(rng.choice(SERVE_SIZES))
+                        off = int(rng.integers(0, SERVE_POOL - size + 1))
+                        rows_conc[k] += ask(conn, c, off, size)
+                finally:
+                    conn.close()
+
+            errors = []
+
+            def guarded(k):
+                try:
+                    load(k)
+                except Exception as exc:  # noqa: BLE001 — reported below
+                    errors.append(f"{type(exc).__name__}: {exc}")
+
+            threads = [threading.Thread(target=guarded, args=(k,))
+                       for k in range(SERVE_THREADS)]
+            t = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+            conc_s = time.perf_counter() - t
+            check(not errors and not any(th.is_alive() for th in threads),
+                  f"srv_{c} concurrent load: {errors[:3]}")
+            sent[c] += sum(rows_conc)
+            _, m1 = client.call("GET", "/metrics")
+            after = m1["serving"]["models"][f"srv_{c}"]
+            batches = after["batches"] - before["batches"]
+            # Sequential 64-row requests under the profiler: the device's
+            # busy time a request beside the request's wall time.
+            busy_ms, wall_ms = device_ms(
+                lambda: ask(client, c, 0, 64), SERVE_LATENCY_REQUESTS)
+            sent[c] += 64 * SERVE_LATENCY_REQUESTS
+            fam_doc[c] = {
+                "first_request_s": first_s,
+                "p50_ms_1row": _percentile_ms(lat1, 50),
+                "p99_ms_1row": _percentile_ms(lat1, 99),
+                "p50_ms_64rows": _percentile_ms(lat64, 50),
+                "p99_ms_64rows": _percentile_ms(lat64, 99),
+                "concurrent_rows_per_s": sum(rows_conc) / conc_s,
+                "concurrent_requests_per_s":
+                    SERVE_THREADS * SERVE_REQUESTS / conc_s,
+                "concurrent_mean_batch_rows":
+                    (after["batched_rows"] - before["batched_rows"])
+                    / max(batches, 1),
+                "concurrent_batches": batches,
+                "profiled_64rows": {
+                    "device_ms_per_request": busy_ms,
+                    "wall_ms_per_request": wall_ms,
+                    "device_busy_share": (None if busy_ms is None
+                                          else busy_ms / wall_ms)},
+                "compile_wall_s": app.predictor.aot.entry(
+                    f"srv_{c}").compile_wall_s}
+        torch.cuda.synchronize()
+        phase["online"] = tk.launch_counts()
+        check(phase["online"]["tree_descend"] > 0,
+              "tree_descend was not launched by the online phase")
+
+        # The batch predictions route on the whole test set; every
+        # online answer is the same bytes as its rows there.
+        tk.reset_launch_counts()
+        for c in families:
+            status, body = client.call(
+                "POST", f"/trained-models/srv_{c}/predictions",
+                {"dataset_name": "test",
+                 "prediction_filename": f"srv_{c}_again"})
+            check(status == 201, f"predictions srv_{c}: {status} {body}")
+        for c in families:
+            wait_finished(client, f"srv_{c}_again")
+            ds = app.store.get(f"srv_{c}_again")
+            check(ds.num_rows == len(test.columns["label"]),
+                  f"srv_{c}_again: {ds.num_rows} rows")
+            batch = np.array(list(ds.columns["probability"][:SERVE_POOL]),
+                             np.float32)
+            for off, probs in answers[c]:
+                check(np.array_equal(probs, batch[off:off + len(probs)]),
+                      f"srv_{c}: online rows at {off} differ from the "
+                      "predictions dataset")
+        phase["predictions"] = tk.launch_counts()
+
+        status, metrics = client.call("GET", "/metrics")
+        srv = metrics["serving"]
+        check(status == 200 and srv["batches"] > 0, "no serving batches")
+        for key in ("rejected", "errors", "timeouts", "deadline_exceeded",
+                    "dispatcher_restarts"):
+            check(srv[key] == 0, f"serving {key} = {srv[key]}")
+        for c in families:
+            per = srv["models"][f"srv_{c}"]
+            check(per["rows"] == sent[c] == per["batched_rows"]
+                  == sum(len(p) for _, p in answers[c]),
+                  f"srv_{c}: rows {per['rows']} batched "
+                  f"{per['batched_rows']} sent {sent[c]}")
+        check(srv["rows"] == sum(sent.values()), "serving rows total")
+        # Where a request's time goes, per model: the span taxonomy's
+        # means (design on the handler thread, queue wait, the device
+        # dispatch, the whole coalesced batch, the whole HTTP request).
+        attribution = {
+            phase_name: {k: v["mean_ms"] for k, v in by_label.items()
+                         if k.startswith("srv_") or "predict" in k}
+            for phase_name, by_label in metrics["latency_attribution"]
+            .items() if phase_name in ("design.build", "queue.wait",
+                                       "dispatch.device", "batch.coalesce",
+                                       "http.handle")}
+        emit({"phase": "serve", "card": card_line(),
+              "mean_ms_by_span": attribution,
+              "recover_s": recover_s, "fit_s": fit_s, "accuracy": acc,
+              "requests": srv["requests"], "rows": srv["rows"],
+              "batches": srv["batches"],
+              "mean_batch_rows": srv["mean_batch_rows"],
+              "aot": srv["aot"], "families": fam_doc,
+              "launches_fit": phase["fit"],
+              "launches_online": phase["online"],
+              "launches_predictions": phase["predictions"]})
+        client.close()
+    finally:
+        try:
+            app.drain(timeout_s=60.0)
+        finally:
+            server.stop()
+    return {k: sum(p[k] for p in phase.values()) for k in phase["fit"]}
+
+
 def main_path(n_train: int, n_test: int, dev) -> dict:
-    """The sweep, then the exploration path in the same catalog; each
-    path's launch counts are reset just before it and read just after."""
+    """The sweep, then the exploration path and the REST server in the
+    same catalog; each path's launch counts are reset just before it and
+    read just after. Returns the launches summed over the phases."""
     import torch
 
     from benchmarks.workload import higgs_like_columns
@@ -934,7 +1306,9 @@ def main_path(n_train: int, n_test: int, dev) -> dict:
               "predict_s": predict_s, "spans_s": spans,
               "launches_build": build_counts, "launches_total": counts,
               "peak_device_bytes": torch.cuda.max_memory_allocated(dev)})
-        return {**counts, **explore_path(store, runtime, dev)}
+        phases = [counts, explore_path(store, runtime, dev),
+                  serve_path(cfg, store, dev)]
+        return {k: sum(p.get(k, 0) for p in phases) for k in KERNELS}
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -973,6 +1347,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
 
+    t_start = time.time()
     dev = torch.device("cuda", 0)
     emit({"phase": "card", "nvidia_smi": card_line(),
           "clocks_max_sm": card_line("clocks.max.sm"),
@@ -984,6 +1359,7 @@ def main() -> int:
     check_small_reference(dev)
     check_tsne_small_reference(dev)
     counts = main_path(args.train_rows, TEST_ROWS, dev)
+    emit({"phase": "total", "seconds": time.time() - t_start})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          **({} if rep else {"part_of": "tree_route_level"}),

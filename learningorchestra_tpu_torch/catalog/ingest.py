@@ -1,0 +1,1290 @@
+"""Streaming CSV ingestion: URL → columnar dataset.
+
+Reproduces the reference's 3-stage producer-consumer ingest pipeline —
+downloader thread → row-transformer thread → DB-writer thread linked by two
+bounded Queue(1000)s, inserting one Mongo document per row
+(reference database.py:133-216) — re-designed columnar and parallel:
+
+- stage 1 (thread): HTTP-stream the CSV body into a bounded byte-chunk
+  queue (backpressure == the reference's bounded queues);
+- stage 2 (caller thread): split the byte stream into *row-aligned blocks*
+  (quote-parity-aware, at native speed), tracking the absolute source byte
+  offset of every block boundary;
+- stage 3 (thread pool): parse blocks concurrently — the native C++
+  tokenizer emits whole-column Arrow buffers and releases the GIL for the
+  full call, so parsing scales with ``ingest_parse_threads``; pandas is
+  the fallback parser per block;
+- stage 4 (caller thread): append parsed chunks *in source order* and
+  commit in batches (`ingest_commit_bytes`): one journal fsync per batch
+  instead of per chunk — thousands of times fewer durability round-trips
+  than the reference's per-row ``insert_one`` (database.py:176), which
+  SURVEY.md §3.1 identifies as its ingest ceiling.
+
+Every journal record carries the block's end byte offset in the source
+(``src_off``), so an ingest killed mid-flight resumes from the last
+committed byte (``resume_ingest``) instead of restarting — an upgrade over
+the reference, whose mid-flight crash leaves ``finished: false`` forever
+(SURVEY.md §5).
+
+URL validation matches the reference's sniff-first-line check rejecting
+HTML/JSON payloads (database.py:183-197). Type handling matches the
+reference's ``tratament_file`` semantics (database.py:156-169): numeric
+strings become numbers, empty strings become null.
+"""
+
+from __future__ import annotations
+
+import csv
+import io
+import os
+import queue
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterator, List, Optional, Tuple
+
+import numpy as np
+
+from learningorchestra_tpu_torch.catalog.store import DatasetStore
+from learningorchestra_tpu_torch.config import settings as global_settings
+from learningorchestra_tpu_torch.utils import failpoints
+
+#: Deterministic fault-injection site: fires after each source byte
+#: chunk lands in the split buffer — the mid-download crash window an
+#: ingest resume must survive (utils/failpoints.py).
+FP_BLOCK_POST_FETCH = failpoints.declare("ingest.block.post_fetch")
+
+#: Fires at partition-worker entry, before the worker opens its ranged
+#: stream — the crash window where a host has claimed a byte partition
+#: but committed nothing of it yet.
+FP_PARTITION_PRE_CLAIM = failpoints.declare("ingest.partition.pre_claim")
+
+#: Fires after each ranged chunk a partition worker fetches — the
+#: mid-partition crash window a partition-level resume must survive.
+FP_PARTITION_MID_STREAM = failpoints.declare("ingest.partition.mid_stream")
+
+
+class InvalidCsvUrl(ValueError):
+    pass
+
+
+_CHUNK_BYTES = 1 << 20          # 1 MiB download chunks
+_QUEUE_DEPTH = 64               # bounded: ~64 MiB in flight max
+
+#: Parsed blocks buffered per partition worker before its fetch stalls on
+#: backpressure (the coordinator drains partitions in order, so later
+#: workers prefetch up to this many blocks ahead).
+_PARTITION_QUEUE_DEPTH = 4
+
+_session_local = threading.local()
+
+
+def _http_session():
+    """Per-thread pooled ``requests.Session``. One logical ingest can hit
+    the source several times — the HEAD identity probe, the body GET, and
+    every ranged re-fetch a resume issues — and per-call ``requests.get``
+    pays TCP+TLS setup each time; the session reuses connections across
+    all of them. Per-THREAD because partitioned ingest runs N downloader
+    threads issuing concurrent ranged GETs: a process-wide Session would
+    funnel them through one shared connection-pool slot set, and
+    Session's cookie/redirect internals are not safe under concurrent
+    mutation. Thread-local sessions give each partition worker its own
+    pool at the cost of one TCP setup per (thread, host). Short-lived
+    threads (partition/redo workers, the serial downloader) must call
+    ``_close_thread_session`` on exit — a thread-local pool on a dead
+    thread holds its sockets until GC, which leaks connections under
+    repeated ingests and trips warnings-as-errors test lanes with
+    unraisable ResourceWarnings."""
+    s = getattr(_session_local, "session", None)
+    if s is None:
+        import requests
+        from requests.adapters import HTTPAdapter
+
+        s = requests.Session()
+        adapter = HTTPAdapter(pool_connections=4, pool_maxsize=8)
+        s.mount("http://", adapter)
+        s.mount("https://", adapter)
+        _session_local.session = s
+    return s
+
+
+def _close_thread_session() -> None:
+    """Close and drop the calling thread's pooled session (no-op when the
+    thread never made an HTTP request)."""
+    s = getattr(_session_local, "session", None)
+    if s is not None:
+        _session_local.session = None
+        s.close()
+
+
+# --- ingest-plane counters (rendered as the /metrics `ingest` section) ---
+_counters_lock = threading.Lock()
+_counters = {
+    "partition_ingests": 0,    # partitioned runs started
+    "partition_starts": 0,     # partition workers launched
+    "partition_bytes": 0,      # source bytes fetched by partition workers
+    "partition_rows": 0,       # rows committed by partitioned runs
+    "partition_realigns": 0,   # speculative starts discarded + redone
+    "partition_resumes": 0,    # partitioned runs continuing a crashed one
+    "partition_fallbacks": 0,  # partitioned requests served serially
+}
+
+
+def bump(key: str, by: int = 1) -> None:
+    with _counters_lock:
+        _counters[key] = _counters.get(key, 0) + by
+
+
+def counters_snapshot() -> dict:
+    with _counters_lock:
+        return dict(_counters)
+
+
+def reset_counters() -> None:
+    """Test hook."""
+    with _counters_lock:
+        for key in _counters:
+            _counters[key] = 0
+
+#: Hard ceiling on one row-aligned block. The native tokenizer stores cell
+#: spans as uint32 with the high bit reserved (csv_parser.cpp kArenaBit)
+#: and int32 Arrow offsets, so blocks must stay well under 2 GiB. Without
+#: a cap, one stray unmatched quote flips every later newline's parity odd
+#: and the widening loop would accumulate the whole remaining stream.
+_MAX_BLOCK_BYTES = 1 << 30
+
+
+def _sniff_header(first_chunk: bytes, url: str) -> None:
+    """Reject obviously-non-CSV payloads, as the reference does by checking
+    the first line for HTML/JSON markers (database.py:183-197)."""
+    head = first_chunk.lstrip()[:256].lower()
+    if head.startswith((b"<!doctype", b"<html", b"{", b"[")):
+        raise InvalidCsvUrl(f"url does not look like CSV: {url}")
+
+
+def _content_range_total(value) -> Optional[int]:
+    """Total length from a ``Content-Range: bytes */N`` (or
+    ``bytes a-b/N``) header; None when absent/opaque."""
+    if not value or "/" not in value:
+        return None
+    total = value.rsplit("/", 1)[1].strip()
+    return int(total) if total.isdigit() else None
+
+
+def _skip_bytes(chunks: Iterator[bytes], n: int) -> Iterator[bytes]:
+    """Drop the first ``n`` bytes of a chunk iterator (resume fallback for
+    servers that ignore Range requests). The source must actually HAVE
+    ``n`` bytes: a stream that ends earlier is shorter than the committed
+    offset — the content changed, and silently yielding nothing would
+    mark a truncated dataset finished."""
+    for chunk in chunks:
+        if n >= len(chunk):
+            n -= len(chunk)
+            continue
+        if n:
+            chunk = chunk[n:]
+            n = 0
+        yield chunk
+    if n > 0:
+        raise SourceChanged(
+            f"source ended {n} bytes before the committed resume offset; "
+            "it must have changed since the interrupted ingest")
+
+
+def _source_identity(url: str, timeout: float) -> dict:
+    """Best-effort identity of the source content: validators a resume can
+    check to detect a source that changed since the interrupted ingest
+    began (resuming a byte offset into *different* content would silently
+    splice mismatched rows). File sources use (length, mtime); HTTP uses
+    ETag / Last-Modified / Content-Length from a HEAD request. Empty dict
+    when nothing is observable."""
+    try:
+        if url.startswith(("http://", "https://")):
+            resp = _http_session().head(
+                url, timeout=timeout, allow_redirects=True,
+                headers={"Accept-Encoding": "identity"})
+            if resp.status_code >= 400:
+                return {}
+            out = {}
+            if resp.headers.get("ETag"):
+                out["etag"] = resp.headers["ETag"]
+            if resp.headers.get("Last-Modified"):
+                out["last_modified"] = resp.headers["Last-Modified"]
+            if resp.headers.get("Content-Length"):
+                out["length"] = int(resp.headers["Content-Length"])
+            return out
+        path = url[len("file://"):] if url.startswith("file://") else url
+        st = os.stat(path)
+        return {"length": st.st_size, "mtime": st.st_mtime}
+    except Exception:  # noqa: BLE001 — identity is advisory
+        return {}
+
+
+class SourceChanged(ValueError):
+    """The ingest source no longer matches what the committed prefix was
+    parsed from; resuming would corrupt the dataset."""
+
+
+class RangeUnsupported(RuntimeError):
+    """A ranged fetch that the caller requires to be honored came back
+    without 206 Partial Content. Partitioned ingest must not fall back to
+    skip-reading here: N workers each skip-reading from byte 0 downloads
+    the body N times concurrently — strictly worse than serial on exactly
+    the throttled links partitioning targets."""
+
+
+def _check_response_identity(resp, identity: dict, url: str) -> None:
+    """Re-validate one ranged response against the source identity captured
+    when the partitioned run began. Each partition worker issues its GET at
+    a different time, so a source that changes mid-ingest could otherwise
+    splice content from two versions across partitions — the offset-chain
+    check only catches that when record boundaries happen to misalign."""
+    for key, header in (("etag", "ETag"), ("last_modified", "Last-Modified")):
+        want = identity.get(key)
+        got = resp.headers.get(header)
+        if want is not None and got is not None and want != got:
+            raise SourceChanged(
+                f"source {key} changed mid-ingest at {url} "
+                f"({want!r} -> {got!r}); a partitioned fetch would splice "
+                "mismatched content")
+    want_len = identity.get("length")
+    total = _content_range_total(resp.headers.get("Content-Range"))
+    if want_len is not None and total is not None and total != want_len:
+        raise SourceChanged(
+            f"source length changed mid-ingest at {url} "
+            f"({want_len} -> {total}); a partitioned fetch would splice "
+            "mismatched content")
+
+
+def _check_file_identity(path: str, identity: dict) -> None:
+    """File-source analogue of ``_check_response_identity``: stat the path
+    again before each partition worker's read and compare against the
+    captured (length, mtime)."""
+    try:
+        st = os.stat(path)
+    except OSError as exc:
+        raise SourceChanged(
+            f"source file {path} vanished mid-ingest") from exc
+    for key, got in (("length", st.st_size), ("mtime", st.st_mtime)):
+        want = identity.get(key)
+        if want is not None and got != want:
+            raise SourceChanged(
+                f"source {key} changed mid-ingest at {path} "
+                f"({want!r} -> {got!r}); a partitioned read would splice "
+                "mismatched content")
+
+
+def _close_after(resp, it: Iterator[bytes]) -> Iterator[bytes]:
+    """Stream ``it`` and close ``resp`` on exhaustion, error, or
+    abandonment: a midstream ChunkedEncodingError (or a consumer that
+    stops early) would otherwise drop the response with a half-read
+    socket, which surfaces at GC time as an unraisable — and the test
+    suite runs with warnings-as-errors."""
+    try:
+        yield from it
+    finally:
+        resp.close()
+
+
+def _open_url_stream(url: str, timeout: float, offset: int = 0,
+                     chunk_bytes: int = 0, require_range: bool = False,
+                     expect_identity: Optional[dict] = None
+                     ) -> Iterator[bytes]:
+    """Yield byte chunks from a URL (http(s)://) or local file (file:// or
+    bare path — used by tests and the bench harness), optionally starting
+    at a byte offset (ingest resume). HTTP uses a Range request, falling
+    back to skip-reading when the server ignores it — unless
+    ``require_range`` is set (partition workers), in which case a
+    non-206 answer to a nonzero-offset request raises RangeUnsupported
+    instead of silently re-downloading the whole body. ``expect_identity``
+    re-validates the response (or file stat) against a previously captured
+    source identity, raising SourceChanged on mismatch. ``chunk_bytes``
+    overrides the 1 MiB default chunk size — the partitioned header sniff
+    reads small chunks so it isn't charged a megabyte of link time for
+    one record."""
+    chunk_bytes = chunk_bytes or _CHUNK_BYTES
+    if url.startswith(("http://", "https://")):
+        # identity: byte offsets journal positions in the DECODED stream
+        # (iter_content gunzips transparently), but a Range request
+        # addresses the on-the-wire representation — with gzip the two
+        # disagree and a resume would splice at the wrong byte.
+        headers = {"Accept-Encoding": "identity"}
+        if offset:
+            headers["Range"] = f"bytes={offset}-"
+        resp = _http_session().get(url, stream=True, timeout=timeout,
+                                   headers=headers)
+        if offset and resp.status_code == 416:
+            # Unsatisfiable range. RFC 7233 makes offset == total length
+            # unsatisfiable too, so a fully-committed ingest whose finish
+            # flip was lost lands here when HEAD gave no length — check
+            # the 416's Content-Range total before concluding the source
+            # shrank.
+            total = _content_range_total(resp.headers.get("Content-Range"))
+            resp.close()   # verdict is in the headers; drop the body
+            if total is not None and total == offset:
+                return iter(())             # every byte already committed
+            if total is None:
+                if require_range:
+                    raise RangeUnsupported(
+                        f"416 without a Content-Range total for ranged "
+                        f"request at byte {offset} of {url}")
+                # Can't tell from the 416: re-fetch in full and skip.
+                resp = _http_session().get(
+                    url, stream=True, timeout=timeout,
+                    headers={"Accept-Encoding": "identity"})
+                try:
+                    resp.raise_for_status()
+                except Exception:
+                    resp.close()
+                    raise
+                return _close_after(resp, _skip_bytes(
+                    resp.iter_content(chunk_size=chunk_bytes), offset))
+            raise SourceChanged(
+                f"source at {url} is {total} bytes, shorter than the "
+                f"committed resume offset {offset}; it must have changed "
+                "since the interrupted ingest")
+        try:
+            resp.raise_for_status()
+            if expect_identity:
+                _check_response_identity(resp, expect_identity, url)
+            if offset and require_range and resp.status_code != 206:
+                raise RangeUnsupported(
+                    f"server ignored Range request at byte {offset} of "
+                    f"{url} (HTTP {resp.status_code}, expected 206)")
+        except Exception:
+            resp.close()
+            raise
+        it = resp.iter_content(chunk_size=chunk_bytes)
+        if offset and resp.status_code != 206:
+            it = _skip_bytes(it, offset)
+        return _close_after(resp, it)
+    path = url[len("file://"):] if url.startswith("file://") else url
+    if expect_identity:
+        _check_file_identity(path, expect_identity)
+
+    def file_chunks() -> Iterator[bytes]:
+        with open(path, "rb") as f:
+            if offset:
+                f.seek(offset)
+            while True:
+                chunk = f.read(chunk_bytes)
+                if not chunk:
+                    return
+                yield chunk
+
+    return file_chunks()
+
+
+def _record_split(buf: bytearray, n: int, cfg) -> int:
+    """Index of the last newline terminating a complete record (even quote
+    parity) within ``buf[:n]`` — native (zero-copy over the accumulation
+    buffer) when built, C-speed Python primitives otherwise."""
+    from learningorchestra_tpu_torch.catalog import native
+
+    if cfg.use_native_csv and native.available():
+        return native.record_split_buffer(buf, n)
+    return native._record_split_py(buf, n)
+
+
+def _first_record_end(buf, start: int = 0, quotes: int = 0):
+    """Scan ``buf[start:]`` for the first newline at even cumulative quote
+    parity — the end of the first complete CSV record. Returns
+    ``(nl, scanned_to, quotes)``; ``nl`` is -1 when no complete record is
+    buffered yet, in which case the caller passes ``scanned_to``/``quotes``
+    back in after appending more bytes, keeping the overall scan linear in
+    the buffer (not quadratic across reads)."""
+    pos = start
+    while True:
+        nl = buf.find(b"\n", pos)
+        if nl < 0:
+            quotes += buf.count(b'"', pos)
+            return -1, len(buf), quotes
+        quotes += buf.count(b'"', pos, nl + 1)
+        pos = nl + 1
+        if quotes % 2 == 0:
+            return nl, pos, quotes
+
+
+def _parse_block(block: bytes, fields: List[str], cfg):
+    """Parse one headerless row-aligned block → pyarrow.RecordBatch
+    (native) or Columns dict (pandas fallback). Runs on pool threads —
+    must not touch the dataset."""
+    if cfg.use_native_csv:
+        from learningorchestra_tpu_torch.catalog import native
+
+        if native.available():
+            return native.parse_csv_block_arrow(block, names=fields)
+    import pandas as pd
+
+    text = io.TextIOWrapper(io.BytesIO(block), encoding="utf-8",
+                            errors="replace")
+    try:
+        frame = pd.read_csv(text, names=fields, header=None)
+    except pd.errors.EmptyDataError:   # all-blank block
+        return {}
+    return frame_to_columns(frame)
+
+
+def _append_parsed(ds, parsed, src_off: int) -> int:
+    """Append a parsed block (either representation) with its source
+    offset; returns its approximate in-memory size."""
+    if isinstance(parsed, dict):
+        ds.append_columns(parsed, src_off=src_off)
+        from learningorchestra_tpu_torch.catalog.dataset import _arr_bytes
+
+        return sum(_arr_bytes(a) for a in parsed.values())
+    ds.append_arrow(parsed, src_off=src_off)
+    return int(parsed.nbytes)
+
+
+def ingest_csv_url(store: DatasetStore, name: str, url: str,
+                   cfg=None) -> None:
+    """Synchronous core of ingestion; run under JobManager for async.
+
+    The dataset must already exist with ``finished=False`` (created by the
+    API layer before returning 201, mirroring the reference's
+    metadata-first insert at database.py:205-213).
+    """
+    _run_ingest(store, name, url, cfg or global_settings, start_offset=None)
+
+
+def resume_ingest(store: DatasetStore, name: str, cfg=None) -> None:
+    """Continue an ingest interrupted by process death from the last
+    journal-committed source byte (VERDICT r3 §4). Safe because chunk
+    commits are atomic-prefix: every committed chunk carries the offset
+    just past its last row, so re-opening the source there reproduces the
+    exact remaining rows — provided the source itself is unchanged, which
+    is validated against the identity (ETag/Last-Modified/length, or file
+    length+mtime) captured when the ingest began."""
+    cfg = cfg or global_settings
+    ds = store.get(name)
+    url = ds.metadata.url
+    if not url:
+        raise ValueError(f"dataset {name} has no source url to resume from")
+    offset = ds.resume_offset
+    if ds.num_rows and offset is None:
+        raise ValueError(
+            f"dataset {name} has committed chunks without source offsets; "
+            "resume would duplicate rows")
+    if offset:
+        recorded = ds.metadata.extra.get("source_id") or {}
+        current = _source_identity(url, cfg.download_timeout)
+        for key in ("etag", "last_modified", "mtime", "length"):
+            if key in recorded and key in current \
+                    and recorded[key] != current[key]:
+                raise SourceChanged(
+                    f"source {key} changed since the interrupted ingest "
+                    f"({recorded[key]!r} -> {current[key]!r}); resuming at "
+                    f"byte {offset} would splice mismatched content")
+        if current.get("length") == offset:
+            # Every byte was already committed; the crash just lost the
+            # finish flip.
+            store.finish(name)
+            return
+    _run_ingest(store, name, url, cfg, start_offset=offset)
+
+
+def _run_ingest(store: DatasetStore, name: str, url: str, cfg,
+                start_offset: Optional[int]) -> None:
+    # Range-partitioned path: opt-in (LO_TPU_INGEST_PARTITIONS > 1), and
+    # only when the source advertises its length — _run_partitioned_ingest
+    # declines (returns False) for unsized sources or ranges too small to
+    # split, falling through to the serial path below, byte-for-byte the
+    # pre-partitioning behavior.
+    n_parts = getattr(cfg, "ingest_partitions", 0) or 0
+    if n_parts > 1 and _run_partitioned_ingest(store, name, url, cfg,
+                                               start_offset, n_parts):
+        return
+    ds = store.get(name)
+    resuming = start_offset is not None and start_offset > 0
+    fields = list(ds.metadata.fields) if resuming else None
+    if resuming and not fields:
+        raise ValueError(
+            f"dataset {name} has a resume offset but no recorded fields")
+    if not resuming:
+        # Capture the source's identity so a future resume can detect a
+        # changed source (resume_ingest checks it before trusting the
+        # committed byte offset). Persisted with the first chunk commit.
+        identity = _source_identity(url, cfg.download_timeout)
+        if identity:
+            ds.metadata.extra["source_id"] = identity
+
+    chunks_q: "queue.Queue" = queue.Queue(maxsize=_QUEUE_DEPTH)
+    cancel = threading.Event()
+
+    def _put(item) -> bool:
+        """Cancellation-aware put; returns False if consumer gave up."""
+        while not cancel.is_set():
+            try:
+                chunks_q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def downloader() -> None:
+        try:
+            first = not resuming
+            for chunk in _open_url_stream(url, cfg.download_timeout,
+                                          offset=start_offset or 0):
+                if first:
+                    _sniff_header(chunk, url)
+                    first = False
+                if not _put(chunk):
+                    return
+            _put(None)
+        except Exception as exc:  # noqa: BLE001 — forwarded to consumer
+            _put(exc)
+        finally:
+            _close_thread_session()
+
+    # thread-lifecycle: owner=_run_ingest; exits when the stream is
+    # drained, the consumer stops (_put returns False after close), or
+    # on error — every exception is forwarded through the queue to the
+    # consumer (the except below), never left to die uncaught; daemon.
+    t = threading.Thread(target=downloader, daemon=True, name="lo-ingest-dl")
+    t.start()
+
+    # Default to 4 threads even on 1-core boxes: parse calls release the
+    # GIL and overlap the committer's write/fsync syscall waits, which
+    # pays even on one core; more cores, more threads.
+    n_threads = cfg.ingest_parse_threads or min(8, max(4,
+                                                       os.cpu_count() or 1))
+    pool = ThreadPoolExecutor(max_workers=n_threads,
+                              thread_name_prefix="lo-ingest-parse")
+    commit_pool = ThreadPoolExecutor(max_workers=1,
+                                     thread_name_prefix="lo-ingest-commit")
+    try:
+        _pipeline(store, ds, name, chunks_q, pool, commit_pool, n_threads,
+                  fields, start_offset or 0, cfg)
+    finally:
+        # Unblock and reap the downloader even when the parser raised
+        # mid-stream; otherwise it parks forever on the bounded queue
+        # holding the HTTP connection and buffered chunks.
+        cancel.set()
+        while True:
+            try:
+                chunks_q.get_nowait()
+            except queue.Empty:
+                break
+        t.join(timeout=5.0)
+        pool.shutdown(wait=True, cancel_futures=True)
+        commit_pool.shutdown(wait=True)
+    store.finish(name)
+
+
+def _pipeline(store, ds, name: str, chunks_q, pool, commit_pool,
+              n_threads: int, fields: Optional[List[str]], abs_off: int,
+              cfg) -> None:
+    """Split the byte stream into row-aligned blocks, parse them on the
+    pool, append + commit in source order."""
+    from collections import deque
+
+    buf = bytearray()
+    eof = False
+    pending = deque()            # (future, src_end, block_len)
+    max_inflight = n_threads + 2
+    pending_bytes = 0
+    commit_every = cfg.ingest_commit_bytes
+    target = None                # block byte size; set once header is known
+
+    # Single-slot asynchronous committer: a commit (journal fsync +
+    # metadata write + replica mirror) runs on its own thread while the
+    # caller keeps splitting/appending the next blocks — disk durability
+    # no longer serializes against network fetch and parsing. ONE
+    # in-flight commit at a time (a one-block handoff): submitting the
+    # next waits on — and propagates any error from — the previous, so
+    # commits stay ordered and a failure surfaces at the very next
+    # drain instead of silently accumulating unjournaled data. The pool
+    # is created by _run_ingest, whose finally joins it even when the
+    # split/parse loop raises mid-stream.
+    commit_fut = None
+
+    def commit_async() -> None:
+        nonlocal commit_fut
+        if commit_fut is not None:
+            commit_fut.result()
+        commit_fut = commit_pool.submit(store.save, name)
+
+    def drain_one() -> None:
+        nonlocal pending_bytes
+        fut, src_end, _ = pending.popleft()
+        parsed = fut.result()
+        pending_bytes += _append_parsed(ds, parsed, src_end)
+        if cfg.persist and (not commit_every
+                            or pending_bytes >= commit_every):
+            commit_async()
+            pending_bytes = 0
+
+    def read_more() -> bool:
+        nonlocal eof
+        if eof:
+            return False
+        item = chunks_q.get()
+        if item is None:
+            eof = True
+            return False
+        if isinstance(item, Exception):
+            raise item
+        buf.extend(item)
+        failpoints.fire(FP_BLOCK_POST_FETCH)
+        return True
+
+    # -- header (fresh ingest only): first record names the columns -------
+    # Quote-parity aware: a quoted header field may legally contain an
+    # embedded newline, so cut at the first newline with EVEN quote parity,
+    # not the first b"\n" (which would split the header mid-record and
+    # misalign every later block).
+    if fields is None:
+        nl, scanned, hq = _first_record_end(buf)
+        while nl < 0 and read_more():
+            if len(buf) > _MAX_BLOCK_BYTES:
+                raise ValueError(
+                    "no complete header record within "
+                    f"{_MAX_BLOCK_BYTES} bytes — unbalanced quote in the "
+                    "CSV header?")
+            nl, scanned, hq = _first_record_end(buf, scanned, hq)
+        if nl < 0:
+            if not buf.strip():
+                return              # empty source, zero-row dataset
+            if b"\n" in buf:
+                # EOF with newlines present but every one at odd quote
+                # parity: the header's quoting is unbalanced. Raising
+                # beats silently swallowing the whole file as "the
+                # header" and finishing a garbled zero-row dataset.
+                raise ValueError(
+                    "CSV ended inside a quoted header field — unbalanced "
+                    "quote in the CSV header?")
+            nl = len(buf) - 1       # header-only file without newline
+        header = bytes(buf[:nl + 1])
+        del buf[:nl + 1]
+        abs_off += len(header)
+        text = header.decode("utf-8", errors="replace").strip("\r\n﻿")
+        fields = next(csv.reader([text]))
+
+    approx_row = max(32, len(",".join(fields)) + 8)
+    target = max(cfg.ingest_chunk_rows * approx_row, 1 << 12)
+
+    # -- split / parse / commit loop --------------------------------------
+    while True:
+        while len(buf) < target and read_more():
+            pass
+        if not buf:
+            break
+        # Cut at the last complete record inside the target window (not in
+        # the whole buffer — a fast source can deliver far more than one
+        # block's worth before the first cut).
+        cut = _record_split(buf, min(target, len(buf)), cfg)
+        if cut < 0:
+            if len(buf) > target:
+                # record longer than target: search the whole buffer
+                cut = _record_split(buf, len(buf), cfg)
+            if cut < 0:
+                if eof:
+                    if buf.strip():
+                        # torn final record (no trailing newline)
+                        cut = len(buf) - 1
+                    else:
+                        break
+                else:
+                    # Giant quoted record: widen the window — but only up
+                    # to the hard cap the native parser's 31-bit spans
+                    # require. Past it, the only explanation is a corrupt
+                    # stream (unmatched quote), and failing the job beats
+                    # buffering the remaining terabyte then corrupting
+                    # spans.
+                    if target >= _MAX_BLOCK_BYTES:
+                        raise ValueError(
+                            "no record boundary within "
+                            f"{_MAX_BLOCK_BYTES} bytes near source offset "
+                            f"{abs_off} — unbalanced quote in the CSV?")
+                    target = min(target * 2, _MAX_BLOCK_BYTES)
+                    continue
+        block = bytes(buf[:cut + 1])
+        del buf[:cut + 1]
+        abs_off += len(block)
+        # All-blank blocks parse to zero rows and append as no-ops, so no
+        # content check is needed here (bytes.strip() on a 12 MB block is
+        # measurable main-thread time).
+        pending.append((pool.submit(_parse_block, block, fields, cfg),
+                        abs_off, len(block)))
+        while len(pending) >= max_inflight:
+            drain_one()
+        if eof and not buf:
+            break
+    while pending:
+        drain_one()
+    if commit_fut is not None:
+        # Join (and propagate) the handed-off commit before the final
+        # synchronous save — _run_ingest's finish must see every chunk
+        # journaled.
+        commit_fut.result()
+        commit_fut = None
+    if cfg.persist:
+        store.save(name)
+
+
+# --- range-partitioned ingest -------------------------------------------
+#
+# The byte range [body_start, length) is split into one contiguous
+# partition per pod host. Each partition worker streams its own ranged
+# fetch, record-aligns, and parses concurrently; the coordinator appends
+# partitions' blocks IN PARTITION ORDER, so global row order equals the
+# serial oracle's and the journal's monotone ``src_off`` chain — and with
+# it the resume machinery — carries over unchanged.
+#
+# Record alignment is speculative: worker i>0 anchors one byte before its
+# range (so a record starting exactly at the boundary stays in partition
+# i) and scans forward with _first_record_end ASSUMING even quote parity
+# at the anchor. Its records are exact iff that assumption held — which
+# the coordinator verifies for free: a partition's actual first record
+# start must equal the previous partition's actual stop (the offset
+# chain). On a mismatch (the anchor fell inside a quoted field), the
+# partition's speculative output is discarded and the range re-ingested
+# from the now-known true record start. The result is bit-identical row
+# content to the serial path in every case, at full overlap in the
+# overwhelmingly common aligned one.
+
+
+def _partition_ranges(start: int, length: int, parts: int,
+                      min_bytes: int) -> List[Tuple[int, int]]:
+    """Split [start, length) into up to ``parts`` contiguous byte ranges,
+    never smaller than ``min_bytes`` (tiny sources don't amortize a
+    second connection)."""
+    span = max(0, length - start)
+    if span <= 0:
+        return []
+    if min_bytes > 0:
+        parts = min(parts, max(1, span // min_bytes))
+    parts = max(1, int(parts))
+    bounds = [start + (span * i) // parts for i in range(parts + 1)]
+    return [(bounds[i], bounds[i + 1]) for i in range(parts)
+            if bounds[i + 1] > bounds[i]]
+
+
+def _parsed_rows(parsed) -> int:
+    if isinstance(parsed, dict):
+        return len(next(iter(parsed.values()))) if parsed else 0
+    return int(parsed.num_rows)
+
+
+def _partition_worker(url: str, cfg, begin: int, stop_anchor: Optional[int],
+                      length: int, fields: List[str], exact_start: bool,
+                      out_q: "queue.Queue", cancel: threading.Event,
+                      expect_identity: Optional[dict] = None) -> None:
+    """Fetch + record-align + parse one byte partition.
+
+    Emits, in order: ``("start", abs_off)`` — the absolute offset of the
+    partition's first record (speculative unless ``exact_start``); then
+    ``("block", parsed, src_end_abs)`` per row-aligned block; then
+    ``("done", stop_abs)``. Any failure emits ``("error", exc)``.
+
+    The stop rule mirrors what the next partition's start rule selects:
+    a non-last partition consumes through the first record end at
+    absolute position >= ``stop_anchor`` (one byte before the next
+    range), so adjacent aligned partitions tile the stream exactly. The
+    last partition (``stop_anchor is None``) runs to EOF, torn final
+    record included.
+    """
+    def put(item) -> bool:
+        while not cancel.is_set():
+            try:
+                out_q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    try:
+        failpoints.fire(FP_PARTITION_PRE_CLAIM)
+
+        anchor = begin if exact_start else begin - 1
+        stream = _open_url_stream(url, cfg.download_timeout, offset=anchor,
+                                  require_range=True,
+                                  expect_identity=expect_identity)
+        try:
+            buf = bytearray()
+            base = anchor
+            eof = False
+
+            def read_more() -> bool:
+                nonlocal eof
+                if eof or cancel.is_set():
+                    return False
+                try:
+                    chunk = next(stream)
+                except StopIteration:
+                    eof = True
+                    return False
+                buf.extend(chunk)
+                bump("partition_bytes", len(chunk))
+                failpoints.fire(FP_PARTITION_MID_STREAM)
+                return True
+
+            # -- phase A: locate this partition's first record start ------
+            if exact_start:
+                start_abs = begin
+            else:
+                nl, scanned, q = _first_record_end(buf)
+                while nl < 0 and read_more():
+                    if len(buf) > _MAX_BLOCK_BYTES:
+                        raise ValueError(
+                            "no record boundary within "
+                            f"{_MAX_BLOCK_BYTES} bytes after partition "
+                            f"anchor {anchor} — unbalanced quote in the "
+                            "CSV?")
+                    nl, scanned, q = _first_record_end(buf, scanned, q)
+                if cancel.is_set():
+                    return
+                if nl < 0:
+                    # EOF with no record end at/after the anchor: the
+                    # range holds zero record starts (the stream's tail is
+                    # an earlier partition's torn final record).
+                    put(("start", length))
+                    put(("done", length))
+                    return
+                start_abs = base + nl + 1
+                del buf[:nl + 1]
+                base = start_abs
+            if not put(("start", start_abs)):
+                return
+
+            approx_row = max(32, len(",".join(fields)) + 8)
+            target = max(cfg.ingest_chunk_rows * approx_row, 1 << 12)
+
+            # -- phase B: free row-aligned cuts strictly below the stop
+            # anchor (any record end there is safely ours) ---------------
+            while not cancel.is_set():
+                # Fill toward the block target but never fetch meaningfully
+                # past the stop anchor — bytes beyond it belong to the next
+                # partition's stream and would be paid for twice.
+                need = target if stop_anchor is None else min(
+                    target, stop_anchor - base + 1)
+                while len(buf) < need and read_more():
+                    pass
+                limit = len(buf) if stop_anchor is None else min(
+                    len(buf), stop_anchor - base)
+                if limit <= 0:
+                    break
+                window = min(target, limit)
+                cut = _record_split(buf, window, cfg)
+                if cut < 0 and limit > window:
+                    # record longer than target: search the whole window
+                    cut = _record_split(buf, limit, cfg)
+                if cut < 0:
+                    if stop_anchor is not None and limit < len(buf):
+                        break       # next record end is past the anchor
+                    if eof:
+                        break
+                    if target >= _MAX_BLOCK_BYTES:
+                        raise ValueError(
+                            "no record boundary within "
+                            f"{_MAX_BLOCK_BYTES} bytes near source offset "
+                            f"{base} — unbalanced quote in the CSV?")
+                    target = min(target * 2, _MAX_BLOCK_BYTES)
+                    continue
+                block = bytes(buf[:cut + 1])
+                del buf[:cut + 1]
+                base += len(block)
+                if not put(("block", _parse_block(block, fields, cfg),
+                            base)):
+                    return
+            if cancel.is_set():
+                return
+
+            # -- phase C: non-last partitions stop at the first record end
+            # at/after the stop anchor (matching the next partition's
+            # start rule), streaming past the nominal range end to it ----
+            if stop_anchor is not None:
+                nl, scanned, q = _first_record_end(buf)
+                while not cancel.is_set():
+                    while 0 <= nl and base + nl < stop_anchor:
+                        nl, scanned, q = _first_record_end(buf, scanned, q)
+                    if nl >= 0 or eof:
+                        break
+                    if len(buf) > _MAX_BLOCK_BYTES:
+                        raise ValueError(
+                            "no record boundary within "
+                            f"{_MAX_BLOCK_BYTES} bytes near source offset "
+                            f"{base} — unbalanced quote in the CSV?")
+                    read_more()
+                    nl, scanned, q = _first_record_end(buf, scanned, q)
+                if cancel.is_set():
+                    return
+                if nl >= 0:
+                    block = bytes(buf[:nl + 1])
+                    del buf[:nl + 1]
+                    base += len(block)
+                    if not put(("block", _parse_block(block, fields, cfg),
+                                base)):
+                        return
+                    put(("done", base))
+                    return
+                # EOF before the stop record end: this partition owns the
+                # stream's tail — fall through to phase D.
+
+            # -- phase D: consume the tail to EOF (torn final record) ----
+            while buf:
+                if cancel.is_set():
+                    return
+                cut = _record_split(buf, len(buf), cfg)
+                if cut < 0:
+                    if not buf.strip():
+                        base += len(buf)    # blank tail: consumed, no rows
+                        buf.clear()
+                        break
+                    cut = len(buf) - 1      # torn final record
+                block = bytes(buf[:cut + 1])
+                del buf[:cut + 1]
+                base += len(block)
+                if not put(("block", _parse_block(block, fields, cfg),
+                            base)):
+                    return
+            put(("done", base))
+        finally:
+            close = getattr(stream, "close", None)
+            if close:
+                close()
+    except Exception as exc:  # noqa: BLE001 — forwarded to coordinator
+        # The error is a TERMINAL item: the coordinator blocks on this
+        # queue with no timeout, so dropping it (e.g. a put with a short
+        # timeout against a full queue — routine while the coordinator
+        # is still draining an earlier partition) would hang the ingest
+        # forever. Deliver with the same cancellation-aware retry loop
+        # blocks use: either the coordinator drains to it, or teardown
+        # sets ``cancel`` and the put bails.
+        put(("error", exc))
+    finally:
+        _close_thread_session()
+
+
+def _drain_worker(t: threading.Thread, wq: "queue.Queue") -> None:
+    """Discard a worker's buffered output and reap it. The worker's
+    cancel event must already be set, so its next put/read bails and the
+    drain terminates."""
+    deadline = time.monotonic() + 10.0
+    while t.is_alive() and time.monotonic() < deadline:
+        try:
+            wq.get(timeout=0.05)
+        except queue.Empty:
+            pass
+    t.join(timeout=5.0)
+    while True:
+        try:
+            wq.get_nowait()
+        except queue.Empty:
+            break
+
+
+def _next_item(q_in: "queue.Queue", worker: threading.Thread):
+    """Blocking get that cannot hang on a dead producer. Workers deliver
+    their terminal item ("done"/"error") with a blocking put, so this
+    should never trigger — but a daemon thread can still die uncleanly
+    (interpreter teardown, a failpoint crash in a sibling), and the
+    coordinator must fail the job rather than block forever."""
+    while True:
+        try:
+            return q_in.get(timeout=1.0)
+        except queue.Empty:
+            if not worker.is_alive():
+                try:
+                    return q_in.get_nowait()
+                except queue.Empty:
+                    raise RuntimeError(
+                        f"partition worker {worker.name} died without a "
+                        "terminal queue item") from None
+
+
+def _probe_range_support(url: str, timeout: float, offset: int) -> bool:
+    """One-byte ranged GET before launching partition workers: a server
+    that ignores Range (200 instead of 206) would otherwise make every
+    worker skip-read the body from byte 0 — N concurrent full downloads,
+    strictly worse than serial on exactly the throttled links the feature
+    targets — so such sources stay on the serial path."""
+    try:
+        resp = _http_session().get(
+            url, stream=True, timeout=timeout,
+            headers={"Accept-Encoding": "identity",
+                     "Range": f"bytes={offset}-{offset}"})
+        try:
+            return resp.status_code == 206
+        finally:
+            resp.close()
+    except Exception:  # noqa: BLE001 — a failing probe just means serial
+        return False
+
+
+def _fetch_header(url: str, cfg, expect_identity: Optional[dict] = None):
+    """Fetch just the header record of a fresh partitioned ingest:
+    ``(fields, body_start)``, or None when the source has no complete
+    header (empty / unbalanced — the serial path owns those edges). Small
+    chunks: on a throttled link a 1 MiB first read would serialize a
+    megabyte of wait in front of every partition worker."""
+    stream = _open_url_stream(url, cfg.download_timeout,
+                              chunk_bytes=64 << 10,
+                              expect_identity=expect_identity)
+    buf = bytearray()
+    nl, scanned, hq = -1, 0, 0
+    first = True
+    try:
+        for chunk in stream:
+            if first:
+                _sniff_header(chunk, url)
+                first = False
+            buf.extend(chunk)
+            nl, scanned, hq = _first_record_end(buf, scanned, hq)
+            if nl >= 0:
+                break
+            if len(buf) > _MAX_BLOCK_BYTES:
+                return None
+    finally:
+        close = getattr(stream, "close", None)
+        if close:
+            close()
+    if nl < 0:
+        return None
+    header = bytes(buf[:nl + 1])
+    text = header.decode("utf-8", errors="replace").strip("\r\n﻿")
+    return next(csv.reader([text])), len(header)
+
+
+def _run_partitioned_ingest(store: DatasetStore, name: str, url: str, cfg,
+                            start_offset: Optional[int],
+                            n_parts: int) -> bool:
+    """Range-partitioned ingest (see the section comment above). Returns
+    False — committing nothing — when the source can't be partitioned
+    (no advertised length, or a range too small to split), in which case
+    the caller falls through to the serial path."""
+    ds = store.get(name)
+    resuming = start_offset is not None and start_offset > 0
+    identity = _source_identity(url, cfg.download_timeout)
+    length = identity.get("length")
+    if length is None:
+        bump("partition_fallbacks")
+        return False
+    if resuming:
+        fields = list(ds.metadata.fields)
+        if not fields:
+            raise ValueError(
+                f"dataset {name} has a resume offset but no recorded "
+                "fields")
+        body_start = int(start_offset)
+        pre_rows = ds.num_rows
+        bump("partition_resumes")
+    else:
+        got = _fetch_header(url, cfg, expect_identity=identity)
+        if got is None:
+            bump("partition_fallbacks")
+            return False
+        fields, body_start = got
+        ds.metadata.extra["source_id"] = identity
+        pre_rows = 0
+    min_bytes = getattr(cfg, "ingest_partition_min_bytes", 0) or 0
+    ranges = _partition_ranges(body_start, length, n_parts, min_bytes)
+    if len(ranges) <= 1:
+        bump("partition_fallbacks")
+        return False
+    if url.startswith(("http://", "https://")) and not _probe_range_support(
+            url, cfg.download_timeout, body_start):
+        bump("partition_fallbacks")
+        return False
+
+    bump("partition_ingests")
+    workers = []
+    for i, (b, _e) in enumerate(ranges):
+        nxt = ranges[i + 1][0] - 1 if i + 1 < len(ranges) else None
+        wq: "queue.Queue" = queue.Queue(maxsize=_PARTITION_QUEUE_DEPTH)
+        wc = threading.Event()
+        # thread-lifecycle: owner=_run_partitioned_ingest; exits when its
+        # byte range is drained (terminal "done"/"error" queue item) or
+        # the coordinator cancels it (realign/teardown sets its event) —
+        # every exception is forwarded through the queue to the
+        # coordinator, never left to die uncaught; daemon.
+        t = threading.Thread(
+            target=_partition_worker,
+            args=(url, cfg, b, nxt, length, fields, i == 0, wq, wc,
+                  identity),
+            daemon=True, name=f"lo-ingest-p{i}")
+        t.start()
+        bump("partition_starts")
+        workers.append((t, wq, wc, nxt))
+
+    commit_pool = ThreadPoolExecutor(max_workers=1,
+                                     thread_name_prefix="lo-ingest-commit")
+    commit_fut = None
+    pending_bytes = 0
+    commit_every = cfg.ingest_commit_bytes
+    redo: list = []              # (thread, queue, event) realign re-runs
+
+    appended = False             # any block landed in the dataset yet?
+
+    def consume(q_in: "queue.Queue", worker: threading.Thread
+                ) -> Tuple[int, int]:
+        """Drain one validated partition in order, appending every block
+        and batching commits exactly like the serial committer; returns
+        (rows, stop_abs)."""
+        nonlocal commit_fut, pending_bytes, appended
+        rows = 0
+        while True:
+            item = _next_item(q_in, worker)
+            kind = item[0]
+            if kind == "error":
+                raise item[1]
+            if kind == "done":
+                return rows, item[1]
+            _, parsed, src_end = item
+            rows += _parsed_rows(parsed)
+            pending_bytes += _append_parsed(ds, parsed, src_end)
+            appended = True
+            if cfg.persist and (not commit_every
+                                or pending_bytes >= commit_every):
+                if commit_fut is not None:
+                    commit_fut.result()
+                commit_fut = commit_pool.submit(store.save, name)
+                pending_bytes = 0
+
+    part_rows: List[int] = []
+    part_spans: List[Tuple[int, int]] = []
+    expected = body_start        # the offset-chain invariant
+    range_fallback = False
+    try:
+        for i, (t, wq, wc, nxt) in enumerate(workers):
+            item = _next_item(wq, t)
+            if item[0] == "error":
+                raise item[1]
+            start_abs = item[1]
+            if start_abs == expected:
+                rows_i, stop = consume(wq, t)
+            else:
+                # Misaligned speculation: the anchor fell inside a quoted
+                # field, so the worker's assumed parity — and every cut
+                # derived from it — is wrong. Discard and re-ingest the
+                # range from the true record start the chain gives us.
+                bump("partition_realigns")
+                wc.set()
+                _drain_worker(t, wq)
+                hi = nxt + 1 if nxt is not None else length
+                if expected >= hi:
+                    # A record spanning this whole range was already
+                    # consumed by the previous partition; nothing left.
+                    part_rows.append(0)
+                    part_spans.append((expected, expected))
+                    continue
+                rq: "queue.Queue" = queue.Queue(
+                    maxsize=_PARTITION_QUEUE_DEPTH)
+                rc = threading.Event()
+                # thread-lifecycle: owner=_run_partitioned_ingest; redo
+                # worker for a misaligned partition — exits on its
+                # terminal queue item or teardown cancel; daemon.
+                rt = threading.Thread(
+                    target=_partition_worker,
+                    args=(url, cfg, expected, nxt, length, fields, True,
+                          rq, rc, identity),
+                    daemon=True, name=f"lo-ingest-r{i}")
+                rt.start()
+                redo.append((rt, rq, rc))
+                first = _next_item(rq, rt)
+                if first[0] == "error":
+                    raise first[1]
+                rows_i, stop = consume(rq, rt)
+            part_rows.append(rows_i)
+            part_spans.append((expected, stop))
+            expected = stop
+        if commit_fut is not None:
+            commit_fut.result()
+            commit_fut = None
+        if cfg.persist:
+            store.save(name)
+    except RangeUnsupported:
+        # The probe said ranges work but a worker's fetch came back
+        # non-206 anyway (inconsistent server / mid-run CDN change).
+        # Before anything landed in the dataset the serial path can still
+        # take over cleanly; after that, re-running from byte 0 would
+        # duplicate rows, so fail the job (resume retries it).
+        if appended:
+            raise
+        range_fallback = True
+    finally:
+        for t, wq, wc, _n in workers:
+            wc.set()
+        for rt, rq, rc in redo:
+            rc.set()
+        for t, wq, wc, _n in workers:
+            _drain_worker(t, wq)
+        for rt, rq, rc in redo:
+            _drain_worker(rt, rq)
+        commit_pool.shutdown(wait=True)
+    if range_fallback:
+        bump("partition_fallbacks")
+        return False
+
+    total_rows = sum(part_rows)
+    parts_meta = []
+    row0 = 0
+    if pre_rows:
+        # Rows committed before this (resumed) run are attributed to the
+        # first partition's owner so the shard map stays a complete
+        # contiguous cover of the row space.
+        parts_meta.append({"host": 0, "row_start": 0, "rows": int(pre_rows),
+                           "src_start": 0, "src_stop": int(body_start)})
+        row0 = int(pre_rows)
+    for i, (nrows, (s0, s1)) in enumerate(zip(part_rows, part_spans)):
+        parts_meta.append({"host": i, "row_start": row0, "rows": int(nrows),
+                           "src_start": int(s0), "src_stop": int(s1)})
+        row0 += int(nrows)
+    store.install_shard_map(name, {"hosts": len(ranges),
+                                   "partitions": parts_meta})
+    store.finish(name)
+    bump("partition_rows", int(total_rows))
+    return True
+
+
+def parse_csv_chunks(fileobj, chunk_rows: int, cfg=None):
+    """Chunked CSV → column-dict iterator. Uses the native C++ tokenizer when
+    available (catalog.native), else pandas."""
+    cfg = cfg or global_settings
+    if cfg.use_native_csv:
+        from learningorchestra_tpu_torch.catalog import native
+
+        if native.available():
+            yield from native.parse_csv_chunks(fileobj, chunk_rows)
+            return
+    yield from _parse_csv_pandas(fileobj, chunk_rows)
+
+
+def _parse_csv_pandas(fileobj, chunk_rows: int):
+    import pandas as pd
+
+    text = io.TextIOWrapper(fileobj, encoding="utf-8", errors="replace")
+    for frame in pd.read_csv(text, chunksize=chunk_rows):
+        yield frame_to_columns(frame)
+
+
+def frame_to_columns(frame) -> dict:
+    """pandas DataFrame → {name: np.ndarray} with reference-compatible type
+    semantics: numeric columns stay numeric (floats that are integral stay
+    int64 per pandas inference), strings are object arrays, missing → None
+    for strings / NaN for numerics (reference database.py:156-169)."""
+    cols = {}
+    for cname in frame.columns:
+        s = frame[cname]
+        if s.dtype == object:
+            arr = s.to_numpy(dtype=object)
+            arr = np.array([None if (v is None or (isinstance(v, float) and v != v)
+                                     or v == "") else v
+                            for v in arr], dtype=object)
+        else:
+            arr = s.to_numpy()
+        cols[str(cname)] = arr
+    return cols
+
+
+def ingest_csv_text(store: DatasetStore, name: str, text: str,
+                    cfg=None) -> None:
+    """Ingest from an in-memory CSV string (tests / local tooling)."""
+    cfg = cfg or global_settings
+    ds = store.get(name)
+    reader = io.BytesIO(text.encode("utf-8"))
+    for cols in parse_csv_chunks(reader, cfg.ingest_chunk_rows, cfg):
+        ds.append_columns(cols)
+    store.finish(name)

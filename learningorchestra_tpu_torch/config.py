@@ -8,15 +8,16 @@ importable everywhere — the "typed pydantic-style settings" upgrade called for
 in SURVEY.md §7 without taking a pydantic dependency.
 
 Only the knobs that this package reads are here. A subsystem that is not
-ported yet brings its knobs along when it is; the two knobs of unported
-paths kept below (``stream_design``, ``fit_ckpt_rounds``) are refused by
-the model builder with a "not yet ported" error instead of being ignored.
+ported yet brings its knobs along when it is; the knobs of unported
+paths kept below (``stream_design``, ``fit_ckpt_rounds``,
+``http_workers > 1``) are refused with a "not yet ported" error instead
+of being ignored.
 """
 
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, fields
 
 
 def _env(name: str, default, cast=None):
@@ -124,6 +125,116 @@ class Settings:
         default_factory=lambda: _env("LO_TPU_IMAGE_ROOT", "/tmp/lo_tpu_images")
     )
 
+    # --- ingestion (catalog/ingest.py) --------------------------------------
+    #: CSV ingest chunk size (rows) for the streaming loader.
+    ingest_chunk_rows: int = field(
+        default_factory=lambda: _env("LO_TPU_INGEST_CHUNK_ROWS", 262144)
+    )
+    #: HTTP timeout for CSV downloads, seconds.
+    download_timeout: float = field(
+        default_factory=lambda: _env("LO_TPU_DOWNLOAD_TIMEOUT", 60.0)
+    )
+    #: Use the native C++ CSV parser (``native/``) when its shared library
+    #: is built; pandas parses otherwise.
+    use_native_csv: bool = field(
+        default_factory=lambda: _env("LO_TPU_USE_NATIVE_CSV", True, bool)
+    )
+    #: Parser threads for streaming ingest. 0 = automatic: os.cpu_count()
+    #: clamped to [4, 8].
+    ingest_parse_threads: int = field(
+        default_factory=lambda: _env("LO_TPU_INGEST_PARSE_THREADS", 0)
+    )
+    #: Range-partitioned ingest: split a sized source into this many
+    #: partitions fetched and parsed concurrently. 0 or 1 = one stream.
+    ingest_partitions: int = field(
+        default_factory=lambda: _env("LO_TPU_INGEST_PARTITIONS", 0)
+    )
+    #: Sources smaller than twice this never split.
+    ingest_partition_min_bytes: int = field(
+        default_factory=lambda: _env("LO_TPU_INGEST_PARTITION_MIN_BYTES",
+                                     4 << 20)
+    )
+
+    # --- serving (serving/app.py, serving/http.py) ---------------------------
+    #: The one service port; the reference's seven Flask ports become
+    #: path prefixes of this server.
+    port: int = field(default_factory=lambda: _env("LO_TPU_PORT", 5000))
+    host: str = field(default_factory=lambda: _env("LO_TPU_HOST", "127.0.0.1"))
+    #: Page-size cap for dataset reads; the reference hard-caps at 20
+    #: (database_api_image/server.py:28,69-70).
+    read_limit_cap: int = field(default_factory=lambda: _env("LO_TPU_READ_CAP", 20))
+    #: Per-connection socket timeout (seconds) on the HTTP server, so a
+    #: client that never delivers its body cannot pin a handler thread.
+    #: 0 disables.
+    http_timeout_s: float = field(
+        default_factory=lambda: _env("LO_TPU_HTTP_TIMEOUT_S", 30.0)
+    )
+    #: HTTP accept processes. Only 1 (the device-owning process serves
+    #: HTTP itself) is ported: the multi-process front end is not, and
+    #: ``App.serve`` raises ``NotImplementedError`` for more.
+    http_workers: int = field(
+        default_factory=lambda: _env("LO_TPU_HTTP_WORKERS", 1)
+    )
+
+    # --- online inference (serving/batcher.py, models/aot.py) --------------
+    #: Largest coalesced micro-batch (rows) per device dispatch, and the
+    #: top of the padding-bucket ladder (1/8/64/…/max). Requests carrying
+    #: more rows are rejected 406; the client SDK splits client-side.
+    serve_max_batch: int = field(
+        default_factory=lambda: _env("LO_TPU_SERVE_MAX_BATCH", 256)
+    )
+    #: Bound (rows) on each model's predict queue; a request that would
+    #: overflow it answers 503 + Retry-After. 0 disables the online tier.
+    serve_queue_depth: int = field(
+        default_factory=lambda: _env("LO_TPU_SERVE_QUEUE_DEPTH", 1024)
+    )
+    #: Optional coalescing linger (milliseconds) before dispatching a
+    #: batch that is not full. 0 = dispatch at once: the queue refills
+    #: while the device runs the previous batch.
+    serve_max_wait_ms: float = field(
+        default_factory=lambda: _env("LO_TPU_SERVE_MAX_WAIT_MS", 0.0)
+    )
+    #: How long a queued request may wait for its batch before 503.
+    serve_timeout_s: float = field(
+        default_factory=lambda: _env("LO_TPU_SERVE_TIMEOUT_S", 30.0)
+    )
+    #: Default deadline budget (milliseconds) of a predict request that
+    #: carries no ``X-Deadline-Ms``; 0 = none. Expiry answers 504.
+    serve_deadline_default_ms: float = field(
+        default_factory=lambda: _env("LO_TPU_SERVE_DEADLINE_DEFAULT_MS", 0.0)
+    )
+    #: Upper clamp (milliseconds) on client deadline budgets; 0 disables
+    #: deadline handling.
+    serve_deadline_cap_ms: float = field(
+        default_factory=lambda: _env("LO_TPU_SERVE_DEADLINE_CAP_MS",
+                                     600000.0)
+    )
+    #: Device replicas of the online tier: 1 (the default) is one card;
+    #: 0 means every visible CUDA device; N clamps to the device count.
+    serve_replicas: int = field(
+        default_factory=lambda: _env("LO_TPU_SERVE_REPLICAS", 1)
+    )
+    #: Consecutive dispatcher crashes before a model is quarantined
+    #: (terminal 503 until DELETE or re-save).
+    serve_quarantine_crashes: int = field(
+        default_factory=lambda: _env("LO_TPU_SERVE_QUARANTINE_CRASHES", 3)
+    )
+    #: First restart backoff (seconds) after a dispatcher crash; doubles
+    #: per consecutive crash, capped at 5 s.
+    serve_restart_backoff_s: float = field(
+        default_factory=lambda: _env("LO_TPU_SERVE_RESTART_BACKOFF_S", 0.2)
+    )
+    #: Retry-After (seconds) of a quarantined model's 503.
+    restart_backoff_max_s: float = field(
+        default_factory=lambda: _env("LO_TPU_RESTART_BACKOFF_MAX_S", 30.0)
+    )
+    #: Graceful-drain window (seconds): on SIGTERM or ``App.drain`` the
+    #: server answers new work 503 and lets accepted work finish for up
+    #: to this long.
+    drain_timeout_s: float = field(
+        default_factory=lambda: _env("LO_TPU_DRAIN_TIMEOUT_S", 30.0)
+    )
+
     # --- training ----------------------------------------------------------
     #: Max concurrently running model fits (reference: 5 classifiers through
     #: a ThreadPoolExecutor + Spark FAIR pool, model_builder.py:95,160-176).
@@ -155,6 +266,14 @@ class Settings:
         default_factory=lambda: _env("LO_TPU_JOB_DEADLINE_S", 0.0)
     )
 
+    #: Automatic re-runs per job whose outputs failed from
+    #: infrastructure (``pod failure:`` / ``interrupted:`` marks): on
+    #: start the server rescans the store and resubmits such jobs from
+    #: their recorded specs. 0 disables retry.
+    job_retries: int = field(
+        default_factory=lambda: _env("LO_TPU_JOB_RETRIES", 1)
+    )
+
     # --- observability -----------------------------------------------------
     #: When set, compute jobs run under a torch.profiler trace writing
     #: Chrome-trace files here (utils/profiling.device_trace).
@@ -184,6 +303,12 @@ class Settings:
     log_level: str = field(
         default_factory=lambda: _env("LO_TPU_LOG_LEVEL", "INFO")
     )
+
+    def replace(self, **kw) -> "Settings":
+        new = Settings()
+        for f in fields(self):
+            setattr(new, f.name, kw.get(f.name, getattr(self, f.name)))
+        return new
 
 
 #: Process-global settings instance. Tests construct their own.

@@ -16,6 +16,7 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict
 
 import numpy as np
+import torch
 
 from learningorchestra_tpu_torch.parallel.runtime import (
     DeviceRuntime, host_rows)
@@ -29,6 +30,50 @@ def as_design(X):
     if hasattr(X, "rows") and not isinstance(X, np.ndarray):
         return X
     return np.asarray(X, np.float32)
+
+
+# ---------------------------------------------------------------------------
+# Row-invariant arithmetic for the predict functions
+# ---------------------------------------------------------------------------
+# A row's probabilities must be the same bytes whatever batch it arrives
+# in: alone, padded into an online bucket, or among 100k rows of a batch
+# predict. Reductions do not promise that — cuBLAS and the CPU's GEMM,
+# and CUDA's reduction kernels, split the work by the shape — so the
+# predict functions reduce with these: a fixed-order chain of elementwise
+# operations over the reduced axis, whose arithmetic on one element is the
+# same whatever the other dimensions are. Each multiply and add is its own
+# operation (no fused multiply-add, which a CPU may use for some elements
+# only). Transcendentals are ``torch.exp`` alone (``torch.sigmoid`` is
+# not the same on every element on the CPU).
+
+def ordered_sum(parts):
+    """Sum of a sequence of same-shaped tensors, in index order."""
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = acc + p
+    return acc
+
+
+def ordered_matmul(X: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """X (n, d) @ W (d, C), accumulated over d in index order."""
+    return ordered_sum([X[:, j:j + 1] * W[j][None, :]
+                        for j in range(W.shape[0])])
+
+
+def ordered_softmax(L: torch.Tensor) -> torch.Tensor:
+    """Softmax over the last axis of L (n, C): max, exp, sum and divide,
+    over the classes in index order."""
+    C = L.shape[1]
+    m = L[:, 0]
+    for c in range(1, C):
+        m = torch.maximum(m, L[:, c])
+    e = torch.exp(L - m[:, None])
+    return e / ordered_sum([e[:, c] for c in range(C)])[:, None]
+
+
+def ordered_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """1 / (1 + exp(-x)), element by element."""
+    return 1.0 / (1.0 + torch.exp(-x))
 
 
 @dataclass

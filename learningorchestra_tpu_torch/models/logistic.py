@@ -12,8 +12,10 @@ solvers, as in the JAX package:
   bf16-rounded standardized design matrix.
 
 Operands are rounded to bf16 where the JAX package casts them, so both
-packages round the same intermediates. The matrix products are plain
-``torch.matmul`` — the JAX package leaves them to XLA, not to a kernel.
+packages round the same intermediates. The fit's matrix products are
+plain ``torch.matmul`` — the JAX package leaves them to XLA, not to a
+kernel; the predict path sums in a fixed order instead, so a row's
+probabilities do not depend on its batch (models/base.py).
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from learningorchestra_tpu_torch.models.base import TrainedModel, as_design
+from learningorchestra_tpu_torch.models.base import (
+    TrainedModel, as_design, ordered_matmul, ordered_softmax)
 from learningorchestra_tpu_torch.parallel.runtime import DeviceRuntime
 
 #: Rows per Newton accumulation block (bounds the (B, C·(d+1)) A tensor
@@ -40,13 +43,16 @@ def _bf16(x):
 
 
 def _logits(params, X):
+    """Predict-time logits, row-invariant (``base.ordered_matmul``): the
+    products of bf16 values are exact in f32, so only the order of the
+    feature sum rounds, and it is fixed."""
     W, b, mu, sigma = (params["W"], params["b"], params["mu"],
                        params["sigma"])
-    return _bf16((X - mu) / sigma) @ _bf16(W) + b
+    return ordered_matmul(_bf16((X - mu) / sigma), _bf16(W)) + b
 
 
 def _predict_proba(params, X):
-    return torch.softmax(_logits(params, X), dim=-1)
+    return ordered_softmax(_logits(params, X))
 
 
 def _device_stats(X):

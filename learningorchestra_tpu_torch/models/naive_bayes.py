@@ -19,7 +19,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from learningorchestra_tpu_torch.models.base import TrainedModel, as_design
+from learningorchestra_tpu_torch.models.base import (
+    TrainedModel, as_design, ordered_matmul, ordered_softmax)
 from learningorchestra_tpu_torch.parallel.runtime import DeviceRuntime
 
 _VAR_FLOOR = 1e-6
@@ -57,17 +58,20 @@ def _predict_proba(params, X):
     mean, var, log_prior = params["mean"], params["var"], params["log_prior"]
     # log N(x; mu, var) summed over features, per class, in expanded
     # quadratic form: Σ_d (x−μ)²/v = x²·(1/v) − 2x·(μ/v) + Σ μ²/v — two
-    # (n,d)@(d,C) products instead of an (n, C, d) broadcast. Shifting x
-    # and μ by the across-class mean is exact and keeps x² small.
+    # (n,d)@(d,C) products instead of an (n, C, d) broadcast, each summed
+    # over the features in a fixed order (row-invariant, models/base.py).
+    # Shifting x and μ by the across-class mean is exact and keeps x²
+    # small.
     c = mean.mean(dim=0)
     Xc = X - c[None, :]
     mu = mean - c[None, :]
     inv_v = (1.0 / var).T                              # (d, C)
     mu_v = (mu / var).T                                # (d, C)
     const = ((mu ** 2 / var) + torch.log(2.0 * math.pi * var)).sum(dim=1)
-    quad = (Xc * Xc) @ inv_v - 2.0 * (Xc @ mu_v)       # (n, C)
+    quad = (ordered_matmul(Xc * Xc, inv_v)
+            - 2.0 * ordered_matmul(Xc, mu_v))          # (n, C)
     loglik = -0.5 * (quad + const[None, :])
-    return torch.softmax(loglik + log_prior[None], dim=-1)
+    return ordered_softmax(loglik + log_prior[None])
 
 
 def _fit_multinomial(X, y, *, num_classes, alpha):
@@ -86,8 +90,9 @@ def _fit_multinomial(X, y, *, num_classes, alpha):
 
 
 def _predict_multinomial(params, X):
-    loglik = X @ params["theta"].T + params["log_prior"][None]
-    return torch.softmax(loglik, dim=-1)
+    loglik = (ordered_matmul(X, params["theta"].T)
+              + params["log_prior"][None])
+    return ordered_softmax(loglik)
 
 
 def fit(runtime: DeviceRuntime, X: np.ndarray, y: np.ndarray,

@@ -25,6 +25,10 @@ CLASSIFIERS: Dict[str, Callable] = {
 #: Families of the JAX package that this package does not have yet.
 NOT_YET_PORTED = ("mlp", "tx")
 
+#: Families the online predict tier serves (models/aot.py): the JAX
+#: package's list without ``mlp``, which joins when it is ported.
+ONLINE_KINDS = ("lr", "nb", "dt", "rf", "gb")
+
 
 def _int_range(lo: int, hi: int) -> Tuple[Callable, str]:
     return (lambda v: isinstance(v, int) and not isinstance(v, bool)

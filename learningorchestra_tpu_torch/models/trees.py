@@ -35,7 +35,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from learningorchestra_tpu_torch.models.base import TrainedModel, as_design
+from learningorchestra_tpu_torch.models.base import (
+    TrainedModel, as_design, ordered_sigmoid, ordered_sum)
 from learningorchestra_tpu_torch.ops import tree_kernels
 from learningorchestra_tpu_torch.parallel.runtime import DeviceRuntime
 
@@ -281,14 +282,19 @@ def _fit_cls_trees(kind, runtime, X, y, num_classes, seed, *, n_trees,
 
 
 def _forest_proba_static(params, X, *, max_depth):
+    """Mean over trees of each tree's leaf class shares. Sums over the
+    classes and over the trees run in index order (row-invariant,
+    models/base.py); descent and the leaf gather are exact."""
     B = bin_features(X, params["edges"])
     assign = tree_kernels.tree_descend(
         B, params["feat"], params["thr"], params["internal"],
         max_depth=max_depth).long()                              # (T, n)
     leaf = params["leaf"]                                        # (T, M, S)
-    counts = leaf.gather(1, assign[:, :, None].expand(-1, -1, leaf.shape[2]))
-    probs = counts / torch.clamp(counts.sum(-1, keepdim=True), min=1e-12)
-    return probs.mean(dim=0)
+    S = leaf.shape[2]
+    counts = leaf.gather(1, assign[:, :, None].expand(-1, -1, S))
+    total = ordered_sum([counts[:, :, s] for s in range(S)])     # (T, n)
+    probs = counts / torch.clamp(total, min=1e-12)[:, :, None]
+    return ordered_sum(list(probs)) / probs.shape[0]
 
 
 def fit_dt(runtime: DeviceRuntime, X, y, num_classes, seed=0, *,
@@ -356,9 +362,10 @@ def _gbt_proba_static(params, X, *, max_depth):
     assign = tree_kernels.tree_descend(
         B, params["feat"], params["thr"], params["internal"],
         max_depth=max_depth).long()                              # (R, n)
-    leaf_val = params["leaf_val"]
-    margin = params["step_size"] * leaf_val.gather(1, assign).sum(dim=0)
-    p1 = torch.sigmoid(margin)
+    vals = params["leaf_val"].gather(1, assign)                  # (R, n)
+    # Rounds summed in order (row-invariant, models/base.py).
+    margin = params["step_size"] * ordered_sum(list(vals))
+    p1 = ordered_sigmoid(margin)
     return torch.stack([1 - p1, p1], dim=1)
 
 
@@ -372,10 +379,12 @@ def _gbt_ovr_proba_static(params, X, *, max_depth):
             for k in ("feat", "thr", "internal", "leaf_val")]
     assign = tree_kernels.tree_descend(B, flat[0], flat[1], flat[2],
                                        max_depth=max_depth).long()
-    vals = flat[3].gather(1, assign)                              # (C·R, n)
-    margins = vals.reshape(C, R, -1).sum(dim=1)                  # (C, n)
-    p = torch.sigmoid(params["step_size"] * margins).T           # (n, C)
-    return p / torch.clamp(p.sum(dim=1, keepdim=True), min=1e-12)
+    vals = flat[3].gather(1, assign).reshape(C, R, -1)           # (C, R, n)
+    # Rounds, then classes, summed in order (row-invariant).
+    margins = ordered_sum([vals[:, r] for r in range(R)])       # (C, n)
+    p = ordered_sigmoid(params["step_size"] * margins).T         # (n, C)
+    total = ordered_sum([p[:, c] for c in range(C)])
+    return p / torch.clamp(total, min=1e-12)[:, None]
 
 
 def fit_gb(runtime: DeviceRuntime, X, y, num_classes, seed=0, *,

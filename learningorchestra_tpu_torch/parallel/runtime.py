@@ -34,6 +34,24 @@ def host_rows(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def resolve_device(device: str = "cuda") -> torch.device:
+    """The torch device an entry point runs on: ``"cuda"`` (the default;
+    the current CUDA device) raises when no CUDA device is present, and
+    only an explicit ``"cpu"`` runs on the host."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device={device!r} needs a CUDA device and none is "
+                "available; pass device='cpu' to run the plain PyTorch "
+                "versions on the host")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {device!r}")
+    return dev
+
+
 class DeviceRuntime:
     """Process-wide device holder for compute jobs.
 
@@ -48,18 +66,7 @@ class DeviceRuntime:
     def __init__(self, cfg: Optional[Settings] = None,
                  device: str = "cuda"):
         self.cfg = cfg or global_settings
-        dev = torch.device(device)
-        if dev.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "DeviceRuntime(device='cuda') needs a CUDA device and "
-                    "none is available; pass device='cpu' to run the plain "
-                    "PyTorch versions on the host")
-            if dev.index is None:
-                dev = torch.device("cuda", torch.cuda.current_device())
-        elif dev.type != "cpu":
-            raise ValueError(f"unsupported device {device!r}")
-        self.device = dev
+        self.device = resolve_device(device)
         # RLock: cache-eviction finalizers can fire from gc inside a
         # lock-holding allocation; a plain Lock would self-deadlock.
         self._lock = threading.RLock()
