@@ -45,14 +45,32 @@ Phases, one JSON line each (any failure exits non-zero):
    their defaults, then ``ModelBuilder.predict`` with the saved gb model;
    accuracies above the floors, every tree family above lr, and every
    tree kernel launched during the run;
-7. the exploration path in the same catalog: projection of the train set
+7. streamed: the same catalog built again with ``stream_design`` set
+   (the out-of-core path: the design state fitted in streaming passes,
+   the design matrix fed to the card block by block through two pinned
+   buffers and a side stream): (a) the feed's device tensor equal bit
+   for bit to the resident design's device copy; (b) ``ModelBuilder
+   .build`` of all five families, lr and nb accuracies equal to the
+   sweep's, dt/rf/gb above their floors, within 0.01 of the sweep's
+   (their edges come from a strided sample) and above lr; (c) a streamed
+   ``ModelBuilder.predict`` of the sweep's gb model, every probability
+   equal to the resident predict's; (d) rf (20 trees) and gb (20
+   rounds, checkpoints every 5) fitted three times on the resident
+   codes with the sweep's edges: uninterrupted, crashed at the second
+   checkpoint by the ``fit.ckpt.pre_rename`` failpoint, and resumed,
+   every resumed param equal to the uninterrupted one's. Exec
+   preprocessing is not driven here: its jail hands user code pandas
+   DataFrames, which the card's machine may lack, and its device work is
+   the resident build the sweep already runs (the CPU tests hold it
+   against the JAX package);
+8. the exploration path in the same catalog: projection of the train set
    to 5 fields, its label coerced to string and back (equal to the
    original), histograms equal to ``np.bincount``, a PCA of the 11M × 28
    train set against a float64 numpy PCA (|corr| > 0.9999 per
    component), and a t-SNE of a 60,000 × 784 dataset at the service
    defaults (750 iterations, the repulsion kernel launched once per
    iteration; its 10-NN class agreement above PCA-2's);
-8. serve: the package's REST server (``serving.App`` on the same
+9. serve: the package's REST server (``serving.App`` on the same
    catalog, ``serve(background=True)`` on 127.0.0.1:0) driven over HTTP
    with the standard library: ``POST /models`` (async) of all five
    families on the same train/test sets, polled to ``finished`` and
@@ -735,6 +753,21 @@ def check_tsne_kernel(dev) -> dict:
     b_ms, b_by = bound(20 * n + 4, TSNE_OPS_PER_PAIR * pairs)
     ordered_ms, _ = bound(20 * n + 4,
                           TSNE_OPS_PER_ORDERED_PAIR * 2 * pairs)
+    # The row form on its own: Yq, Y and valid read once, F and Z written
+    # once; each (valid query row, valid column) pair once.
+    Zq, Fq = tsk.tsne_repulsion_rows(Y, valid, Y, valid, 0)
+    Zqr, Fqr = tsk.tsne_repulsion_rows_ref(Y, valid, Y, valid, 0)
+    check(abs(float(Zq) - float(Zqr)) <= 1e-4 * abs(float(Zqr)),
+          f"row form over every row: Z {float(Zq)} vs plain {float(Zqr)}")
+    rows_b_ms, rows_b_by = bound(8 * n + 8 * n + 4 * n + 8 * n + 4,
+                                 TSNE_OPS_PER_ORDERED_PAIR * nv * nv)
+    rows_form = {
+        "rows_form_max_abs_err": float((Fq - Fqr).abs().max()),
+        "rows_form_plain_ms": time_ms(lambda: tsk.tsne_repulsion_rows_ref(
+            Y, valid, Y, valid, 0), 3),
+        "rows_form_bound_ms": rows_b_ms, "rows_form_bound_by": rows_b_by}
+    check(rows_form["rows_form_max_abs_err"] <= f_tol,
+          f"row form over every row: F err {rows_form}")
     result = {"max_abs_err": err, "ms": time_ms(
         lambda: tsk.tsne_repulsion(Y, valid), 50),
         "plain_ms": time_ms(lambda: tsk.tsne_repulsion_ref(Y, valid), 3),
@@ -750,7 +783,7 @@ def check_tsne_kernel(dev) -> dict:
           # in the same run, and the ordered-pair bound it was held to.
           "rows_form_ms": time_ms(
               lambda: tsk.tsne_repulsion_rows(Y, valid, Y, valid, 0), 20),
-          "ordered_pair_bound_ms": ordered_ms, **result})
+          "ordered_pair_bound_ms": ordered_ms, **rows_form, **result})
     return result
 
 
@@ -1229,9 +1262,10 @@ def serve_path(cfg, store, dev) -> dict:
 
 
 def main_path(n_train: int, n_test: int, dev) -> dict:
-    """The sweep, then the exploration path and the REST server in the
-    same catalog; each path's launch counts are reset just before it and
-    read just after. Returns the launches summed over the phases."""
+    """The sweep, then the streamed build, the exploration path and the
+    REST server in the same catalog; each path's launch counts are reset
+    just before it and read just after. Returns the launches summed over
+    the phases."""
     import torch
 
     from benchmarks.workload import higgs_like_columns
@@ -1306,11 +1340,163 @@ def main_path(n_train: int, n_test: int, dev) -> dict:
               "predict_s": predict_s, "spans_s": spans,
               "launches_build": build_counts, "launches_total": counts,
               "peak_device_bytes": torch.cuda.max_memory_allocated(dev)})
-        phases = [counts, explore_path(store, runtime, dev),
+        phases = [counts,
+                  streamed_path(cfg, store, runtime, dev, acc, spans,
+                                build_s),
+                  explore_path(store, runtime, dev),
                   serve_path(cfg, store, dev)]
         return {k: sum(p.get(k, 0) for p in phases) for k in KERNELS}
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+def streamed_path(cfg, store, runtime, dev, acc_resident: dict,
+                  resident_spans: dict, resident_build_s: float) -> dict:
+    """The streamed (out-of-core) build on the sweep's catalog: the feed
+    against the resident design's device copy, the five-family build and
+    a predict with ``stream_design`` set, and the rf/gb checkpoint
+    resumes. Returns the kernel launches of the phase (the streamed
+    build and predict, and the resumed fits)."""
+    import torch
+
+    from learningorchestra_tpu_torch.catalog import readpipe
+    from learningorchestra_tpu_torch.models import trees
+    from learningorchestra_tpu_torch.models.builder import ModelBuilder
+    from learningorchestra_tpu_torch.ops import preprocess
+    from learningorchestra_tpu_torch.ops import tree_kernels as tk
+    from learningorchestra_tpu_torch.parallel.runtime import DeviceRuntime
+    from learningorchestra_tpu_torch.utils import failpoints, fitckpt, tracing
+
+    train = store.get("train")
+    doc = {"phase": "streamed", "card": card_line()}
+    # (a) The feed. The sweep's design matrix (memoized on the dataset)
+    # and its cached device copy are the resident reference.
+    X_res, y_res, _, _ = train.memo(
+        ("design", "label", json.dumps([])),
+        lambda: preprocess.design_matrix(train, "label", ()))
+    dev_res, n = runtime.shard_rows(X_res)
+    prof = {}
+    t0 = time.time()
+    Xs, ys, _, _ = preprocess.design_matrix_streamed(train, "label", (),
+                                                     profile=prof)
+    doc["state_fit_s"] = time.time() - t0
+    doc["fit_passes"] = prof["fit_passes"]
+    check(np.array_equal(ys, y_res), "streamed labels differ from resident")
+    feed_rt = DeviceRuntime(cfg, device=str(dev))      # an empty cache
+    blk = feed_rt.FEED_BLOCK_ROWS
+    rp0 = readpipe.snapshot()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    dev_s, n_s = feed_rt.shard_rows(Xs)
+    torch.cuda.synchronize()
+    feed_s = time.time() - t0
+    rp1 = readpipe.snapshot()
+    nbytes = dev_s.numel() * dev_s.element_size()
+    check(n_s == n and torch.equal(dev_s, dev_res),
+          "the streamed feed's tensor differs from the resident device copy")
+    blocks = -(-n_s // blk)
+    doc["feed"] = {
+        "rows": n_s, "block_rows": blk, "blocks": blocks,
+        "pinned_bytes": (min(2, blocks) * min(blk, n_s) * dev_s.shape[1]
+                         * dev_s.element_size()),
+        "prefetch_stalls": rp1["prefetch_stalls"] - rp0["prefetch_stalls"],
+        "prefetched_blocks": (rp1["prefetched_chunks"]
+                              - rp0["prefetched_chunks"]),
+        "seconds": feed_s, "gb_per_s": nbytes / feed_s / 1e9,
+        "bytes": nbytes}
+    del dev_s, feed_rt, Xs
+
+    # (b) The build, and (c) the predict, with stream_design set.
+    families = list(acc_resident)
+    mb = ModelBuilder(store, runtime, cfg.replace(stream_design=True))
+    torch.cuda.synchronize()
+    tk.reset_launch_counts()
+    t0 = time.time()
+    with tracing.trace("chip_smoke.streamed", sampled=True) as ctx:
+        reports = mb.build("train", "test", "spred", families, "label")
+    doc["build_s"] = time.time() - t0
+    spans = {}
+    for sp in tracing.spans_for(ctx.trace_id):
+        spans[sp["name"]] = (spans.get(sp["name"], 0.0)
+                             + sp["duration_ms"] / 1e3)
+    doc["design_s"] = spans.get("design.build")
+    doc["resident"] = {"build_s": resident_build_s,
+                       "design_s": resident_spans.get("design.build")}
+    acc = {}
+    for r in reports:
+        check("error" not in r.metrics, f"streamed {r.kind}: {r.metrics}")
+        acc[r.kind] = r.metrics["accuracy"]
+    doc["accuracy"] = acc
+    for kind in ("lr", "nb"):
+        check(acc[kind] == acc_resident[kind],
+              f"streamed {kind} accuracy {acc[kind]} != resident "
+              f"{acc_resident[kind]}")
+    for kind in ("dt", "rf", "gb"):
+        check(acc[kind] > ACC_FLOOR[kind]
+              and abs(acc[kind] - acc_resident[kind]) <= 0.01
+              and acc[kind] > acc["lr"],
+              f"streamed {kind} accuracy {acc[kind]} (resident "
+              f"{acc_resident[kind]}, floor {ACC_FLOOR[kind]}, lr "
+              f"{acc['lr']})")
+    t0 = time.time()
+    mb.predict("pred_gb", "test", "spred_gb_again")
+    torch.cuda.synchronize()
+    doc["predict_s"] = time.time() - t0
+    counts = tk.launch_counts()
+    doc["launches"] = dict(counts)
+    for name, c in counts.items():
+        check(c > 0, f"kernel {name} was not launched by the streamed path")
+    got, want = store.get("spred_gb_again"), store.get("pred_gb_again")
+    check(got.metadata.finished and got.num_rows == want.num_rows,
+          "streamed predict finished with every test row")
+    p_s = np.array(list(got.columns["probability"]), np.float64)
+    p_r = np.array(list(want.columns["probability"]), np.float64)
+    check(np.array_equal(p_s, p_r)
+          and np.array_equal(got.columns["prediction"],
+                             want.columns["prediction"]),
+          "streamed predict differs from the resident predict")
+
+    # (d) Checkpointed rf and gb on the resident codes: uninterrupted,
+    # crashed at the second checkpoint, resumed.
+    edges = trees._edge_prep(X_res)["edges"]
+    ck_cfg = cfg.replace(fit_ckpt_rounds=5)
+    resume = {}
+    for fam, fit in (("rf", trees.fit_rf), ("gb", trees.fit_gb)):
+        oracle = fit(runtime, X_res, y_res, 2, edges=edges)
+        ctx = fitckpt.context(ck_cfg, dataset="train", family=fam,
+                              config={"chip_smoke": fam},
+                              snapshot=f"rows={n}")
+        ctx.clear()
+        failpoints.configure("fit.ckpt.pre_rename=raise:2")
+        try:
+            fit(runtime, X_res, y_res, 2, edges=edges, ckpt=ctx)
+            crashed = False
+        except failpoints.FailpointError:
+            crashed = True
+        finally:
+            failpoints.reset()
+        saved = ctx.load()
+        check(crashed and saved is not None and saved[0] == 5,
+              f"{fam}: the crash at the second checkpoint left "
+              f"{saved and saved[0]}")
+        torch.cuda.synchronize()
+        tk.reset_launch_counts()
+        t0 = time.time()
+        resumed = fit(runtime, X_res, y_res, 2, edges=edges, ckpt=ctx)
+        torch.cuda.synchronize()
+        resume[fam] = {"resumed_at": saved[0], "seconds": time.time() - t0,
+                       "launches": tk.launch_counts()}
+        for k, v in oracle.params.items():
+            check(torch.equal(v, resumed.params[k]),
+                  f"{fam} resume: param {k} differs from the "
+                  "uninterrupted fit")
+        ctx.clear()
+        for k, v in resume[fam]["launches"].items():
+            counts[k] += v
+    doc["resume"] = resume
+    doc["resume_rows"] = n
+    emit(doc)
+    return counts
 
 
 def build_all() -> None:

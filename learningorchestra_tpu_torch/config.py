@@ -8,10 +8,9 @@ importable everywhere — the "typed pydantic-style settings" upgrade called for
 in SURVEY.md §7 without taking a pydantic dependency.
 
 Only the knobs that this package reads are here. A subsystem that is not
-ported yet brings its knobs along when it is; the knobs of unported
-paths kept below (``stream_design``, ``fit_ckpt_rounds``,
-``http_workers > 1``) are refused with a "not yet ported" error instead
-of being ignored.
+ported yet brings its knobs along when it is; the knob of an unported
+path kept below (``http_workers > 1``) is refused with a "not yet
+ported" error instead of being ignored.
 """
 
 from __future__ import annotations
@@ -51,9 +50,11 @@ class Settings:
     ram_budget_mb: int = field(
         default_factory=lambda: _env("LO_TPU_RAM_BUDGET_MB", 0)
     )
-    #: Force the streamed design-matrix path for every build. That path
-    #: is not ported: the builder refuses a build with this set, or with
-    #: a dataset over its RAM budget.
+    #: Force the streamed design-matrix path for every build
+    #: (ops/preprocess.design_matrix_streamed + the runtime's
+    #: double-buffered device feed). Datasets over their RAM budget take
+    #: that path regardless; this flag makes it the default even for
+    #: small ones.
     stream_design: bool = field(
         default_factory=lambda: _env("LO_TPU_STREAM_DESIGN", False, bool)
     )
@@ -241,14 +242,35 @@ class Settings:
     max_concurrent_fits: int = field(
         default_factory=lambda: _env("LO_TPU_MAX_CONCURRENT_FITS", 5)
     )
+    #: Allow user-supplied preprocessing code via exec(). The reference does
+    #: this unconditionally (model_builder.py:145-150); here it is opt-in and
+    #: off by default — the declarative preprocessing API is the default path.
+    allow_exec_preprocessing: bool = field(
+        default_factory=lambda: _env("LO_TPU_ALLOW_EXEC", False, bool)
+    )
+    #: Resource jail for exec preprocessing (ops/exec_jail.py): wall-clock
+    #: timeout, CPU seconds, and address-space cap for the child process.
+    #: 0 disables the respective limit.
+    exec_timeout_seconds: float = field(
+        default_factory=lambda: _env("LO_TPU_EXEC_TIMEOUT_S", 300.0)
+    )
+    exec_cpu_seconds: int = field(
+        default_factory=lambda: _env("LO_TPU_EXEC_CPU_S", 300)
+    )
+    exec_memory_mb: int = field(
+        default_factory=lambda: _env("LO_TPU_EXEC_MEM_MB", 4096)
+    )
     #: Save fitted models (npz + manifest) into store_root/_models so they can
     #: be listed and re-used for prediction. The reference discards models
     #: after use (model_builder.py:227-248) — this is the §5 upgrade.
     persist_models: bool = field(
         default_factory=lambda: _env("LO_TPU_PERSIST_MODELS", True, bool)
     )
-    #: Mid-fit checkpoint cadence. Fit checkpoints are not ported: ``0``
-    #: (the default) is the only value the builder accepts.
+    #: Mid-fit checkpoint cadence (utils/fitckpt.py): persist per-family
+    #: fit progress every N natural units (gb boost rounds; rf checkpoints
+    #: at its tree-batch boundaries; the streamed design state at its
+    #: fitting-pass boundaries) so an interrupted build resumes instead of
+    #: restarting. 0 (default) disables checkpointing.
     fit_ckpt_rounds: int = field(
         default_factory=lambda: _env("LO_TPU_FIT_CKPT_ROUNDS", 0)
     )
@@ -313,6 +335,17 @@ class Settings:
 
 #: Process-global settings instance. Tests construct their own.
 settings = Settings()
+
+
+def mesh_epoch() -> int:
+    """The deployment's generation (``LO_TPU_MESH_EPOCH``), bumped on every
+    supervised restart. Fit checkpoints record the epoch that wrote them
+    and refuse one from a newer generation (utils/fitckpt.py). Read per
+    call, never cached."""
+    try:
+        return int(os.environ.get("LO_TPU_MESH_EPOCH", "0") or 0)
+    except ValueError:
+        return 0
 
 
 def failpoint_spec() -> str:

@@ -8,10 +8,18 @@ write one prediction collection per classifier whose metadata carries the
 metrics and whose rows are the test set plus ``prediction`` and
 ``probability`` columns (model_builder.py:179-248).
 
-Here preprocessing is declarative (ops/preprocess) and each family is
+Here preprocessing is declarative (ops/preprocess; exec only behind the
+opt-in flag, in a resource-jailed child process) and each family is
 tensor code on one device with the tree families' hot loops in CUDA
-kernels. The sweep is PIPELINED: every family runs on its own thread, but
-only ``max_concurrent_fits`` of them may sit in their *device phase* at a
+kernels. A dataset over its RAM budget (or any build with
+``stream_design``) takes the streamed path: the design state is fitted
+with streaming passes, the design matrix stays lazy
+(``preprocess.ChunkedDesign``) and reaches the device through the
+runtime's double-buffered block feed, and prediction datasets are
+written in row blocks — nothing consolidates the dataset.
+
+The sweep is PIPELINED: every family runs on its own thread, but only
+``max_concurrent_fits`` of them may sit in their *device phase* at a
 time (a semaphore, not the pool size, is the concurrency knob) — so
 host-side prep of one family (tree quantile edges) and host-side finishing
 of another (metrics, prediction datasets, persistence) overlap device work
@@ -20,10 +28,12 @@ of a third, while the device working set stays bounded.
 Each fit records ``device_s`` — the device phase through synchronised
 completion — next to wall-clock. Output contract is the JAX package's:
 dataset ``<name>_<classifier>`` per classifier, metrics in its metadata.
+With ``fit_ckpt_rounds > 0`` the segmented families (rf, gb) and the
+streamed design state checkpoint their progress (utils/fitckpt.py), so
+a retried build resumes them bit-identically.
 
-Not yet ported from the JAX package: streamed (out-of-core) designs, exec
-preprocessing, mid-fit checkpoints, tune sweeps and the multi-process
-dispatch; each raises ``NotImplementedError`` where it would be entered.
+Not yet ported from the JAX package: tune sweeps and the multi-process
+dispatch; ``tune`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -47,7 +57,7 @@ from learningorchestra_tpu_torch.models.persistence import ModelRegistry
 from learningorchestra_tpu_torch.models.registry import get_trainer
 from learningorchestra_tpu_torch.ops import preprocess
 from learningorchestra_tpu_torch.parallel.runtime import DeviceRuntime
-from learningorchestra_tpu_torch.utils import tracing
+from learningorchestra_tpu_torch.utils import fitckpt, tracing
 from learningorchestra_tpu_torch.utils.profiling import (
     device_span, device_trace, op_timer, timed)
 
@@ -79,10 +89,6 @@ class ModelBuilder:
                 raise ValueError("prediction dataset already exists: "
                                  f"{prediction_name}_{c}")
 
-    def _check_resident(self, *datasets) -> None:
-        if self.cfg.stream_design or any(ds.over_budget for ds in datasets):
-            raise _not_ported("the streamed (out-of-core) design matrix")
-
     # -- the main path -------------------------------------------------------
 
     def build(self, train: str, test: str, prediction_name: str,
@@ -97,37 +103,73 @@ class ModelBuilder:
         datasets (metadata-first, so pollers can see them — and their
         failure flags — from the moment of submission).
         """
-        if preprocessor_code is not None:
-            raise _not_ported("exec preprocessing")
-        if int(self.cfg.fit_ckpt_rounds) > 0:
-            raise _not_ported("mid-fit checkpointing")
         train_ds = self.store.get(train)
         test_ds = self.store.get(test)
-        self._check_resident(train_ds, test_ds)
         hparams = hparams or {}
+        ck_on = int(self.cfg.fit_ckpt_rounds) > 0
         rp0 = readpipe.snapshot()
 
+        streamed = False
         design_t0 = time.monotonic()
-        # Memoized per dataset-snapshot: repeat builds on the same data
-        # reuse the identical X arrays, so the runtime's transfer cache
-        # keeps the device copies.
-        steps_key = json.dumps(list(steps), sort_keys=True, default=str)
-        X_train, y_train, feature_fields, state = train_ds.memo(
-            ("design", label, steps_key),
-            lambda: preprocess.design_matrix(train_ds, label, steps))
-        X_test, y_test, _, _ = test_ds.memo(
-            ("design_t", label, steps_key, tuple(feature_fields)),
-            lambda: preprocess.design_matrix(
+        if preprocessor_code is not None:
+            if not self.cfg.allow_exec_preprocessing:
+                raise PermissionError(
+                    "exec preprocessing is disabled; enable "
+                    "LO_TPU_ALLOW_EXEC or use declarative steps")
+            X_train, y_train, X_test, y_test = preprocess.exec_preprocess(
+                preprocessor_code, train_ds, test_ds, label, cfg=self.cfg)
+            feature_fields = [f"f{i}" for i in range(X_train.shape[1])]
+        elif (self.cfg.stream_design or train_ds.over_budget
+                or test_ds.over_budget):
+            # The streamed path: the design matrix never exists whole on
+            # the host — state is fitted with streaming passes and the
+            # device tensor fills block by block (ChunkedDesign →
+            # DeviceRuntime.shard_rows). No memo: memoization
+            # consolidates, which is exactly what this path must never do.
+            streamed = True
+            fit_prof: Dict[str, Any] = {}
+            # Pass-boundary checkpoints for the streamed state fit: a
+            # retried build resumes the fitting scans instead of
+            # re-reading the dataset from pass zero.
+            design_ckpt = fitckpt.context(
+                self.cfg, dataset=train, family="design",
+                config={"label": label, "steps": list(steps)},
+                snapshot="") if ck_on else None
+            X_train, y_train, feature_fields, state = \
+                preprocess.design_matrix_streamed(train_ds, label, steps,
+                                                  profile=fit_prof,
+                                                  ckpt=design_ckpt)
+            X_test, y_test, _, _ = preprocess.design_matrix_streamed(
                 test_ds, label, steps, state=state,
-                feature_fields=feature_fields),
-            token=state)
+                feature_fields=feature_fields)
+            if fit_prof:
+                # The streamed fit's scan count on the job record: the
+                # fused fitting passes keep it at ~2 for the default
+                # pipeline, and a regression shows up here first.
+                jobs.record_job_profile(**fit_prof)
+        else:
+            # Memoized per dataset-snapshot: repeat builds on the same data
+            # reuse the identical X arrays, so the runtime's transfer cache
+            # keeps the device copies.
+            steps_key = json.dumps(list(steps), sort_keys=True, default=str)
+            X_train, y_train, feature_fields, state = train_ds.memo(
+                ("design", label, steps_key),
+                lambda: preprocess.design_matrix(train_ds, label, steps))
+            X_test, y_test, _, _ = test_ds.memo(
+                ("design_t", label, steps_key, tuple(feature_fields)),
+                lambda: preprocess.design_matrix(
+                    test_ds, label, steps, state=state,
+                    feature_fields=feature_fields),
+                token=state)
         # Everything needed to apply the identical pipeline to future
-        # datasets when the fitted model is re-served (persistence.py).
-        pp_meta = {"steps": list(steps), "state": state,
-                   "feature_fields": feature_fields, "label": label}
+        # datasets when the fitted model is re-served (persistence.py);
+        # exec-preprocessed models carry none.
+        pp_meta = None if preprocessor_code is not None else {
+            "steps": list(steps), "state": state,
+            "feature_fields": feature_fields, "label": label}
         tracing.record_span(
             "design.build", time.monotonic() - design_t0,
-            attrs={"train": train, "test": test, "streamed": False,
+            attrs={"train": train, "test": test, "streamed": streamed,
                    "rows": int(len(X_train))})
         if y_train is None:
             raise ValueError(f"label field {label!r} not in {train!r}")
@@ -140,6 +182,25 @@ class ModelBuilder:
             for c in classifiers:
                 self.store.create(f"{prediction_name}_{c}", parent=test,
                                   extra={"classifier": c, "label": label})
+
+        # Mid-fit checkpoint contexts (utils/fitckpt.py), one per family
+        # with natural segment boundaries. Keyed on everything that could
+        # change the fit's arithmetic — hparams, label/steps, row
+        # snapshot, device type (the card's fixed-point histogram sums
+        # differ from the CPU's float sums) — so a resume under ANY
+        # changed configuration starts fresh.
+        ckpt_ctxs: Dict[str, Any] = {}
+        if ck_on:
+            for c in classifiers:
+                if c not in fitckpt.SEGMENTED_FAMILIES:
+                    continue
+                ckpt_ctxs[c] = fitckpt.context(
+                    self.cfg, dataset=train, family=c,
+                    config={"family": c, "hparams": hparams.get(c, {}),
+                            "num_classes": num_classes, "label": label,
+                            "steps": list(steps), "streamed": streamed,
+                            "device": self.runtime.device.type},
+                    snapshot=f"rows={int(len(X_train))}")
 
         def prep_fit(c: str):
             """One family's host-side prep (the trainer's ``host_prep``
@@ -154,6 +215,8 @@ class ModelBuilder:
 
         def dispatch_fit(c: str, extra: Dict[str, Any]):
             kw = dict(hparams.get(c, {}), **extra)
+            if c in ckpt_ctxs:
+                kw["ckpt"] = ckpt_ctxs[c]
             return get_trainer(c)(self.runtime, X_train, y_train,
                                   num_classes, **kw)
 
@@ -194,6 +257,11 @@ class ModelBuilder:
                         f"{type(exc).__name__}: {exc}")
             self._save_predictions(f"{prediction_name}_{c}", test_ds,
                                    preds, probs, report)
+            # The family reached its terminal outputs: its mid-fit
+            # checkpoint stream is superseded (a retry refits only
+            # families whose datasets failed), so reclaim the disk.
+            if c in ckpt_ctxs:
+                ckpt_ctxs[c].clear()
             jobs.heartbeat()
             return report
 
@@ -219,6 +287,12 @@ class ModelBuilder:
             prof["read_pipeline"] = rp_delta
         if prof:
             jobs.record_job_profile(**prof)
+        if streamed and ck_on and all("error" not in r.metrics
+                                      for r in reports):
+            # Every family completed: the design-state checkpoint has no
+            # retry left to serve — reclaim it (a failed family keeps it
+            # so the retry skips the fitted passes).
+            design_ckpt.clear()
         return reports
 
     def _build_pipelined(self, classifiers, prep_fit, dispatch_fit,
@@ -282,14 +356,19 @@ class ModelBuilder:
                 f"model {model_name} carries no reproducible preprocessing "
                 "state to apply to new datasets")
         ds = self.store.get(dataset)
-        self._check_resident(ds)
         if not existing:
             self.store.create(out_name, parent=dataset,
                               extra={"model": model_name, "kind": man["kind"]})
+        streamed = ds.over_budget or self.cfg.stream_design
         with timed("model_predict"), device_trace(self.cfg):
-            X, _, _, _ = preprocess.design_matrix(
-                ds, pp["label"], pp["steps"], state=pp["state"],
-                feature_fields=pp["feature_fields"])
+            if streamed:
+                X, _, _, _ = preprocess.design_matrix_streamed(
+                    ds, pp["label"], pp["steps"], state=pp["state"],
+                    feature_fields=pp["feature_fields"], need_y=False)
+            else:
+                X, _, _, _ = preprocess.design_matrix(
+                    ds, pp["label"], pp["steps"], state=pp["state"],
+                    feature_fields=pp["feature_fields"])
             probs = model.predict_proba(self.runtime, X)
         preds = np.argmax(probs, axis=1)
         self._save_predictions(out_name, ds, preds, probs,
@@ -305,15 +384,34 @@ class ModelBuilder:
         model_builder.py:191-248 drops 'features'/'rawPrediction' and
         converts the probability vector to a plain list)."""
         ds = self.store.get(name)
-        # Object array of Python lists (np.array(list-of-lists,
-        # dtype=object) would build a 2-D array instead).
-        prob_col = np.empty(len(probs), dtype=object)
-        for i, p in enumerate(probs.tolist()):
-            prob_col[i] = p
-        cols = {f: test_ds.columns[f] for f in test_ds.metadata.fields}
-        cols["prediction"] = preds.astype(np.int64)
-        cols["probability"] = prob_col
-        ds.append_columns(cols)
+        n = len(preds)
+
+        def prob_objcol(block_probs: np.ndarray) -> np.ndarray:
+            # Object array of Python lists (np.array(list-of-lists,
+            # dtype=object) would build a 2-D array instead).
+            out = np.empty(len(block_probs), dtype=object)
+            for i, p in enumerate(block_probs.tolist()):
+                out[i] = p
+            return out
+
+        if test_ds.over_budget or self.cfg.stream_design:
+            # Out-of-core test set (or forced streaming): write the
+            # prediction dataset in row blocks instead of consolidating
+            # the parent — the same predicate as every other
+            # streamed/resident decision, so ``stream_design`` never
+            # re-introduces the O(dataset) host spike it exists to avoid.
+            block = 1 << 18
+            for off in range(0, n, block):
+                stop = min(off + block, n)
+                cols = test_ds.read_rows(None, off, stop)
+                cols["prediction"] = preds[off:stop].astype(np.int64)
+                cols["probability"] = prob_objcol(probs[off:stop])
+                ds.append_columns(cols)
+        else:
+            cols = {f: test_ds.columns[f] for f in test_ds.metadata.fields}
+            cols["prediction"] = preds.astype(np.int64)
+            cols["probability"] = prob_objcol(probs)
+            ds.append_columns(cols)
         self.store.finish(
             name,
             fit_time=report.fit_time,

@@ -35,10 +35,12 @@ from typing import Optional
 import numpy as np
 import torch
 
+from learningorchestra_tpu_torch import jobs
 from learningorchestra_tpu_torch.models.base import (
     TrainedModel, as_design, ordered_sigmoid, ordered_sum)
 from learningorchestra_tpu_torch.ops import tree_kernels
 from learningorchestra_tpu_torch.parallel.runtime import DeviceRuntime
+from learningorchestra_tpu_torch.utils import fitckpt
 
 NEG = -1e30
 #: Rows per block of ``bin_features`` (bounds its (blk, d, n_bins-1)
@@ -211,13 +213,53 @@ def _edge_prep(X, n_bins: int = 32, **_ignored) -> dict:
     bin edges from a row sample. Exposed as the trainers' ``host_prep``
     hook so the pipelined builder runs it outside the device phase —
     overlapping another family's device work. Deterministic (seeded
-    sampler)."""
+    sampler). Lazy designs never exist fully on the host: the sample
+    comes from strided range reads (quantile sketches over samples are
+    the norm for histogram GBTs — the full-matrix path itself subsamples
+    to 200k)."""
     validate_n_bins(n_bins)
     X = as_design(X)
-    if not isinstance(X, np.ndarray):
-        raise NotImplementedError(
-            "streamed (chunked) design matrices are not yet ported")
-    return {"edges": quantile_edges(X, n_bins)}
+    return {"edges": quantile_edges(
+        X if isinstance(X, np.ndarray) else X.sample_rows(200_000), n_bins)}
+
+
+def _forest_batch_shape(n_trees: int):
+    """(trees per batch, batch count) — the JAX package's vmapped tree
+    batches, kept here as the rf checkpoint boundaries: batch = the
+    largest divisor of n_trees ≤ 8, else batches of 8 when n_trees has
+    no usable divisor (20 trees: 4 batches of 5)."""
+    tb = max((t for t in range(1, min(8, n_trees) + 1)
+              if n_trees % t == 0), default=1)
+    if tb < 4 and n_trees > 8:
+        tb = 8
+    nb = -(-n_trees // tb)
+    return tb, nb
+
+
+_TREE_PARAMS = ("feat", "thr", "internal", "leaf")
+_GBT_PARAMS = ("feat", "thr", "internal", "leaf_val")
+
+
+def _host_params(names, stacked) -> dict:
+    return {k: t.cpu().numpy() for k, t in zip(names, stacked)}
+
+
+def _resume(ckpt, unit: str, of: int, ok) -> Optional[tuple]:
+    """The checkpoint a segmented fit resumes from: ``(progress, arrays)``
+    when ``ok(progress, arrays)`` accepts it (counted and recorded on the
+    job), else None — a rejected one is cleared."""
+    loaded = ckpt.load()
+    if loaded is None:
+        return None
+    progress, arrays, meta = loaded
+    if not ok(progress, arrays):
+        ckpt.clear()
+        return None
+    fitckpt.count_resume()
+    jobs.record_job_resume(ckpt.family, {
+        unit: int(progress), "of": int(of),
+        "mesh_epoch": meta.get("mesh_epoch")})
+    return progress, arrays
 
 
 def _tree_draw(n, d, mtry, generator, device):
@@ -233,7 +275,7 @@ def _tree_draw(n, d, mtry, generator, device):
 
 def _fit_cls_trees(kind, runtime, X, y, num_classes, seed, *, n_trees,
                    max_depth, n_bins, mtry=None, edges=None, weights=None,
-                   feature_allowed=None):
+                   feature_allowed=None, ckpt=None):
     validate_n_bins(n_bins)
     X = as_design(X)
     if edges is None:
@@ -251,8 +293,8 @@ def _fit_cls_trees(kind, runtime, X, y, num_classes, seed, *, n_trees,
     mtry = mtry or max(1, int(np.sqrt(d)))
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
-    trees = []
-    for t in range(n_trees):
+
+    def one_tree(t):
         if n_trees == 1:
             stats = base_stats
             fmask = torch.zeros((d,), dtype=torch.float32, device=dev)
@@ -265,12 +307,19 @@ def _fit_cls_trees(kind, runtime, X, y, num_classes, seed, *, n_trees,
                 allowed = torch.as_tensor(feature_allowed[t], device=dev)
             stats = base_stats * w[None, :]
             fmask = torch.where(allowed.bool(), 0.0, NEG).float()
-        trees.append(_build_tree(
+        return _build_tree(
             B, stats.contiguous(), fmask, max_depth=max_depth,
             n_bins=n_bins, gain_fn=_gini_gain,
             weight_fn=lambda s: s.sum(-1), min_child_weight=1.0,
-            min_gain=1e-9, codes_T=B_T))
-    feat, thr, internal, leaf = (torch.stack(p) for p in zip(*trees))
+            min_gain=1e-9, codes_T=B_T)
+
+    if (ckpt is not None and ckpt.enabled
+            and _forest_batch_shape(n_trees)[1] > 1):
+        feat, thr, internal, leaf = _run_forest_checkpointed(
+            ckpt, one_tree, gen, n_trees, dev)
+    else:
+        trees = [one_tree(t) for t in range(n_trees)]
+        feat, thr, internal, leaf = (torch.stack(p) for p in zip(*trees))
     params = {"edges": runtime.replicate(edges), "feat": feat, "thr": thr,
               "internal": internal, "leaf": leaf}
     return TrainedModel(
@@ -279,6 +328,37 @@ def _fit_cls_trees(kind, runtime, X, y, num_classes, seed, *, n_trees,
         num_classes=num_classes,
         hparams={"n_trees": n_trees, "max_depth": max_depth,
                  "n_bins": n_bins})
+
+
+def _run_forest_checkpointed(ckpt, one_tree, gen, n_trees, dev):
+    """The forest fitted batch by batch (``_forest_batch_shape``), with a
+    checkpoint at every batch boundary but the last. Every tree draws
+    its bootstrap from the one generator, so the checkpoint carries the
+    generator's state beside the trees done, and a resume restores it:
+    the resumed trees see the draws an uninterrupted fit gives them, and
+    the stacked result is bit-identical to it."""
+    tb, nb = _forest_batch_shape(n_trees)
+    host: dict = {}
+    done = 0
+    got = _resume(ckpt, "trees", n_trees, lambda p, a: (
+        p % tb == 0 and 0 < p < n_trees
+        and all(k in a for k in _TREE_PARAMS + ("gen_state",))))
+    if got is not None:
+        done, arrays = got
+        host = {k: arrays[k] for k in _TREE_PARAMS}
+        gen.set_state(torch.from_numpy(arrays["gen_state"].copy()))
+    for b in range(done // tb, nb):
+        trees = [one_tree(t) for t in range(b * tb, min((b + 1) * tb,
+                                                        n_trees))]
+        seg = _host_params(_TREE_PARAMS, (torch.stack(p)
+                                          for p in zip(*trees)))
+        host = ({k: np.concatenate([host[k], seg[k]]) for k in _TREE_PARAMS}
+                if host else seg)
+        jobs.heartbeat()
+        if b + 1 < nb:
+            ckpt.save(len(host["feat"]),
+                      dict(host, gen_state=gen.get_state().numpy()))
+    return tuple(torch.from_numpy(host[k]).to(dev) for k in _TREE_PARAMS)
 
 
 def _forest_proba_static(params, X, *, max_depth):
@@ -299,24 +379,28 @@ def _forest_proba_static(params, X, *, max_depth):
 
 def fit_dt(runtime: DeviceRuntime, X, y, num_classes, seed=0, *,
            max_depth: int = 5, n_bins: int = 32,
-           edges=None) -> TrainedModel:
+           edges=None, ckpt=None) -> TrainedModel:
     return _fit_cls_trees("dt", runtime, X, y, num_classes, seed,
                           n_trees=1, max_depth=max_depth, n_bins=n_bins,
-                          edges=edges)
+                          edges=edges, ckpt=ckpt)
 
 
 def fit_rf(runtime: DeviceRuntime, X, y, num_classes, seed=0, *,
            n_trees: int = 20, max_depth: int = 5,
            n_bins: int = 32, mtry: Optional[int] = None,
-           edges=None, weights=None, feature_allowed=None) -> TrainedModel:
+           edges=None, weights=None, feature_allowed=None,
+           ckpt=None) -> TrainedModel:
     """Random forest. Bootstrap weights and feature subsets come from a
     ``torch.Generator`` seeded with ``seed``, unless given: ``weights``
     (n_trees, n) and ``feature_allowed`` (n_trees, d) bool replace the
-    draws (the parity tests feed the JAX package's own draws)."""
+    draws (the parity tests feed the JAX package's own draws). An
+    enabled ``ckpt`` (utils/fitckpt.py) checkpoints at the tree-batch
+    boundaries of ``_forest_batch_shape``."""
     return _fit_cls_trees("rf", runtime, X, y, num_classes, seed,
                           n_trees=n_trees, max_depth=max_depth,
                           n_bins=n_bins, mtry=mtry, edges=edges,
-                          weights=weights, feature_allowed=feature_allowed)
+                          weights=weights, feature_allowed=feature_allowed,
+                          ckpt=ckpt)
 
 
 fit_dt.host_prep = _edge_prep
@@ -328,15 +412,17 @@ fit_rf.host_prep = _edge_prep
 # ---------------------------------------------------------------------------
 
 def _fit_gbt(B, yf, *, max_depth, n_bins, n_rounds, step_size=0.1,
-             lam=1.0, codes_T=None):
+             lam=1.0, codes_T=None, margin=None):
     """Binary boosting: per round, a Newton tree on the logistic loss's
     gradient/hessian, then the margin moves by the new tree's leaf values
     (``tree_descend`` finds every row's leaf). codes_T as for
-    ``_build_tree``. Returns stacked per-round (feat, thr, internal,
-    leaf_val)."""
+    ``_build_tree``; ``margin`` the carry of earlier rounds (zeros when
+    None). Returns stacked per-round (feat, thr, internal, leaf_val) and
+    the margin after the last round."""
     gain_fn = _make_newton_gain(lam)
     n, d = B.shape
-    margin = torch.zeros((n,), dtype=torch.float32, device=B.device)
+    if margin is None:
+        margin = torch.zeros((n,), dtype=torch.float32, device=B.device)
     zero_mask = torch.zeros((d,), dtype=torch.float32, device=B.device)
     rounds = []
     for _ in range(n_rounds):
@@ -351,9 +437,64 @@ def _fit_gbt(B, yf, *, max_depth, n_bins, n_rounds, step_size=0.1,
         leaf_val = -leaf[:, 0] / (leaf[:, 1] + lam)       # (M,)
         assign = tree_kernels.tree_descend(B, feat, thr, internal,
                                            max_depth=max_depth)
-        margin = margin + step_size * leaf_val[assign.long()]
+        margin = _margin_step(margin, step_size, leaf_val, assign)
         rounds.append((feat, thr, internal, leaf_val))
-    return tuple(torch.stack(p) for p in zip(*rounds))
+    return tuple(torch.stack(p) for p in zip(*rounds)), margin
+
+
+def _margin_step(margin, step_size, leaf_val, assign):
+    """One round's margin update — shared by the fit and the resume's
+    replay, so both do the same float operations."""
+    return margin + step_size * leaf_val[assign.long()]
+
+
+def _gbt_replay_margin(B, feat, thr, internal, leaf_val, *, max_depth,
+                       step_size):
+    """The margin after the rounds of a checkpoint, rebuilt from its
+    trees: one descent launch walks every saved tree (descent is integer
+    arithmetic, the same leaves as each round's own walk), then the
+    rounds' updates fold in their order, as ``_fit_gbt`` made them — so
+    the resumed margin is bit-identical to the interrupted fit's carry.
+    The histogram builds, which dominate a round, never run again."""
+    assign = tree_kernels.tree_descend(B, feat, thr, internal,
+                                       max_depth=max_depth)       # (R, n)
+    margin = torch.zeros((B.shape[0],), dtype=torch.float32,
+                         device=B.device)
+    for r in range(feat.shape[0]):
+        margin = _margin_step(margin, step_size, leaf_val[r], assign[r])
+    return margin
+
+
+def _run_gbt_checkpointed(ckpt, B, yf, *, n_rounds, **kw):
+    """gb fitted ``ckpt.every`` rounds at a time with a checkpoint after
+    every segment but the last. The margin stays on the device between
+    segments; on resume it is replayed from the saved trees
+    (``_gbt_replay_margin``), so the continued fit is bit-identical to
+    an uninterrupted one. Returns the stacked per-round tree params."""
+    host: dict = {}
+    done = 0
+    margin = None
+    got = _resume(ckpt, "rounds", n_rounds, lambda p, a: (
+        0 < p <= n_rounds and all(k in a for k in _GBT_PARAMS)))
+    if got is not None:
+        done, arrays = got
+        host = {k: arrays[k] for k in _GBT_PARAMS}
+        saved = [torch.from_numpy(host[k]).to(B.device) for k in _GBT_PARAMS]
+        margin = _gbt_replay_margin(
+            B, *saved, max_depth=kw["max_depth"],
+            step_size=kw["step_size"])
+    every = max(1, int(ckpt.every))
+    while done < n_rounds:
+        k = min(every, n_rounds - done)
+        trees, margin = _fit_gbt(B, yf, n_rounds=k, margin=margin, **kw)
+        seg = _host_params(_GBT_PARAMS, trees)
+        host = ({kk: np.concatenate([host[kk], seg[kk]]) for kk in _GBT_PARAMS}
+                if host else seg)
+        done += k
+        jobs.heartbeat()
+        if done < n_rounds:
+            ckpt.save(done, host)
+    return tuple(torch.from_numpy(host[k]).to(B.device) for k in _GBT_PARAMS)
 
 
 def _gbt_proba_static(params, X, *, max_depth):
@@ -389,11 +530,13 @@ def _gbt_ovr_proba_static(params, X, *, max_depth):
 
 def fit_gb(runtime: DeviceRuntime, X, y, num_classes, seed=0, *,
            n_rounds: int = 20, max_depth: int = 5, n_bins: int = 32,
-           step_size: float = 0.1, edges=None) -> TrainedModel:
+           step_size: float = 0.1, edges=None, ckpt=None) -> TrainedModel:
     """Gradient-boosted trees. Binary is the reference-parity path (one
     booster, Spark 2.4's GBTClassifier). ``num_classes > 2`` fits one
     booster per class on labels ``y == k`` over the same bins, and
-    normalizes the sigmoid scores (one-vs-rest)."""
+    normalizes the sigmoid scores (one-vs-rest). An enabled ``ckpt``
+    (utils/fitckpt.py) checkpoints a binary fit every ``ckpt.every``
+    rounds; the one-vs-rest loop runs unsegmented."""
     validate_n_bins(n_bins)
     X = as_design(X)
     if edges is None:
@@ -403,11 +546,16 @@ def fit_gb(runtime: DeviceRuntime, X, y, num_classes, seed=0, *,
     y_dev, _ = runtime.shard_rows(np.asarray(y, np.int32))
     hparams = {"n_rounds": n_rounds, "max_depth": max_depth,
                "n_bins": n_bins, "step_size": step_size}
-    kw = dict(max_depth=max_depth, n_bins=n_bins, n_rounds=n_rounds,
-              step_size=step_size, codes_T=_route_codes(B))
+    kw = dict(max_depth=max_depth, n_bins=n_bins, step_size=step_size,
+              codes_T=_route_codes(B))
     step = torch.tensor(step_size, dtype=torch.float32, device=B.device)
     if num_classes == 2:
-        feat, thr, internal, leaf_val = _fit_gbt(B, y_dev.float(), **kw)
+        if ckpt is not None and ckpt.enabled and n_rounds > 1:
+            feat, thr, internal, leaf_val = _run_gbt_checkpointed(
+                ckpt, B, y_dev.float(), n_rounds=n_rounds, **kw)
+        else:
+            (feat, thr, internal, leaf_val), _ = _fit_gbt(
+                B, y_dev.float(), n_rounds=n_rounds, **kw)
         params = {"edges": runtime.replicate(edges), "feat": feat,
                   "thr": thr, "internal": internal, "leaf_val": leaf_val,
                   "step_size": step}
@@ -416,7 +564,7 @@ def fit_gb(runtime: DeviceRuntime, X, y, num_classes, seed=0, *,
             predict_proba_fn=partial(_gbt_proba_static,
                                      max_depth=max_depth),
             num_classes=2, hparams=hparams)
-    per_class = [_fit_gbt(B, (y_dev == k).float(), **kw)
+    per_class = [_fit_gbt(B, (y_dev == k).float(), n_rounds=n_rounds, **kw)[0]
                  for k in range(num_classes)]
     feat, thr, internal, leaf_val = (
         torch.stack([pc[i] for pc in per_class]) for i in range(4))

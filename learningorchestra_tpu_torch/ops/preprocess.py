@@ -13,8 +13,11 @@ list covering what the docs' Titanic walkthrough actually does
              {"op": "label_encode", "fields": ["Sex"]},
              {"op": "standardize"}]
 
-``exec`` preprocessing is not part of this package yet: the model builder
-refuses it (models/builder.py).
+``exec`` preprocessing survives behind ``settings.allow_exec_preprocessing``
+(off by default): the code receives pandas DataFrames ``training_df`` /
+``testing_df`` and must set ``features_training``, ``labels_training``,
+``features_testing`` (numpy arrays) — the same names the reference's
+contract expects its Spark DataFrames under (model_builder.py:145-150).
 """
 
 from __future__ import annotations
@@ -581,7 +584,9 @@ def _fit_design_state(snap, fields, label: str, steps, n_rows: int,
                 if "__label_vocab__" in state:
                     need_vocab = False
                 from learningorchestra_tpu_torch import jobs
+                from learningorchestra_tpu_torch.utils import fitckpt
 
+                fitckpt.count_resume()
                 jobs.record_job_resume(ckpt.family, {
                     "passes": int(g_done),
                     "of": len(groups) + (1 if need_vocab else 0),
@@ -759,3 +764,87 @@ def design_matrix_streamed(ds: Dataset, label: str,
                       snap=snap)
     return X, y, list(feature_fields), state
 
+
+def exec_preprocess(code: str, train_ds: Dataset, test_ds: Dataset,
+                    label: str, cfg=None):
+    """Flag-gated exec path (reference model_builder.py:145-150), run in a
+    resource-jailed child process.
+
+    The reference exec()s user code inside the service process; here the
+    code runs in a separate interpreter under POSIX rlimits (CPU seconds,
+    address space, no cores — ops/exec_jail.py) with a wall-clock
+    timeout, so an infinite loop, memory bomb, or segfaulting extension
+    fails that one job instead of the server. A resource jail, not a
+    security boundary — the gate stays ``allow_exec_preprocessing``.
+    """
+    import pickle
+    import subprocess
+    import sys
+
+    from learningorchestra_tpu_torch.config import settings as global_settings
+
+    cfg = cfg or global_settings
+    req = {
+        "code": code,
+        "train_cols": {f: train_ds.columns[f]
+                       for f in train_ds.metadata.fields},
+        "test_cols": {f: test_ds.columns[f]
+                      for f in test_ds.metadata.fields},
+        "label": label,
+        "cpu_s": int(cfg.exec_cpu_seconds),
+        "mem_mb": int(cfg.exec_memory_mb),
+    }
+    # The child is a FRESH interpreter that must import this same package.
+    # When the parent runs from a source checkout (sys.path manipulation
+    # rather than pip install), the child wouldn't find it — prepend the
+    # package's parent directory so the jail always loads the code the
+    # server is running. The jail imports numpy and pandas only.
+    import os
+
+    pkg_root = os.path.dirname(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__))))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = pkg_root + os.pathsep + env.get("PYTHONPATH", "")
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m",
+             "learningorchestra_tpu_torch.ops.exec_jail"],
+            input=pickle.dumps(req, protocol=pickle.HIGHEST_PROTOCOL),
+            capture_output=True, env=env,
+            timeout=cfg.exec_timeout_seconds or None)
+    except subprocess.TimeoutExpired:
+        raise PreprocessError(
+            f"preprocessor code exceeded the {cfg.exec_timeout_seconds}s "
+            "wall-clock limit") from None
+    if proc.returncode != 0 or not proc.stdout:
+        tail = proc.stderr.decode("utf-8", "replace").strip()[-500:]
+        raise PreprocessError(
+            "preprocessor process died "
+            f"(exit {proc.returncode}): {tail or 'no output'}")
+    # The reply is npz, NEVER pickle: the child shares its process with
+    # user code, which can always find the reply pipe, so nothing the
+    # parent runs on these bytes may execute. allow_pickle=False makes a
+    # forged reply at worst wrong arrays (user code defines the arrays
+    # anyway) or a clean decode failure.
+    import io
+
+    # NpzFile decodes LAZILY (np.load only parses the zip directory), so
+    # every per-entry access — including a forged pickled-object entry or
+    # a missing key — must happen inside this try for the fail-clean
+    # contract to hold.
+    try:
+        with np.load(io.BytesIO(proc.stdout), allow_pickle=False) as npz:
+            out = {k: npz[k] for k in npz.files}
+        if "error" not in out:
+            X_train = np.asarray(out["X_train"], np.float32)
+            y_train = np.asarray(out["y_train"], np.int32)
+            X_test = np.asarray(out["X_test"], np.float32)
+            y_test = (np.asarray(out["y_test"], np.int32)
+                      if "y_test" in out else None)
+    except Exception:  # noqa: BLE001 — any corrupt reply is a job failure
+        raise PreprocessError(
+            "preprocessor reply was corrupt (user code wrote to the "
+            "reply channel?)") from None
+    if "error" in out:
+        raise PreprocessError(str(out["error"][()]))
+    return X_train, y_train, X_test, y_test

@@ -8,6 +8,14 @@ cache: a five-classifier build hands the same design matrix to five
 trainers, and each would otherwise copy gigabytes over PCIe again —
 one copy of X serves every family.
 
+A lazy design matrix (``ops/preprocess.ChunkedDesign``: ``.shape``,
+``.dtype``, ``.rows(start, stop)``) never exists whole on the host: the
+device tensor is allocated once and filled block by block
+(``_feed_lazy``, the port of the JAX package's ``shard_chunked``). On a
+card each block lands in one of two pinned host buffers and is copied
+on a side stream while the read pipeline's pool reads the next, so host
+memory holds the two pinned blocks and the reads in flight, never O(n).
+
 The runtime never moves to another device by itself: ``device="cuda"``
 (the default) raises when no CUDA device is present, and only an explicit
 ``device="cpu"`` runs on the host.
@@ -23,6 +31,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from learningorchestra_tpu_torch.catalog import readpipe
 from learningorchestra_tpu_torch.config import (
     Settings, settings as global_settings)
 
@@ -60,8 +69,15 @@ class DeviceRuntime:
     collected. Callers must treat arrays handed to ``shard_rows`` as
     immutable; the cache enforces this by marking cached owner-arrays
     read-only (a later in-place write raises instead of silently
-    computing on stale device data). Views are copied uncached.
+    computing on stale device data). Views are copied uncached. Lazy
+    designs are cached by identity too: each pins its row snapshot for
+    its lifetime, so its rows never change.
     """
+
+    #: Rows of a lazy design read and copied at a time: 2^20 rows is
+    #: 112 MiB of float32 at the HIGGS width (d = 28); the feed pins two
+    #: such buffers.
+    FEED_BLOCK_ROWS = 1 << 20
 
     def __init__(self, cfg: Optional[Settings] = None,
                  device: str = "cuda"):
@@ -85,11 +101,12 @@ class DeviceRuntime:
         return t.clone()
 
     def shard_rows(self, arr) -> Tuple[torch.Tensor, int]:
-        """Host array → device tensor (all rows, one device). Returns the
-        tensor and its row count, the JAX runtime's contract."""
+        """Host array or lazy design → device tensor (all rows, one
+        device). Returns the tensor and its row count, the JAX runtime's
+        contract."""
         if hasattr(arr, "rows") and not isinstance(arr, np.ndarray):
-            raise NotImplementedError(
-                "streamed (chunked) design matrices are not yet ported")
+            return self._cached(("design", id(arr)), arr,
+                                lambda: self._feed_lazy(arr))
         if not isinstance(arr, np.ndarray):
             arr = np.asarray(arr)
             return self._put(arr), int(arr.shape[0])
@@ -98,7 +115,14 @@ class DeviceRuntime:
         # device data silently.
         if arr.base is not None or not arr.flags.owndata:
             return self._put(arr), int(arr.shape[0])
-        key = (id(arr), arr.shape, str(arr.dtype))
+
+        def put():
+            arr.flags.writeable = False
+            return self._put(arr), int(arr.shape[0])
+
+        return self._cached((id(arr), arr.shape, str(arr.dtype)), arr, put)
+
+    def _cached(self, key, owner, make) -> Tuple[torch.Tensor, int]:
         # The copy runs under the lock: the builder's family threads ask
         # for the same design matrix at once, and each must find the one
         # copy instead of starting its own.
@@ -106,18 +130,112 @@ class DeviceRuntime:
             hit = self._transfer_cache.get(key)
             if hit is not None:
                 return hit
-            arr.flags.writeable = False
-            out = (self._put(arr), int(arr.shape[0]))
+            out = make()
             self._transfer_cache[key] = out
 
             def _evict(cache=self._transfer_cache, key=key, lock=self._lock):
                 with lock:
                     cache.pop(key, None)
 
-            # Drop the device copy when the host array dies (also guards
+            # Drop the device copy when the host owner dies (also guards
             # against a recycled id() pointing at the stale entry).
-            weakref.finalize(arr, _evict)
+            weakref.finalize(owner, _evict)
         return out
+
+    def _feed_lazy(self, design) -> Tuple[torch.Tensor, int]:
+        """Fill one (n, ...) device tensor from ``design.rows`` in blocks
+        of ``FEED_BLOCK_ROWS``.
+
+        While block i is copied, the read pipeline's pool reads block
+        i+1 (``prefetch_chunks`` > 0). On a card the read lands in one of
+        two pinned buffers, which is copied with ``non_blocking=True`` on
+        a side stream; an event per buffer keeps the read of block i+2
+        from refilling the buffer before block i's copy has left it. The
+        caller's stream waits on the copy stream before the tensor is
+        returned, and the host waits for the last copies, so every
+        thread's stream sees the whole tensor. ``prefetch_chunks = 0`` is
+        the strictly serial read→copy loop, the parity oracle; on the
+        CPU the same loop copies each block into the tensor in place."""
+        n = int(design.shape[0])
+        tail = tuple(int(s) for s in design.shape[1:])
+        dtype = np.dtype(getattr(design, "dtype", np.float32))
+        out = torch.empty((n,) + tail,
+                          dtype=torch.from_numpy(np.empty(0, dtype)).dtype,
+                          device=self.device)
+        blk = max(1, int(self.FEED_BLOCK_ROWS))
+        ranges = [(a, min(a + blk, n)) for a in range(0, n, blk)]
+        if not ranges:
+            return out, n
+        cuda = self.device.type == "cuda"
+        if cuda:
+            nbuf = min(2, len(ranges))
+            bufs = [torch.empty((min(blk, n),) + tail, dtype=out.dtype,
+                                pin_memory=True) for _ in range(nbuf)]
+            freed = [torch.cuda.Event() for _ in range(nbuf)]
+            stream = torch.cuda.Stream(self.device)
+            # ``out`` may reuse memory that work queued on the caller's
+            # stream still reads: the copies start after that work.
+            stream.wait_stream(torch.cuda.current_stream(self.device))
+
+        def read(i: int) -> torch.Tensor:
+            a, b = ranges[i]
+            rows = np.ascontiguousarray(
+                np.asarray(design.rows(a, b), dtype))
+            if rows.shape != (b - a,) + tail:
+                raise ValueError(f"design.rows({a}, {b}) gave shape "
+                                 f"{rows.shape}")
+            host = torch.from_numpy(rows)
+            if not cuda:
+                return host
+            k = i % nbuf
+            freed[k].synchronize()     # block i-2's copy has left it
+            bufs[k][:b - a].copy_(host)
+            return bufs[k][:b - a]
+
+        depth = readpipe.prefetch_depth(self.cfg.prefetch_chunks)
+        pool = readpipe.pool() if depth > 0 and len(ranges) > 1 else None
+        ahead = None
+        try:
+            for i, (a, b) in enumerate(ranges):
+                if pool is None:
+                    host = read(i)
+                else:
+                    fut = ahead if ahead is not None else pool.submit(read, i)
+                    ahead = (pool.submit(read, i + 1)
+                             if i + 1 < len(ranges) else None)
+                    if ahead is not None:
+                        readpipe.bump("prefetched_chunks")
+                    if not fut.done():
+                        readpipe.bump("prefetch_stalls")
+                    try:
+                        host = fut.result()
+                    except BaseException:
+                        readpipe.bump("worker_errors")
+                        raise
+                if cuda:
+                    with torch.cuda.stream(stream):
+                        out[a:b].copy_(host, non_blocking=True)
+                        freed[i % nbuf].record(stream)
+                else:
+                    out[a:b].copy_(host)
+        finally:
+            if ahead is not None:
+                ahead.cancel()
+                if not ahead.cancelled():
+                    try:
+                        ahead.result()
+                    except Exception:  # noqa: BLE001 — a discarded read
+                        pass
+        if cuda:
+            done = torch.cuda.Event()
+            done.record(stream)
+            torch.cuda.current_stream(self.device).wait_event(done)
+            out.record_stream(stream)
+            # The pinned buffers die with this frame: wait for their last
+            # copies (also makes the tensor whole for every thread's
+            # stream, not only the caller's).
+            done.synchronize()
+        return out, n
 
     def replicate(self, x) -> torch.Tensor:
         """A small host value (edges, scalars, params) on the device."""

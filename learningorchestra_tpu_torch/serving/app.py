@@ -367,19 +367,13 @@ class App:
             # (or worse, a stranded async prediction dataset).
             for c in classifiers:
                 validate_hparams(c, (hparams or {}).get(c))
-            if code is not None:
-                # Exec preprocessing is off by default in the JAX
-                # package (403 there too) and not ported here: refuse it
-                # before any dataset exists.
-                raise PermissionError(
-                    "exec preprocessing (preprocessor_code) is not "
-                    "ported to the PyTorch package; use declarative steps")
 
             if sync:
                 # The reference's POST /models blocks until all fits finish
                 # (SURVEY.md §3.2 "synchronous 201").
                 reports = app.builder.build(train, test, pred_name,
                                             classifiers, label, steps=steps,
+                                            preprocessor_code=code,
                                             hparams=hparams)
                 return 201, {"result": [
                     {"classifier": r.kind, "fit_time": r.fit_time,
@@ -390,22 +384,25 @@ class App:
             # of them — never the reference's finished:false-forever state.
             # Each carries the job spec that created it: if the process
             # dies mid-build, the restarted one re-runs the build from
-            # this record.
+            # this record (exec preprocessor code is excluded — an exec
+            # job is not provably re-runnable, so it fails permanently).
             pred_datasets = [f"{pred_name}_{c}" for c in classifiers]
-            job_spec = {
+            job_spec = None if code is not None else {
                 "kind": "model_builder", "train": train, "test": test,
                 "pred_name": pred_name, "classifiers": list(classifiers),
                 "label": label, "steps": list(steps),
                 "hparams": hparams or {}}
             for c in classifiers:
+                extra = {"classifier": c, "label": label}
+                if job_spec is not None:
+                    extra["job"] = job_spec
                 app.store.create(f"{pred_name}_{c}", parent=test,
-                                 extra={"classifier": c, "label": label,
-                                        "job": job_spec})
+                                 extra=extra)
 
             def run():
                 app.builder.build(train, test, pred_name, classifiers, label,
-                                  steps=steps, hparams=hparams,
-                                  existing=True)
+                                  steps=steps, preprocessor_code=code,
+                                  hparams=hparams, existing=True)
 
             app.jobs.submit("model_builder", pred_datasets, run)
             return 201, {"result": "model build started",
@@ -539,6 +536,7 @@ class App:
         from learningorchestra_tpu_torch import jobs as jobs_module
         from learningorchestra_tpu_torch.catalog import ingest as ingest_module
         from learningorchestra_tpu_torch.catalog import readpipe
+        from learningorchestra_tpu_torch.utils import fitckpt
         from learningorchestra_tpu_torch.utils.profiling import op_timer
 
         by_status: dict = {}
@@ -548,6 +546,9 @@ class App:
                "ops": op_timer.snapshot(),
                "jobs": by_status,
                "job_fault": jobs_module.fault_snapshot(),
+               # The resumable-fit plane: the fit-checkpoint store's
+               # disk footprint and its write/resume/discard counters.
+               "fit_checkpoints": fitckpt.disk_snapshot(self.cfg),
                "integrity": self.store.integrity_snapshot(),
                "read_pipeline": readpipe.snapshot(),
                "ingest": ingest_module.counters_snapshot(),
@@ -767,7 +768,7 @@ class App:
             raise NotImplementedError(
                 "http_workers > 1 needs the multi-process front end "
                 "(serving/frontend.py), which is not ported to the PyTorch "
-                "package yet (ROADMAP.md B.1); run with LO_TPU_HTTP_WORKERS=1")
+                "package yet (ROADMAP.md A.1); run with LO_TPU_HTTP_WORKERS=1")
         server = Server(self.router, self.cfg.host, self.cfg.port,
                         request_timeout_s=self.cfg.http_timeout_s)
         # Stopping the server stops the predict dispatcher threads too

@@ -135,11 +135,29 @@ def test_unported_paths_raise(sweeps):
     cfg, store, mb, _ = sweeps["torch"]
     with pytest.raises(ValueError, match="not yet ported"):
         mb.validate("train", "test", ["mlp"], "p2")
-    with pytest.raises(NotImplementedError):
+    # Exec preprocessing is ported behind the JAX package's gate (off).
+    assert not cfg.allow_exec_preprocessing
+    with pytest.raises(PermissionError, match="disabled"):
         mb.build("train", "test", "p3", ["lr"], "Survived",
                  preprocessor_code="pass")
     with pytest.raises(NotImplementedError):
         mb.tune("train", "t", "gb", [{}], "Survived")
+
+
+@pytest.mark.parametrize("knob", ["stream_design", "fit_ckpt_rounds"])
+def test_streamed_and_checkpointed_builds_are_ported(sweeps, knob):
+    """The knobs the builder once refused now build, with the resident
+    sweep's predictions (nb and dt fit the same on either path)."""
+    cfg, store, _, _ = sweeps["torch"]
+    cfg2 = cfg.replace(**{knob: True if knob == "stream_design" else 1})
+    mb = ModelBuilder(store, DeviceRuntime(cfg2, device="cpu"), cfg2)
+    reports = mb.build("train", "test", f"k_{knob}", ["nb", "dt"],
+                       "Survived", steps=STEPS)
+    for r in reports:
+        assert "error" not in r.metrics, r.metrics
+        got = store.get(f"k_{knob}_{r.kind}").columns["prediction"]
+        want = store.get(f"pred_{r.kind}").columns["prediction"]
+        np.testing.assert_array_equal(got, want)
 
 
 def test_cuda_runtime_refuses_without_a_card():

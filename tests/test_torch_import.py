@@ -22,7 +22,8 @@ def test_import_leaves_jax_unloaded():
     # A fresh interpreter: this test process already imported jax
     # (tests/conftest.py).
     mods = _modules()
-    assert "learningorchestra_tpu_torch.models.builder" in mods
+    for m in ("models.builder", "ops.exec_jail", "utils.fitckpt"):
+        assert f"learningorchestra_tpu_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -65,3 +66,20 @@ def test_chip_smoke_imports_neither():
     names = list(_imported_roots(os.path.join(REPO, "chip_smoke.py")))
     assert "learningorchestra_tpu_torch.ops" in names
     assert [n for n in names if _forbidden(n)] == []
+
+
+def test_exec_jail_child_never_loads_jax():
+    """The jail's child runs ``-m learningorchestra_tpu_torch.ops.exec_jail``
+    in a fresh interpreter, as ``preprocess.exec_preprocess`` starts it:
+    the package's import chain must not reach jax."""
+    code = ("import sys\n"
+            "sys.argv = ['exec_jail']\n"
+            "import learningorchestra_tpu_torch.ops.exec_jail as j\n"
+            "import learningorchestra_tpu_torch.ops.preprocess\n"
+            "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'jaxlib', 'learningorchestra_tpu'))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad or not hasattr(j, 'main') else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
