@@ -81,7 +81,30 @@ Phases, one JSON line each (any failure exits non-zero):
    ``POST /trained-models/{name}/predictions`` dataset; ``GET /metrics``
    with every row counted once and none rejected or failed; latency,
    throughput and batch occupancy per family, and the descent kernel's
-   launches in the online phase (counts reset just before it).
+   launches in the online phase (counts reset just before it);
+10. serve_workers: the same catalog and saved models served again with
+   ``http_workers = 4`` (front-end worker processes; the host's CPU
+   count beside it): the serve phase's request rows as raw records, as
+   design rows in field order, and as the binary columnar body, every
+   probability row bit-identical to the serve phase's one-row oracle,
+   every row counted once and none rejected; p50/p99 at 1 and 64 rows
+   and rows/s under the same 8-thread load per family and body kind,
+   beside the one-worker phase's rows/s; the descent kernel launched;
+11. resources, through the workers: ``GET /resources`` on the CUDA
+   allocator's counters (bytes in use above 0, within the card), the
+   served sweep job's ``peak_hbm_bytes`` (within the card's memory) and
+   per-family ``fit_resources``, the compile counts (kernel builds and
+   bucket warm-ups), and a 2 s ``POST /debug/profile`` during a load
+   whose trace holds descent-kernel events;
+12. observability, through the workers: the Prometheus text parsed
+   line by line with ``lo_frontend_*`` series, ``/status`` HTML,
+   ``/alerts`` and ``/metrics/history`` with samples, and a
+   ``POST /debug/flightrec`` bundle whose manifest names torch, CUDA and
+   the card.
+
+Each ``fit`` line of the sweep carries ``mfu`` and ``bw_util``: the
+port's FLOP and byte models (``models/flops.py``) over the fit's window,
+against the H100's published peaks, with the card's power limit.
 
 Then a ``{"kernels": [...]}`` line and, as the last line,
 ``{"ok": true, "device": {...}}``.
@@ -144,6 +167,13 @@ SERVE_SIZES = (1, 3, 8, 40, 64, 256)
 SERVE_THREADS, SERVE_REQUESTS, SERVE_POOL = 8, 100, 512
 #: Sequential requests per family timed at 1 and at 64 rows.
 SERVE_LATENCY_REQUESTS = 60
+#: The workers phase: front-end worker processes, and the request body
+#: kinds each family is served in (raw records, design rows in field
+#: order, the binary columnar body).
+SERVE_WORKERS = 4
+BODY_KINDS = ("dict", "list", "columnar")
+#: Seconds of the on-demand profile captured during a load.
+PROFILE_SECONDS = 2.0
 
 
 def check(ok, what) -> None:
@@ -1006,11 +1036,18 @@ class JsonHttp:
 
     def call(self, method: str, path: str, body=None):
         data = None if body is None else json.dumps(body).encode()
+        status, raw, _ = self.call_raw(method, path, data,
+                                       "application/json")
+        return status, (json.loads(raw) if raw else None)
+
+    def call_raw(self, method: str, path: str, data, content_type: str):
+        """One request with a body of bytes; returns the status, the
+        body's bytes and its content type."""
         self.conn.request(method, path, body=data,
-                          headers={"Content-Type": "application/json"})
+                          headers={"Content-Type": content_type})
         resp = self.conn.getresponse()
         raw = resp.read()
-        return resp.status, (json.loads(raw) if raw else None)
+        return resp.status, raw, resp.getheader("Content-Type") or ""
 
     def close(self) -> None:
         self.conn.close()
@@ -1036,11 +1073,13 @@ def _percentile_ms(seconds, q):
     return float(np.percentile(np.asarray(seconds) * 1e3, q))
 
 
-def serve_path(cfg, store, dev) -> dict:
+def serve_path(cfg, store, dev):
     """The REST server on the sweep's catalog: fits through ``POST
     /models``, online requests checked bit for bit, the predictions
     route, and the serving metrics. Returns the kernel launches of the
-    phase (fit, online and predictions)."""
+    phase (fit, online and predictions) and what the workers phase
+    reuses: the request rows, their one-row oracle, each family's rows/s
+    under the load, and the served sweep's job record."""
     import threading
 
     import torch
@@ -1076,6 +1115,19 @@ def serve_path(cfg, store, dev) -> dict:
         for c, floor in ACC_FLOOR.items():
             check(acc[c] > floor, f"served fit {c}: accuracy {acc[c]} "
                   f"<= {floor}")
+        # The job's record settles after its datasets finish (its
+        # resource window closes last): wait for it.
+        while True:
+            status, jobs_doc = client.call("GET", "/jobs")
+            sweep_job = [j for j in jobs_doc
+                         if j["kind"] == "model_builder"]
+            check(status == 200 and len(sweep_job) == 1,
+                  f"GET /jobs: one model_builder job, got {jobs_doc}")
+            if sweep_job[0]["status"] != "running":
+                break
+            check(time.time() - t0 < 900, "the served sweep job never ended")
+            time.sleep(0.1)
+        check(sweep_job[0]["status"] == "done", f"sweep job {sweep_job}")
         status, listed = client.call("GET", "/trained-models")
         names = {m["name"] for m in listed}
         check(status == 200 and all(f"srv_{c}" in names for c in families),
@@ -1258,7 +1310,319 @@ def serve_path(cfg, store, dev) -> dict:
             app.drain(timeout_s=60.0)
         finally:
             server.stop()
-    return {k: sum(p[k] for p in phase.values()) for k in phase["fit"]}
+    context = {"pool": pool, "oracle": oracle, "sweep_job": sweep_job[0],
+               "rows_per_s": {c: fam_doc[c]["concurrent_rows_per_s"]
+                              for c in families}}
+    return ({k: sum(p[k] for p in phase.values()) for k in phase["fit"]},
+            context)
+
+
+def serve_workers_path(cfg, dev, ctx: dict) -> dict:
+    """The REST server again on the same catalog and saved ``srv_*``
+    models, behind ``SERVE_WORKERS`` front-end worker processes: the
+    serve phase's request rows in three body kinds, every probability
+    row bit-identical to the serve phase's one-row oracle, every row
+    counted once and none rejected; latency and rows/s per family and
+    body kind beside the one-worker phase's rows/s. Then, through the
+    workers, the resource plane (``/resources`` from the allocator's
+    counters, the served sweep's job watermarks, the compile counts, a
+    ``POST /debug/profile`` capture during a load holding the descent
+    kernel) and the observability planes (Prometheus text, the status
+    page, alerts, history, a flight-recorder bundle). Returns the kernel
+    launches of the phase."""
+    import threading
+
+    import torch
+
+    from learningorchestra_tpu_torch.models.aot import design_from_rows
+    from learningorchestra_tpu_torch.ops import tree_kernels as tk
+    from learningorchestra_tpu_torch.serving import rowchannel
+    from learningorchestra_tpu_torch.serving.app import App
+    from learningorchestra_tpu_torch.serving.frontend import FrontendServer
+
+    families = ["lr", "dt", "rf", "gb", "nb"]
+    pool, oracle = ctx["pool"], ctx["oracle"]
+    app = App(cfg.replace(host="127.0.0.1", port=0,
+                          http_workers=SERVE_WORKERS,
+                          serve_queue_depth=SERVE_THREADS * max(SERVE_SIZES),
+                          debug_profile=True), device=str(dev))
+    t0 = time.time()
+    server = app.serve(background=True)
+    start_s = time.time() - t0
+    check(isinstance(server, FrontendServer),
+          f"http_workers={SERVE_WORKERS} served by {type(server).__name__}")
+    try:
+        client = JsonHttp(server.port)
+        # Design rows in field order: the list and columnar bodies carry
+        # them, the dict body the raw records they come from.
+        design = {c: design_from_rows(
+            pool, app.builder.registry.manifest(f"srv_{c}")["preprocess"])
+            for c in families}
+
+        def body(kind, c, off, size):
+            if kind == "dict":
+                return (json.dumps({"rows": pool[off:off + size]}).encode(),
+                        "application/json")
+            if kind == "list":
+                return (json.dumps(
+                    {"rows": design[c][off:off + size].tolist()}).encode(),
+                    "application/json")
+            return (rowchannel.encode_columnar(design[c][off:off + size]),
+                    rowchannel.COLUMNAR_CONTENT_TYPE)
+
+        sent = {c: 0 for c in families}
+        sent_lock = threading.Lock()
+
+        def ask(conn, kind, c, off, size, lat=None):
+            data, ctype = body(kind, c, off, size)
+            t = time.perf_counter()
+            status, raw, _ = conn.call_raw(
+                "POST", f"/trained-models/srv_{c}/predict", data, ctype)
+            if lat is not None:
+                lat.append(time.perf_counter() - t)
+            out = json.loads(raw)
+            check(status == 200, f"workers predict srv_{c} {kind} "
+                  f"({size} rows): {status} {out}")
+            probs = np.asarray(out["probabilities"], np.float32)
+            check(probs.shape == (size, oracle[c].shape[1]),
+                  f"workers srv_{c} {kind}: {probs.shape}")
+            check(out["predictions"] == np.argmax(probs, 1).tolist(),
+                  f"workers srv_{c} {kind}: predictions are not the argmax")
+            check(np.array_equal(probs, oracle[c][off:off + size]),
+                  f"workers srv_{c} {kind}: {size} rows at {off} differ "
+                  "from the one-row batch path")
+            with sent_lock:
+                sent[c] += size
+            return size
+
+        def load(kind, c, requests_per_thread, stop=None):
+            """SERVE_THREADS clients, each a keep-alive connection; returns
+            (rows, seconds)."""
+            rows = [0] * SERVE_THREADS
+            errors = []
+
+            def one(k):
+                rng = np.random.default_rng(100 + k)
+                conn = JsonHttp(server.port)
+                try:
+                    i = 0
+                    while (i < requests_per_thread if stop is None
+                           else not stop.is_set()):
+                        size = int(rng.choice(SERVE_SIZES))
+                        off = int(rng.integers(0, SERVE_POOL - size + 1))
+                        rows[k] += ask(conn, kind, c, off, size)
+                        i += 1
+                except Exception as exc:  # noqa: BLE001 — reported below
+                    errors.append(f"{type(exc).__name__}: {exc}")
+                finally:
+                    conn.close()
+
+            threads = [threading.Thread(target=one, args=(k,))
+                       for k in range(SERVE_THREADS)]
+            t = time.perf_counter()
+            for th in threads:
+                th.start()
+            return threads, rows, errors, t
+
+        def join(threads, rows, errors, t, what):
+            for th in threads:
+                th.join(timeout=600)
+            seconds = time.perf_counter() - t
+            check(not errors and not any(th.is_alive() for th in threads),
+                  f"{what}: {errors[:3]}")
+            return sum(rows), seconds
+
+        torch.cuda.synchronize()
+        tk.reset_launch_counts()
+        fam_doc = {}
+        for c in families:
+            fam_doc[c] = {}
+            for kind in BODY_KINDS:
+                ask(client, kind, c, 0, 1)          # loads and warms
+                for size in SERVE_SIZES:
+                    ask(client, kind, c, SERVE_POOL - size, size)
+                lat1, lat64 = [], []
+                for i in range(SERVE_LATENCY_REQUESTS):
+                    ask(client, kind, c, i, 1, lat1)
+                    ask(client, kind, c, i, 64, lat64)
+                rows, seconds = join(*load(kind, c, SERVE_REQUESTS),
+                                     f"workers srv_{c} {kind} load")
+                fam_doc[c][kind] = {
+                    "p50_ms_1row": _percentile_ms(lat1, 50),
+                    "p99_ms_1row": _percentile_ms(lat1, 99),
+                    "p50_ms_64rows": _percentile_ms(lat64, 50),
+                    "p99_ms_64rows": _percentile_ms(lat64, 99),
+                    "concurrent_rows_per_s": rows / seconds,
+                    "concurrent_requests_per_s":
+                        SERVE_THREADS * SERVE_REQUESTS / seconds}
+        torch.cuda.synchronize()
+        launches = tk.launch_counts()
+        check(launches["tree_descend"] > 0,
+              "tree_descend was not launched by the workers phase")
+
+        status, metrics = client.call("GET", "/metrics")
+        srv = metrics["serving"]
+        for key in ("rejected", "errors", "timeouts", "deadline_exceeded",
+                    "dispatcher_restarts"):
+            check(srv[key] == 0, f"workers serving {key} = {srv[key]}")
+        for c in families:
+            per = srv["models"][f"srv_{c}"]
+            check(per["rows"] == sent[c] == per["batched_rows"],
+                  f"workers srv_{c}: rows {per['rows']} batched "
+                  f"{per['batched_rows']} sent {sent[c]}")
+        frontend = metrics["frontend"]
+        check(frontend["workers_alive"] == SERVE_WORKERS
+              and frontend["respawns_total"] == 0,
+              f"front end: {frontend}")
+        attribution = {
+            phase_name: {k: v["mean_ms"] for k, v in by_label.items()
+                         if k.startswith("srv_") or "predict" in k}
+            for phase_name, by_label in metrics["latency_attribution"]
+            .items() if phase_name in ("design.build", "queue.wait",
+                                       "dispatch.device", "batch.coalesce",
+                                       "http.handle")}
+        emit({"phase": "serve_workers", "card": card_line(),
+              "cpu_count": os.cpu_count(), "workers": SERVE_WORKERS,
+              "start_s": start_s, "requests": srv["requests"],
+              "rows": srv["rows"], "batches": srv["batches"],
+              "mean_batch_rows": srv["mean_batch_rows"],
+              "families": fam_doc,
+              "one_worker_rows_per_s": ctx["rows_per_s"],
+              "frontend": frontend, "mean_ms_by_span": attribution,
+              "launches": launches})
+
+        # -- the resource plane, through the workers --------------------
+        status, res = client.call("GET", "/resources")
+        devs = res["devices"]
+        check(status == 200 and devs["source"] == "memory_stats",
+              f"GET /resources devices: {status} {devs}")
+        for d in devs["devices"]:
+            if d["id"] == f"cuda:{dev.index}":
+                check(0 < d["bytes_in_use"] <= d["bytes_limit"],
+                      f"/resources {d}")
+        card_bytes = torch.cuda.get_device_properties(dev).total_memory
+        prof = ctx["sweep_job"]["profile"]
+        check(0 < prof["peak_hbm_bytes"] <= card_bytes,
+              f"sweep job peak_hbm_bytes {prof.get('peak_hbm_bytes')}")
+        check(set(prof["fit_resources"]) == set(families),
+              f"sweep job fit_resources {sorted(prof['fit_resources'])}")
+        comp = metrics["compile"]
+        # Both apps warmed every family's bucket ladder; the two kernel
+        # libraries were built (or found built) at the start.
+        warmups = 2 * len(families) * len(app.predictor.aot.buckets)
+        check(comp["compiles"] >= warmups and comp["compile_s"] > 0
+              and comp["compiles"] + comp["persistent_cache_hits"]
+              >= warmups + 2, f"compile section {comp}")
+
+        status, started = client.call("POST", "/debug/profile",
+                                      {"seconds": PROFILE_SECONDS})
+        check(status == 201, f"POST /debug/profile: {status} {started}")
+        stop = threading.Event()
+        running = load("dict", "rf", 0, stop)
+        t0 = time.time()
+        while True:
+            _, jobs_doc = client.call("GET", "/jobs")
+            (job,) = [j for j in jobs_doc
+                      if j["job_id"] == started["job_id"]]
+            if job["status"] != "running":
+                break
+            check(time.time() - t0 < 120, "profile capture never ended")
+            time.sleep(0.1)
+        stop.set()
+        join(*running, "load during the profile")
+        check(job["status"] == "done", f"profile job: {job}")
+        with open(os.path.join(started["dir"], "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        descend = [k for k in kernels if "descend" in k]
+        check(descend, f"the profile's {len(kernels)} kernel events hold "
+              "no descent kernel")
+        emit({"phase": "resources", "card": card_line(),
+              "source": devs["source"],
+              "bytes_in_use": devs["total_bytes_in_use"],
+              "peak_bytes_in_use": devs["peak_bytes_in_use"],
+              "bytes_limit": [d.get("bytes_limit") for d in devs["devices"]],
+              "sweep_job_peak_hbm_bytes": prof["peak_hbm_bytes"],
+              "sweep_job_compile_s": prof.get("compile_s"),
+              "fit_resources": prof["fit_resources"], "compile": comp,
+              "profile_seconds": PROFILE_SECONDS,
+              "profile_kernel_events": len(kernels),
+              "profile_descend_events": len(descend),
+              "profile_descend_kernels": sorted(set(
+                  re.search(r"\w*descend\w*(?:<[^>]*>)?", k).group(0)
+                  for k in descend))})
+
+        # -- the observability planes, through the workers ---------------
+        status, raw, ctype = client.call_raw(
+            "GET", "/metrics?format=prometheus", None, "text/plain")
+        samples = [ln for ln in raw.decode().splitlines()
+                   if ln and not ln.startswith("#")]
+        sample_re = re.compile(r"^[A-Za-z_:][A-Za-z0-9_:]*(\{.*\})? "
+                               r"[-+0-9.eEinfINa]+$")
+        bad = [ln for ln in samples if not sample_re.match(ln)]
+        check(status == 200 and "text/plain" in ctype and samples
+              and not bad, f"Prometheus text: {status} {ctype} {bad[:3]}")
+        for ln in samples:
+            float(ln.rsplit(" ", 1)[1])
+        frontend_series = sorted({ln.split("{")[0].split(" ")[0]
+                                  for ln in samples
+                                  if ln.startswith("lo_frontend_")})
+        check(frontend_series, "no lo_frontend_* series")
+        status, raw, ctype = client.call_raw("GET", "/status", None,
+                                             "text/html")
+        check(status == 200 and "text/html" in ctype
+              and b"<html" in raw, f"GET /status: {status} {ctype}")
+        status, alerts_doc = client.call("GET", "/alerts")
+        check(status == 200 and alerts_doc["rules"],
+              f"GET /alerts: {status}")
+        status, hist = client.call("GET", "/metrics/history")
+        check(status == 200 and hist["samples"] > 0,
+              f"GET /metrics/history: {status} {hist.get('samples')}")
+        status, bundle = client.call("POST", "/debug/flightrec",
+                                     {"reason": "chip_smoke"})
+        check(status == 201, f"POST /debug/flightrec: {status} {bundle}")
+        with open(os.path.join(bundle["dir"], "manifest.json")) as f:
+            versions = json.load(f)["versions"]
+        check(versions.get("torch") == torch.__version__
+              and versions.get("cuda") == torch.version.cuda
+              and versions.get("device") == torch.cuda.get_device_name(0),
+              f"flight-recorder manifest versions {versions}")
+        emit({"phase": "observability", "prometheus_samples": len(samples),
+              "frontend_series": frontend_series,
+              "alert_rules": len(alerts_doc["rules"]),
+              "alerts_firing": alerts_doc["firing"],
+              "history_samples": hist["samples"],
+              "flightrec_bundle": bundle["bundle"], "versions": versions})
+        client.close()
+    finally:
+        try:
+            app.drain(timeout_s=60.0)
+        finally:
+            server.stop()
+    return launches
+
+
+def utilization(kind: str, n_train: int, fit_time: float,
+                host_prep_s: float) -> dict:
+    """A fit's ``mfu`` and ``bw_util``: the port's analytic FLOP and byte
+    models (``models/flops.py``, default hyperparameters, 28 features,
+    two classes) over the fit's window from its first launch through its
+    probability pass's synchronise, which is ``fit_time`` less the host
+    prep. (``device_s`` spans only the probability pass: the fit's own
+    work completes before it, so a ratio over it would exceed 1.) Under
+    overlapped fits the window holds other families' work too, so these
+    are lower bounds. Against the card's published peaks, named with the
+    card's power limit."""
+    from learningorchestra_tpu_torch.models import flops
+
+    window = fit_time - host_prep_s
+    f = flops.fit_flops(kind, n_train, 28, 2)
+    b = flops.fit_bytes(kind, n_train, 28, 2)
+    return {"window_s": window, "fit_flops": f, "fit_bytes": b,
+            "mfu": flops.mfu(f, window),
+            "bw_util": flops.bw_util(b, window),
+            "peak_flops": flops.PEAK_FLOPS, "peak_bw": flops.PEAK_BW,
+            "card": card_line()}
 
 
 def main_path(n_train: int, n_test: int, dev) -> dict:
@@ -1321,7 +1685,9 @@ def main_path(n_train: int, n_test: int, dev) -> dict:
             emit({"phase": "fit", "family": r.kind,
                   "fit_time": r.fit_time,
                   "device_s": r.metrics["device_s"],
-                  "accuracy": r.metrics["accuracy"], "f1": r.metrics["f1"]})
+                  "accuracy": r.metrics["accuracy"], "f1": r.metrics["f1"],
+                  **utilization(r.kind, n_train, r.fit_time,
+                                spans.get(f"fit.{r.kind}.host_prep", 0.0))})
         for kind, floor in ACC_FLOOR.items():
             check(acc[kind] > floor, f"{kind} accuracy {acc[kind]} <= {floor}")
         for kind in ("dt", "rf", "gb"):
@@ -1343,8 +1709,10 @@ def main_path(n_train: int, n_test: int, dev) -> dict:
         phases = [counts,
                   streamed_path(cfg, store, runtime, dev, acc, spans,
                                 build_s),
-                  explore_path(store, runtime, dev),
-                  serve_path(cfg, store, dev)]
+                  explore_path(store, runtime, dev)]
+        serve_counts, serve_ctx = serve_path(cfg, store, dev)
+        phases += [serve_counts,
+                   serve_workers_path(cfg, dev, serve_ctx)]
         return {k: sum(p.get(k, 0) for p in phases) for k in KERNELS}
     finally:
         shutil.rmtree(work, ignore_errors=True)

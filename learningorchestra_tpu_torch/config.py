@@ -8,9 +8,7 @@ importable everywhere — the "typed pydantic-style settings" upgrade called for
 in SURVEY.md §7 without taking a pydantic dependency.
 
 Only the knobs that this package reads are here. A subsystem that is not
-ported yet brings its knobs along when it is; the knob of an unported
-path kept below (``http_workers > 1``) is refused with a "not yet
-ported" error instead of being ignored.
+ported yet brings its knobs along when it is.
 """
 
 from __future__ import annotations
@@ -170,11 +168,20 @@ class Settings:
     http_timeout_s: float = field(
         default_factory=lambda: _env("LO_TPU_HTTP_TIMEOUT_S", 30.0)
     )
-    #: HTTP accept processes. Only 1 (the device-owning process serves
-    #: HTTP itself) is ported: the multi-process front end is not, and
-    #: ``App.serve`` raises ``NotImplementedError`` for more.
+    #: HTTP accept processes. ``1`` (the default): the device-owning
+    #: process serves HTTP itself through the threaded stdlib server.
+    #: ``N > 1`` binds N front-end worker processes to the same host:port
+    #: via ``SO_REUSEPORT``; each decodes requests in its own interpreter
+    #: and forwards predict rows and proxied requests to the
+    #: device-owning process over the row channel (serving/frontend.py).
     http_workers: int = field(
         default_factory=lambda: _env("LO_TPU_HTTP_WORKERS", 1)
+    )
+    #: Handler threads the device-owning process runs for row-channel
+    #: frames from front-end workers: how many forwarded requests execute
+    #: at once inside it. Only read when ``http_workers > 1``.
+    frontend_channel_threads: int = field(
+        default_factory=lambda: _env("LO_TPU_FRONTEND_CHANNEL_THREADS", 16)
     )
 
     # --- online inference (serving/batcher.py, models/aot.py) --------------
@@ -225,9 +232,26 @@ class Settings:
     serve_restart_backoff_s: float = field(
         default_factory=lambda: _env("LO_TPU_SERVE_RESTART_BACKOFF_S", 0.2)
     )
-    #: Retry-After (seconds) of a quarantined model's 503.
+    #: Restarts of a front-end worker slot (serving/frontend.py
+    #: ``WorkerSupervisor``) before the slot is abandoned; each slot has
+    #: its own budget.
+    restart_budget: int = field(
+        default_factory=lambda: _env("LO_TPU_RESTART_BUDGET", 5)
+    )
+    #: First worker restart delay (seconds); doubles per restart up to
+    #: ``restart_backoff_max_s``.
+    restart_backoff_s: float = field(
+        default_factory=lambda: _env("LO_TPU_RESTART_BACKOFF_S", 1.0)
+    )
+    #: Cap on the worker restart delay, and the Retry-After (seconds) of
+    #: a quarantined model's 503.
     restart_backoff_max_s: float = field(
         default_factory=lambda: _env("LO_TPU_RESTART_BACKOFF_MAX_S", 30.0)
+    )
+    #: After this many seconds of continuous health the worker
+    #: supervisor restores every slot's restart budget. 0 disables it.
+    restart_healthy_s: float = field(
+        default_factory=lambda: _env("LO_TPU_RESTART_HEALTHY_S", 300.0)
     )
     #: Graceful-drain window (seconds): on SIGTERM or ``App.drain`` the
     #: server answers new work 503 and lets accepted work finish for up
@@ -326,6 +350,102 @@ class Settings:
         default_factory=lambda: _env("LO_TPU_LOG_LEVEL", "INFO")
     )
 
+
+    # --- telemetry history (utils/timeseries.py) ----------------------------
+    #: Cadence (seconds) of the background telemetry sampler, which
+    #: snapshots the server's ``/metrics`` document into the history ring.
+    #: ``0`` disables the sampler thread and records one sample per
+    #: registry read instead; negative disables history entirely.
+    telemetry_sample_s: float = field(
+        default_factory=lambda: _env("LO_TPU_TELEMETRY_SAMPLE_S", 5.0)
+    )
+    #: In-memory history ring capacity (samples).
+    telemetry_ring_samples: int = field(
+        default_factory=lambda: _env("LO_TPU_TELEMETRY_RING_SAMPLES", 720)
+    )
+    #: Samples per on-disk delta-encoded segment under
+    #: ``<store_root>/_telemetry/``.
+    telemetry_segment_samples: int = field(
+        default_factory=lambda: _env("LO_TPU_TELEMETRY_SEGMENT_SAMPLES",
+                                     120)
+    )
+    #: Newest on-disk segments kept; older ones are unlinked at rotation.
+    telemetry_retention_segments: int = field(
+        default_factory=lambda: _env(
+            "LO_TPU_TELEMETRY_RETENTION_SEGMENTS", 48)
+    )
+
+    # --- flight recorder (utils/flightrec.py) -------------------------------
+    #: Newest bundles kept under ``<store_root>/_flightrec/``; 0 disables
+    #: the recorder.
+    flightrec_keep: int = field(
+        default_factory=lambda: _env("LO_TPU_FLIGHTREC_KEEP", 8)
+    )
+    #: Minimum seconds between automatic dumps (alert firing, healthz
+    #: flip, quarantine, watchdog); ``POST /debug/flightrec`` ignores it.
+    flightrec_min_interval_s: float = field(
+        default_factory=lambda: _env("LO_TPU_FLIGHTREC_MIN_INTERVAL_S",
+                                     30.0)
+    )
+    #: Seconds of telemetry history captured into each bundle.
+    flightrec_window_s: float = field(
+        default_factory=lambda: _env("LO_TPU_FLIGHTREC_WINDOW_S", 600.0)
+    )
+
+    # --- resource & capacity plane (utils/resources.py, utils/alerts.py) ---
+    #: Evaluation-window length (seconds) of the alert engine; rules are
+    #: checked at most once a window, driven by registry reads. 0
+    #: evaluates on every read.
+    alert_window_s: float = field(
+        default_factory=lambda: _env("LO_TPU_ALERT_WINDOW_S", 15.0)
+    )
+    #: Consecutive bad windows before a threshold rule fires.
+    alert_for_windows: int = field(
+        default_factory=lambda: _env("LO_TPU_ALERT_FOR_WINDOWS", 2)
+    )
+    #: Consecutive clean windows before a firing alert resolves.
+    alert_clear_windows: int = field(
+        default_factory=lambda: _env("LO_TPU_ALERT_CLEAR_WINDOWS", 2)
+    )
+    #: Online-tier p99 SLO (milliseconds, worst model); 0 drops the rule.
+    slo_p99_ms: float = field(
+        default_factory=lambda: _env("LO_TPU_SLO_P99_MS", 500.0)
+    )
+    #: Queue-rejection-rate SLO (rejected / offered a window); 0 drops it.
+    slo_reject_rate: float = field(
+        default_factory=lambda: _env("LO_TPU_SLO_REJECT_RATE", 0.05)
+    )
+    #: Deadline-miss-rate SLO (expired / offered a window); 0 drops it.
+    slo_deadline_rate: float = field(
+        default_factory=lambda: _env("LO_TPU_SLO_DEADLINE_RATE", 0.05)
+    )
+    #: Fast burn-rate window (seconds) of the serving SLO rules over the
+    #: telemetry history; 0 keeps single-window evaluation.
+    slo_burn_fast_s: float = field(
+        default_factory=lambda: _env("LO_TPU_SLO_BURN_FAST_S", 300.0)
+    )
+    #: Slow burn-rate window (seconds); 0 keeps single-window evaluation.
+    slo_burn_slow_s: float = field(
+        default_factory=lambda: _env("LO_TPU_SLO_BURN_SLOW_S", 3600.0)
+    )
+    #: Error budget: the fraction of a window that may be out of SLO
+    #: before its burn rate reads 1.0.
+    slo_burn_budget: float = field(
+        default_factory=lambda: _env("LO_TPU_SLO_BURN_BUDGET", 0.02)
+    )
+    #: Free-disk watermark (MiB) of the chunk store's filesystem: under
+    #: it ``disk_free_low`` fires and ``GET /healthz`` degrades. 0
+    #: disables the check.
+    disk_free_watermark_mb: int = field(
+        default_factory=lambda: _env("LO_TPU_DISK_FREE_WATERMARK_MB", 512)
+    )
+    #: Allow ``POST /debug/profile`` to capture an on-demand
+    #: ``torch.profiler`` trace (N seconds, Chrome trace under
+    #: ``<store_root>/_profiles``). Off by default: an explicit opt-in.
+    debug_profile: bool = field(
+        default_factory=lambda: _env("LO_TPU_DEBUG_PROFILE", False, bool)
+    )
+
     def replace(self, **kw) -> "Settings":
         new = Settings()
         for f in fields(self):
@@ -353,3 +473,22 @@ def failpoint_spec() -> str:
     (``LO_TPU_FAILPOINTS=site=mode[:nth],...``), read at
     utils/failpoints.py import — before any Settings exists."""
     return os.environ.get("LO_TPU_FAILPOINTS", "")
+
+
+def peak_flops() -> float:
+    """Override for the card's peak FLOP/s used as the MFU denominator
+    (``LO_TPU_PEAK_FLOPS``; models/flops.py defaults to the H100's
+    float32 figure). 0.0 = unset."""
+    try:
+        return float(os.environ.get("LO_TPU_PEAK_FLOPS", "") or 0.0)
+    except ValueError:
+        return 0.0
+
+
+def peak_bw() -> float:
+    """Override for the card's peak memory bandwidth used as the
+    ``bw_util`` denominator (``LO_TPU_PEAK_BW``). 0.0 = unset."""
+    try:
+        return float(os.environ.get("LO_TPU_PEAK_BW", "") or 0.0)
+    except ValueError:
+        return 0.0

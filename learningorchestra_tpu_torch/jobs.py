@@ -326,14 +326,11 @@ class JobManager:
         """Post-transition actions for one watchdog-killed job: pollable
         failure records (the retryable ``interrupted:`` prefix — the
         restarted pod's rescan re-runs the job, which then resumes from
-        its fit checkpoint), pod poison (the elastic-recovery machinery: the
-        supervisor's health poll sees the degradation and restarts the
-        pod under a fresh mesh epoch, which is what actually tears down
-        the hung program), and a flight-recorder evidence bundle. The
-        hung thread itself cannot be killed from Python — bounding its
-        damage is the supervisor restart's job. This package runs one
-        process on one device: there is no pod to poison and no flight
-        recorder yet, so only the failure records are written."""
+        its fit checkpoint) and a flight-recorder evidence bundle. The
+        hung thread itself cannot be killed from Python. This package
+        runs one process on one device: there is no pod to poison."""
+        from learningorchestra_tpu_torch.utils import flightrec
+
         with _fault_lock:
             _fault["watchdog_fired_total"] += 1
         log.error("%s", rec.error)
@@ -343,6 +340,12 @@ class JobManager:
                     self.store.fail(name, rec.error)
             except Exception:  # noqa: BLE001 — best-effort flagging
                 pass
+        flightrec.incident(
+            "job:watchdog",
+            detail={"job_id": rec.job_id, "kind": rec.kind,
+                    "dataset": rec.dataset,
+                    "deadline_s": rec.deadline_s,
+                    "trace_id": rec.trace_id})
         op_timer.record(f"job.{rec.kind}",
                         rec.finished_at - rec.started_at)
 
@@ -412,14 +415,20 @@ class JobManager:
                 # The job's root span: joins the submitting request's
                 # trace when one was ambient, else roots a new trace
                 # under rec.trace_id. Everything the job body records
-                # (design.build, fit.*, journal.commit, worker-process
-                # spans over the SPMD channel) nests under it; a raise
-                # marks the span status=error before the handling below.
+                # (design.build, fit.*, journal.commit) nests under it; a
+                # raise marks the span status=error before the handling
+                # below. resources.job_phase is the resource-sampling
+                # seam: every managed job's profile carries
+                # peak_hbm_bytes / compile_s / host_rss_delta, refined
+                # mid-job by the builder's per-phase samples.
+                from learningorchestra_tpu_torch.utils import resources
+
                 with tracing.job_trace(
                         f"job.{kind}", trace_id=rec.trace_id,
                         parent=parent_ctx,
                         attrs={"kind": kind, "dataset": rec.dataset,
-                               "job_id": rec.job_id}):
+                               "job_id": rec.job_id}), \
+                        resources.job_phase():
                     fn()
                 settled = self._settle(rec, "done")
             except Exception as exc:  # noqa: BLE001 — job boundary

@@ -46,7 +46,7 @@ from learningorchestra_tpu_torch.config import (
 from learningorchestra_tpu_torch.models.persistence import ModelRegistry
 from learningorchestra_tpu_torch.models.registry import ONLINE_KINDS
 from learningorchestra_tpu_torch.parallel.runtime import resolve_device
-from learningorchestra_tpu_torch.utils import failpoints
+from learningorchestra_tpu_torch.utils import failpoints, resources
 
 #: Chaos seam before a model's load and bucket-ladder warm-up: raise-mode
 #: proves a failed cold load surfaces as the request's error (never a
@@ -291,6 +291,7 @@ class AotModel:
         self._params_r = [{k: v.to(d) for k, v in model.params.items()}
                           for d in self._devices]
         self._fn = model.predict_proba_fn
+        c0 = resources.compile_seconds()
         t0 = time.monotonic()
         for r in range(self.n_replicas):
             for b in self.buckets:
@@ -300,6 +301,13 @@ class AotModel:
         #: took — the counterpart of the JAX package's compile time,
         #: surfaced per load so a hot swap's cost is attributable.
         self.compile_wall_s = round(time.monotonic() - t0, 6)
+        # One compile per warmed bucket (utils/resources.py); a kernel
+        # build the warm-up triggered counts as its own compile, so its
+        # seconds are not counted twice.
+        resources.note_compile(
+            max(0.0, self.compile_wall_s
+                - (resources.compile_seconds() - c0)),
+            n=len(self.buckets) * self.n_replicas)
 
     def predict_padded(self, X: np.ndarray, replica: int = 0) -> np.ndarray:
         """One device dispatch for a host batch of ≤ max-bucket rows:
@@ -379,8 +387,15 @@ class AotCache:
             ent = self._models.get(name)
             if ent is not None and ent.version == version:
                 self._hits += 1
-                return ent
-            name_lock = self._name_locks.setdefault(name, threading.Lock())
+            else:
+                ent = None
+                name_lock = self._name_locks.setdefault(
+                    name, threading.Lock())
+        if ent is not None:
+            # Counted outside the cache lock: a cache hit per served
+            # request is the hit leg of the compile accounting.
+            resources.note_cache_hit()
+            return ent
         with name_lock:
             # Re-read the token under the name lock: a save() completing
             # while we waited means load() below returns the NEW content

@@ -57,7 +57,7 @@ from learningorchestra_tpu_torch.models.persistence import ModelRegistry
 from learningorchestra_tpu_torch.models.registry import get_trainer
 from learningorchestra_tpu_torch.ops import preprocess
 from learningorchestra_tpu_torch.parallel.runtime import DeviceRuntime
-from learningorchestra_tpu_torch.utils import fitckpt, tracing
+from learningorchestra_tpu_torch.utils import fitckpt, resources, tracing
 from learningorchestra_tpu_torch.utils.profiling import (
     device_span, device_trace, op_timer, timed)
 
@@ -320,7 +320,14 @@ class ModelBuilder:
                         extra, prep_s = prep_fit(c)   # outside the gate
                         tracing.record_span(f"fit.{c}.host_prep", prep_s)
                         with gate:                    # device phase
-                            with Timer() as td:
+                            # The fit's resource window (compile seconds,
+                            # device bytes at its end); the probability
+                            # pass gets its own through collect_fit's
+                            # device_span. Concurrent families' windows
+                            # overlap, so utils/resources.device_phase
+                            # records their peaks only, never a double-
+                            # counted compile_s.
+                            with Timer() as td, resources.family_phase(c):
                                 model = dispatch_fit(c, extra)
                             pre_s = prep_s + td.elapsed
                             probs, device_s = collect_fit(c, model, pre_s)

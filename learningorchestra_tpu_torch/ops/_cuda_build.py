@@ -20,10 +20,13 @@ import hashlib
 import os
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
+
+from learningorchestra_tpu_torch.utils import resources
 
 _PKG = Path(__file__).resolve().parent.parent
 #: Build products live beside the package, in a directory git ignores.
@@ -54,6 +57,9 @@ class CudaLibrary:
         self._signatures = signatures
         self._lib: Optional[ctypes.CDLL] = None
         self._lock = threading.Lock()
+        #: Whether this process already accounted for the library (built
+        #: it, or found it built by an earlier process).
+        self._accounted = False
 
     def path(self) -> Path:
         """The shared library for the current source and flags."""
@@ -71,11 +77,19 @@ class CudaLibrary:
         kept at ``log_path()``); returns the library's path."""
         so = self.path()
         if so.exists():
+            if not self._accounted:
+                self._accounted = True
+                resources.note_persistent_hit()
             return so
         self.build_dir.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
+        t0 = time.monotonic()
         proc = subprocess.run(cmd, capture_output=True, text=True)
+        # A build is one of the package's compiles (utils/resources.py),
+        # failed or not: its seconds were spent.
+        resources.note_compile(time.monotonic() - t0)
+        self._accounted = True
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {self.source.name} "
                                f"({proc.returncode}):\n"

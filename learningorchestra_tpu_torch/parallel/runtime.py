@@ -26,7 +26,7 @@ from __future__ import annotations
 import threading
 import warnings
 import weakref
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +41,46 @@ def host_rows(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+#: Every tensor a ``DeviceRuntime`` placed, held weakly by id: the CPU
+#: rig's device-memory reading (utils/resources.py ``live_buffers``)
+#: sums the ones still alive. A card reads its allocator's counters
+#: instead. (Not a ``WeakSet``: a set compares colliding entries with
+#: ``==``, which a tensor answers elementwise.)
+_placed: Dict[int, "weakref.ref[torch.Tensor]"] = {}
+
+
+def _track(t: torch.Tensor) -> torch.Tensor:
+    key = id(t)
+
+    def _gone(ref, key=key):
+        # Runs at collection, on whatever thread collects: a plain dict
+        # operation, no lock (a lock held by that thread would deadlock).
+        if _placed.get(key) is ref:
+            _placed.pop(key, None)
+
+    _placed[key] = weakref.ref(t, _gone)
+    return t
+
+
+def placed_bytes() -> int:
+    """Bytes of the live tensors the runtime placed, each storage counted
+    once (a view shares its base's storage)."""
+    while True:
+        try:
+            refs = list(_placed.values())
+            break
+        except RuntimeError:        # a collection resized the dict
+            continue
+    seen = {}
+    for ref in refs:
+        t = ref()
+        if t is None:
+            continue
+        st = t.untyped_storage()
+        seen[(str(t.device), st.data_ptr())] = st.nbytes()
+    return int(sum(seen.values()))
 
 
 def resolve_device(device: str = "cuda") -> torch.device:
@@ -95,10 +135,10 @@ class DeviceRuntime:
             warnings.filterwarnings("ignore", message=".*not writable.*")
             t = torch.from_numpy(np.ascontiguousarray(arr))
         if self.device.type == "cuda":
-            return t.to(self.device)
+            return _track(t.to(self.device))
         # CPU: copy, so the tensor never aliases a host array the caller
         # may later unfreeze or that the cache finalizer tracks.
-        return t.clone()
+        return _track(t.clone())
 
     def shard_rows(self, arr) -> Tuple[torch.Tensor, int]:
         """Host array or lazy design → device tensor (all rows, one
@@ -159,9 +199,9 @@ class DeviceRuntime:
         n = int(design.shape[0])
         tail = tuple(int(s) for s in design.shape[1:])
         dtype = np.dtype(getattr(design, "dtype", np.float32))
-        out = torch.empty((n,) + tail,
-                          dtype=torch.from_numpy(np.empty(0, dtype)).dtype,
-                          device=self.device)
+        out = _track(torch.empty(
+            (n,) + tail, dtype=torch.from_numpy(np.empty(0, dtype)).dtype,
+            device=self.device))
         blk = max(1, int(self.FEED_BLOCK_ROWS))
         ranges = [(a, min(a + blk, n)) for a in range(0, n, blk)]
         if not ranges:
@@ -240,6 +280,6 @@ class DeviceRuntime:
     def replicate(self, x) -> torch.Tensor:
         """A small host value (edges, scalars, params) on the device."""
         if isinstance(x, torch.Tensor):
-            return x.to(self.device)
+            return _track(x.to(self.device))
         return self._put(np.asarray(x))
 

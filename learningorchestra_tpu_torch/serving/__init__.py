@@ -1,5 +1,6 @@
 """Serving package: the REST server (``app``, ``http``), the online
-predict tier (``batcher``) and the peer row channel (``rowchannel``).
+predict tier (``batcher``), the multi-process front end (``frontend``)
+and the row channel (``rowchannel``).
 
 ``App`` and ``Server`` are lazy attributes (PEP 562) rather than eager
 imports: the catalog imports ``rowchannel`` from this package and must

@@ -1,9 +1,11 @@
 """``python -m learningorchestra_tpu_torch.serving`` — run the service.
 
 Replaces the reference's per-service Flask ``app.run`` entrypoints + Docker
-Swarm stack (reference run.sh, docker-compose.yml). One process serves
-HTTP and owns one CUDA device (``--device``, ``cuda`` by default; ``cpu``
-runs every kernel's plain PyTorch version on the host).
+Swarm stack (reference run.sh, docker-compose.yml). One process owns one
+CUDA device (``--device``, ``cuda`` by default; ``cpu`` runs every
+kernel's plain PyTorch version on the host) and serves HTTP itself, or,
+with ``LO_TPU_HTTP_WORKERS=N`` (N > 1), behind N front-end worker
+processes (serving/frontend.py).
 """
 
 import argparse
@@ -84,8 +86,9 @@ def main() -> None:
 
     app = App(settings, recover=not args.no_recover, device=args.device)
     server = app.serve(background=True)
-    log.info("learningorchestra_tpu_torch serving on %s:%d (device: %s)",
-             args.host, server.port, app.runtime.device)
+    log.info("learningorchestra_tpu_torch serving on %s:%d (device: %s, "
+             "http workers: %d)", args.host, server.port,
+             app.runtime.device, max(1, settings.http_workers))
     stopped = install_graceful_shutdown(app, server)
     stopped.wait()
 

@@ -16,19 +16,20 @@ the upgrade that failed jobs set ``error`` and still flip ``finished``.
 
 The JAX package's ``App`` on this package's catalog, runtime, builder,
 image service and online predict tier, on one CUDA device (``device``,
-``"cuda"`` unless the caller passes ``"cpu"``). Not ported yet, and so
-not routed: ``/tune``; ``/cluster`` and ``/replication`` (multi-device
-and pod planes); ``/status``, ``/metrics/history``, ``/alerts``,
-``/resources``, ``/debug/flightrec`` and ``/debug/profile`` (the
-observability planes), nor the sections of ``/metrics`` and ``/healthz``
-those planes feed; the multi-process front end (``http_workers > 1``);
-the replication receive server (``replica_port``).
+``"cuda"`` unless the caller passes ``"cpu"``), with its observability
+planes (``/status``, ``/metrics/history``, ``/resources``, ``/alerts``,
+``/debug/flightrec``, ``/debug/profile``, ``/metrics?format=prometheus``)
+and the multi-process front end (``http_workers > 1``,
+serving/frontend.py). Not ported yet, and so not routed: ``/tune``;
+``/cluster`` and ``/replication`` (the pod planes); the replication
+receive server (``replica_port``).
 """
 
 from __future__ import annotations
 
 import json
 import math
+import os
 import threading
 import time
 from typing import Optional
@@ -37,6 +38,7 @@ from learningorchestra_tpu_torch.catalog.dataset import ChunkCorrupt
 from learningorchestra_tpu_torch.catalog.ingest import ingest_csv_url
 from learningorchestra_tpu_torch.catalog.store import (
     DatasetExists, DatasetNotFound, DatasetStore)
+from learningorchestra_tpu_torch import config
 from learningorchestra_tpu_torch.config import (
     Settings, settings as global_settings)
 from learningorchestra_tpu_torch.jobs import JobManager, select_retry_groups
@@ -50,8 +52,10 @@ from learningorchestra_tpu_torch.serving.batcher import (
     BatcherStopped, DeadlineExceeded, DispatcherCrashed, ModelQuarantined,
     PredictBatcher, PredictTimeout, QueueFull)
 from learningorchestra_tpu_torch.serving.http import (
-    FileResponse, HttpError, IdempotencyCache, Router, Server)
-from learningorchestra_tpu_torch.utils import tracing
+    FileResponse, HtmlResponse, HttpError, IdempotencyCache, Router,
+    Server, TextResponse)
+from learningorchestra_tpu_torch.utils import (
+    alerts, flightrec, resources, timeseries, tracing)
 from learningorchestra_tpu_torch.utils.structlog import get_logger
 from learningorchestra_tpu_torch.viz.service import (
     ImageExists, ImageNotFound, ImageService, create_embedding_image)
@@ -90,6 +94,39 @@ class App:
         self.predictor = PredictBatcher(self.builder.registry, self.cfg,
                                         device=str(self.runtime.device))
         self.images = {m: ImageService(m, self.cfg) for m in ("tsne", "pca")}
+        #: Telemetry history (utils/timeseries.py): the background
+        #: sampler snapshots _metrics_doc on its own clock (started in
+        #: serve(), so bare App construction spawns no threads), and
+        #: every registry read contributes a sample too, gated to the
+        #: same cadence — history accrues whether or not anything
+        #: scrapes the server, and survives restarts via the rotating
+        #: delta segments under <store_root>/_telemetry/.
+        self.history = timeseries.TelemetryHistory(
+            self.cfg, source=self._metrics_doc)
+        #: The SLO alert engine (utils/alerts.py), evaluated over the
+        #: same registry snapshot both /metrics formats render — reads
+        #: of /metrics, /alerts, /healthz and the status page drive its
+        #: evaluation windows (the Prometheus scrape-window model).
+        #: With the history store attached, the serving SLO rules run
+        #: as multi-window burn rates over it.
+        self.alerts = alerts.default_engine(self.cfg,
+                                            history=self.history)
+        #: Flight recorder (utils/flightrec.py): on an alert firing, a
+        #: /healthz flip to 503, a dispatcher quarantine or a watchdog
+        #: expiry, a bounded-retention evidence bundle (spans, history
+        #: window, resources, alerts, config, versions) lands under
+        #: <store_root>/_flightrec/.
+        self.flightrec = flightrec.FlightRecorder(self.cfg, gather={
+            "spans": lambda: tracing.recent_span_docs(2048),
+            "history": lambda: self.history.query(
+                window_s=self.cfg.flightrec_window_s),
+            "resources": lambda: resources.process_snapshot(self.cfg),
+            "alerts": self.alerts.snapshot,
+        })
+        flightrec.set_recorder(self.flightrec)
+        #: Last /healthz verdict — the firing edge (healthy → 503) is a
+        #: flight-recorder trigger.
+        self._was_healthy: Optional[bool] = None
         #: POST replay cache: a create retried with the same
         #: Idempotency-Key (the client SDK sends one per logical create)
         #: returns the first attempt's outcome instead of a spurious 409.
@@ -99,6 +136,11 @@ class App:
         #: in-flight predicts and queued jobs run to completion —
         #: a planned restart loses zero accepted requests.
         self._draining = threading.Event()
+        #: The multi-worker front end when ``http_workers > 1``
+        #: (serving/frontend.py FrontendServer), set by :meth:`serve` —
+        #: its worker/channel counters feed ``/metrics`` (``frontend``
+        #: section → ``lo_frontend_*``) and the health rollup.
+        self._frontend = None
         self.router = Router()
         self._register()
         if recover and self.cfg.persist:
@@ -124,9 +166,11 @@ class App:
 
     def map_exception(self, e: Exception) -> Optional[HttpError]:
         """Domain exception → the reference's status codes — THE one
-        mapping of the handler stack (``_wrap``). Returns None for
-        exceptions the serving layer does not own (the caller re-raises
-        → 500 boundary)."""
+        mapping, shared by the threaded handler stack (``_wrap``) and
+        the multi-worker row-channel path (serving/frontend.py), so the
+        process hop can never answer a different status than the
+        single-process oracle. Returns None for exceptions the serving
+        layer does not own (the caller re-raises → 500 boundary)."""
         try:
             raise e
         except HttpError as he:
@@ -170,6 +214,10 @@ class App:
             # or shutdown): transient — the retry gets the terminal
             # answer (404 if deleted, a fresh dispatcher otherwise).
             return HttpError(503, str(se), headers={"Retry-After": "1"})
+        except resources.ProfilerBusy as pb:
+            # One profiler trace at a time per process: the operator's
+            # second capture conflicts with the running one.
+            return HttpError(409, str(pb))
         except ChunkCorrupt as xe:
             # Integrity failure the replica couldn't heal: a precise
             # 500 naming the chunk/checksums, not a parse traceback.
@@ -498,9 +546,61 @@ class App:
         def jobs(_req):
             return 200, app.jobs.records()
 
+        @self._route("GET", "/status")
+        def status_page(_req):
+            # HTML operator view of the same data /jobs and /files
+            # serve — the reference's Swarm visualizer equivalent
+            # (docker-compose.yml:109-121).
+            from learningorchestra_tpu_torch.serving.status_page import (
+                render_status)
+
+            dev = app.runtime.device
+            info = {"process_index": 0, "process_count": 1,
+                    "device": str(dev), "platform": dev.type,
+                    "mesh_epoch": config.mesh_epoch(),
+                    "state": "draining" if app.draining else "serving"}
+            # The page's 5 s auto-refresh doubles as the alert engine's
+            # heartbeat on watched deployments (_metrics_doc evaluates).
+            mdoc = app._metrics_doc()
+            return 200, HtmlResponse(render_status(
+                info, app.jobs.records(), app.store.metadata_docs(),
+                serving=mdoc.get("serving"),
+                alerts=mdoc.get("alerts"),
+                resources=mdoc.get("resources"),
+                attribution=mdoc.get("latency_attribution"),
+                # Bounded window: the sparklines render ~140px — serve
+                # them from the in-memory ring, never a decode of every
+                # retained disk segment per 5 s auto-refresh.
+                history=app.history.query(series=[
+                    "serving.qps", "serving.queue_rows",
+                    "serving.requests", "resources.host.rss_bytes"],
+                    window_s=3600)))
+
         @self._route("GET", "/metrics")
-        def metrics(_req):
-            return 200, app._metrics_doc()
+        def metrics(req):
+            doc = app._metrics_doc()
+            if req.q("format") == "prometheus":
+                from learningorchestra_tpu_torch.utils import prometheus
+
+                # Same registry snapshot, second format: the exposition
+                # text is rendered from the identical doc the JSON view
+                # serves, so the two can never disagree.
+                return 200, TextResponse(prometheus.render(doc))
+            return 200, doc
+
+        @self._route("GET", "/metrics/history")
+        def metrics_history(req):
+            # The retained time-series behind the instantaneous
+            # /metrics view: ring + on-disk delta segments, so the
+            # answer covers windows no scrape happened to observe —
+            # including pre-restart ones.
+            app._metrics_doc()          # contribute a sample (gated)
+            series = req.q("series")
+            window = req.q("window", cast=float)
+            return 200, app.history.query(
+                series=[s.strip() for s in series.split(",") if s.strip()]
+                if series else None,
+                window_s=window)
 
         # ---- tracing (the request/job-scoped view /metrics can't give:
         # "where did THIS request spend its time")
@@ -522,17 +622,102 @@ class App:
                     "existed)")
             return 200, tree
 
+        # ---- resource & capacity plane (utils/resources.py, /alerts.py)
+        @self._route("GET", "/resources")
+        def resources_view(_req):
+            # Device memory + host + disk + compile accounting for this
+            # process.
+            return 200, resources.process_snapshot(app.cfg)
+
+        @self._route("GET", "/alerts")
+        def alerts_view(_req):
+            # Reading /alerts advances an evaluation window like every
+            # other registry read — an operator polling this page IS the
+            # alert engine's clock.
+            app._metrics_doc()
+            doc = app.alerts.snapshot()
+            # The freshest evidence bundle rides along so anything that
+            # reports a firing alert can point at it (the client SDK
+            # quotes it in raised errors).
+            doc["flightrec_latest"] = app.flightrec.latest()
+            return 200, doc
+
         @self._route("GET", "/healthz")
         def healthz(_req):
             doc = app._health_doc()
-            return (200 if doc["healthy"] else 503), doc
+            healthy = doc["healthy"]
+            if app._was_healthy is not False and not healthy:
+                # The healthy → 503 edge is itself an incident worth
+                # freezing: by the time a human reads the page, the
+                # trace ring has moved on.
+                app.flightrec.dump(
+                    "healthz:503",
+                    detail={"checks": {
+                        k: c for k, c in doc["checks"].items()
+                        if isinstance(c, dict) and not c.get("ok")}})
+                doc["flightrec_latest"] = app.flightrec.latest()
+            app._was_healthy = healthy
+            return (200 if healthy else 503), doc
+
+        @self._route("GET", "/debug/flightrec")
+        def flightrec_list(_req):
+            return 200, app.flightrec.list()
+
+        @self._route("POST", "/debug/flightrec", replay_posts=False)
+        def flightrec_dump(req):
+            # Manual trigger: bypasses the automatic-dump rate limit
+            # (an operator asking for evidence should get it), still
+            # bounded by retention. Read-like — never idempotency-
+            # replayed.
+            reason = str(req.body.get("reason") or "manual")
+            bundle = app.flightrec.dump(f"manual:{reason}", force=True)
+            if bundle is None:
+                raise ValueError(
+                    "flight recorder disabled (LO_TPU_FLIGHTREC_KEEP=0) "
+                    "or dump failed — see server logs")
+            return 201, {"result": "flight-recorder bundle dumped",
+                         "bundle": bundle,
+                         "dir": os.path.join(app.flightrec.root, bundle)}
+
+        @self._route("POST", "/debug/profile")
+        def debug_profile(req):
+            # Knob-gated (LO_TPU_DEBUG_PROFILE): profiling costs real
+            # overhead and writes operator-readable traces to disk, so
+            # it is an explicit opt-in → 403 otherwise.
+            if not app.cfg.debug_profile:
+                raise PermissionError(
+                    "on-demand profiling is disabled; set "
+                    "LO_TPU_DEBUG_PROFILE=1 to enable POST /debug/profile")
+            try:
+                seconds = float(req.body.get("seconds", 2.0))
+            except (TypeError, ValueError):
+                raise ValueError("seconds must be a number") from None
+            if seconds <= 0 or seconds > resources.PROFILE_MAX_SECONDS:
+                raise ValueError(
+                    f"seconds must be in (0, "
+                    f"{resources.PROFILE_MAX_SECONDS:.0f}]")
+            if resources.profiler_busy():
+                raise resources.ProfilerBusy(
+                    "a profiler trace is already running in this "
+                    "process; retry when it ends")
+            out_dir = os.path.join(
+                app.cfg.store_root, "_profiles",
+                time.strftime("%Y%m%d-%H%M%S"))
+            rec = app.jobs.submit(
+                "debug_profile", [],
+                lambda: resources.capture_profile(out_dir, seconds))
+            return 201, {"result": "profile capture started",
+                         "dir": out_dir, "seconds": seconds,
+                         "job_id": rec.job_id}
 
     def _metrics_doc(self) -> dict:
-        """The metrics registry snapshot ``GET /metrics`` serves: the JAX
-        package's sections for the planes this package has — serving
-        (with the ``aot`` cache), jobs and the catalog (integrity, read
-        pipeline, ingest, shard, replication) — plus ops, tracing and
-        the latency attribution."""
+        """The one metrics registry snapshot both /metrics formats render
+        (JSON as-is; ?format=prometheus through utils/prometheus): the
+        JAX package's sections for the planes this package has. The
+        alert engine evaluates over this exact snapshot — window-gated,
+        so scrape cadence is evaluation cadence — and its state rides
+        back in the same document, so an alert can never fire on a
+        number the operator cannot see."""
         from learningorchestra_tpu_torch import jobs as jobs_module
         from learningorchestra_tpu_torch.catalog import ingest as ingest_module
         from learningorchestra_tpu_torch.catalog import readpipe
@@ -561,28 +746,73 @@ class App:
                # grepping /traces.
                "latency_attribution": tracing.attribution_snapshot(),
                "profile_dir": self.cfg.profile_dir or None,
+               "resources": resources.process_snapshot(self.cfg),
+               "compile": resources.compile_snapshot(),
                # Cross-host replication plane: per-dataset lag against
                # each peer's acked watermark, push/fetch/repair
                # counters, the under-replicated list. Snapshotting
                # doubles as the read-driven retry tick.
                "replication": self.store.replication_snapshot()}
+        if self._frontend is not None:
+            # Multi-worker topology only: accept-process liveness,
+            # respawn accounting and row-channel frame counters
+            # (rendered as lo_frontend_* on the exposition surface).
+            doc["frontend"] = self._frontend.snapshot()
+        # History BEFORE alert evaluation: the burn-rate rules read the
+        # store, so the sample that triggered this read must be in it.
+        self.history.observe(doc)
+        doc["telemetry"] = self.history.snapshot()
+        transitions = self.alerts.observe(doc)
+        doc["alerts"] = self.alerts.snapshot()
+        for t in transitions:
+            if t["to"] == "firing":
+                # Freeze the evidence at the transition: rate-limited
+                # (flightrec_min_interval_s), so a flapping rule
+                # records its first edge, not one bundle per flap.
+                self.flightrec.dump(f"alert:{t['alert']}", detail=t,
+                                    doc=doc)
+        doc["flightrec"] = self.flightrec.snapshot()
         return doc
 
     def _health_doc(self) -> dict:
-        """The ``GET /healthz`` rollup: predict-dispatcher liveness,
-        lifecycle state and (with peers) replication — 200 when every
-        check passes, 503 (with this same JSON detail) otherwise. A
-        DRAINING server reports ``state: draining`` and is unhealthy by
-        design: load balancers must stop routing to a process about to
-        exit, while the in-flight work it still owes completes behind
-        the gate."""
+        """The deep ``GET /healthz`` rollup: disk headroom,
+        predict-dispatcher liveness, lifecycle state, the alert summary,
+        the front end's workers and (with peers) replication — 200 when
+        every check passes and no critical alert fires, 503 (with this
+        same JSON detail) otherwise. A DRAINING server reports ``state:
+        draining`` and is unhealthy by design: load balancers must stop
+        routing to a process about to exit, while the in-flight work it
+        still owes completes behind the gate."""
+        mdoc = self._metrics_doc()
+        disk = (mdoc.get("resources") or {}).get("disk") or {}
+        watermark = int(self.cfg.disk_free_watermark_mb) * (1 << 20)
+        free = disk.get("free_bytes")
+        disk_ok = (watermark <= 0 or free is None or free >= watermark)
+        firing = self.alerts.firing()
+        critical = self.alerts.firing(severity="critical")
         draining = self._draining.is_set()
         checks = {
+            "disk": {"ok": disk_ok, "free_bytes": free,
+                     "watermark_bytes": watermark},
             "dispatchers": self.predictor.health(),
             "lifecycle": {"ok": not draining,
                           "state": "draining" if draining else "serving"},
+            "alerts": {"ok": not critical, "firing": firing,
+                       "critical": critical},
         }
-        rep = self.store.replication_snapshot()
+        if self._frontend is not None:
+            # At least one accept process must be alive for the port to
+            # answer at all; a respawn window (some dead, some alive)
+            # degrades capacity, not health — the kernel routes around
+            # dead listeners and the supervisor is already respawning.
+            fr = mdoc.get("frontend") or {}
+            checks["frontend"] = {
+                "ok": (fr.get("workers_alive") or 0) > 0,
+                "workers": fr.get("workers"),
+                "workers_alive": fr.get("workers_alive"),
+                "slots_abandoned": fr.get("slots_abandoned"),
+            }
+        rep = mdoc.get("replication") or {}
         if rep.get("enabled"):
             # Peer topology only (check absent otherwise, so single-host
             # deployments keep their healthz schema): a host that cannot
@@ -596,7 +826,12 @@ class App:
             }
         return {"healthy": all(c["ok"] for c in checks.values()),
                 "state": "draining" if draining else "serving",
-                "checks": checks}
+                "checks": checks,
+                "mesh_epoch": config.mesh_epoch(),
+                # The freshest evidence bundle, if any: a degraded
+                # verdict points at its black box (the client SDK
+                # quotes this id in the error it raises).
+                "flightrec_latest": self.flightrec.latest()}
 
     def _register_images(self, method: str) -> None:
         app = self
@@ -765,12 +1000,23 @@ class App:
 
     def serve(self, background: bool = False):
         if int(self.cfg.http_workers) > 1:
-            raise NotImplementedError(
-                "http_workers > 1 needs the multi-process front end "
-                "(serving/frontend.py), which is not ported to the PyTorch "
-                "package yet (ROADMAP.md A.1); run with LO_TPU_HTTP_WORKERS=1")
-        server = Server(self.router, self.cfg.host, self.cfg.port,
-                        request_timeout_s=self.cfg.http_timeout_s)
+            # Multi-worker front end: N SO_REUSEPORT accept processes own
+            # the HTTP sockets, THIS process owns the device and every
+            # serving semantic, and the two meet on the row channel
+            # (serving/frontend.py). Same start/stop/port surface as the
+            # threaded Server, so callers cannot tell the topologies
+            # apart.
+            from learningorchestra_tpu_torch.serving.frontend import (
+                FrontendServer)
+
+            server = FrontendServer(self, self.cfg.host, self.cfg.port)
+            self._frontend = server
+        else:
+            # http_workers 1: the single-process topology — the oracle
+            # the multi-worker path is tested against.
+            server = Server(self.router, self.cfg.host, self.cfg.port,
+                            request_timeout_s=self.cfg.http_timeout_s)
+            self._frontend = None
         # Stopping the server stops the predict dispatcher threads too
         # (queued requests fail fast instead of waiting out their
         # timeout against a dead worker).
@@ -779,6 +1025,13 @@ class App:
         # server so a drain never strands a half-pushed journal suffix
         # silently — the watermark keeps it resumable on restart.
         server.on_stop(self.store.stop_replication)
+        # The telemetry sampler lives exactly as long as the server:
+        # started here (bare App construction spawns no threads — tests
+        # drive history via reads), stopped with it — and the stop
+        # flushes the partial segment so a restarted process serves the
+        # pre-shutdown window from disk.
+        self.history.start()
+        server.on_stop(self.history.stop)
         if background:
             return server.start_background()
         server.serve_forever()

@@ -57,8 +57,8 @@ Fault domain:
   client retries). ``serve_quarantine_crashes`` consecutive crashes
   quarantine the model (:class:`ModelQuarantined`, terminal 503 naming
   the quarantine, counted on ``/metrics``) instead of crash-looping;
-  DELETE or re-save lifts it. (The JAX package also dumps a
-  flight-recorder bundle here; the recorder is not ported.)
+  DELETE or re-save lifts it, and the quarantine dumps a
+  flight-recorder bundle (utils/flightrec.py).
 - **Chaos seams** — ``serving.batcher.pre_dispatch`` fires after a
   batch is taken but before any device work (raise-mode = a dispatcher
   crash whose batch is safely re-queued), ``serving.batcher.
@@ -79,7 +79,8 @@ import numpy as np
 from learningorchestra_tpu_torch.config import Settings, settings as global_settings
 from learningorchestra_tpu_torch.models.aot import AotCache, design_from_rows
 from learningorchestra_tpu_torch.models.persistence import ModelRegistry
-from learningorchestra_tpu_torch.utils import failpoints, profiling, tracing
+from learningorchestra_tpu_torch.utils import (
+    failpoints, flightrec, profiling, tracing)
 from learningorchestra_tpu_torch.utils.structlog import get_logger
 
 log = get_logger("serving.batcher")
@@ -754,6 +755,17 @@ class ModelBatcher:
             for p in requeue + lost + leftovers:
                 p.error = qerr
                 p.done.set()
+            # Freeze the evidence AFTER failing the waiters: the dump
+            # (span snapshot, history window, disk writes) can take
+            # real time, and blocked callers must get their prompt 503
+            # instead of burning deadline budget behind it — the trace
+            # ring and history are unaffected by the ordering.
+            # Best-effort by contract (flightrec.incident never
+            # raises).
+            flightrec.incident(
+                "serving.quarantine",
+                detail={"model": self.name, "crashes": self._crashes,
+                        "reason": self._quarantined})
             return False
         # Already-dispatched requests lost their results with the crash;
         # re-running them would double-spend device time — fail them 503

@@ -151,6 +151,15 @@ def device_span(fn, name: Optional[str] = None, device=None):
     device compute. Under overlapped fits it includes the other fits'
     work queued on the same card and is reported as such.
 
+    Every device phase is also a resource sample point
+    (``resources.device_phase``): the compile-seconds delta across the
+    span (attributed only when the window overlapped no other phase —
+    the counter is process-global) and a device-bytes reading at its
+    end merge into the current job's watermarks (``peak_hbm_bytes``)
+    and — for ``fit.<family>.device`` names — the per-family table and
+    the job profile's ``fit_resources``. Best-effort: a sampling failure
+    degrades to an unprofiled span, never a failed fit.
+
     ``name`` additionally records a trace span (ambient context) with
     the exact same measured duration — the builder passes
     ``fit.<family>.device`` so a job's trace and its ``fit_device_s``
@@ -158,11 +167,17 @@ def device_span(fn, name: Optional[str] = None, device=None):
     """
     import torch
 
-    t0 = time.time()
-    out = fn()
-    if device is not None and torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
-    dur = time.time() - t0
+    from learningorchestra_tpu_torch.utils import resources
+
+    with resources.device_phase(name):
+        # Timed INSIDE the sampling window so the measured duration
+        # stays the pure launch-to-completion figure (the sampling reads
+        # at window exit never inflate device_s).
+        t0 = time.time()
+        out = fn()
+        if device is not None and torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
+        dur = time.time() - t0
     if name is not None:
         tracing.record_span(name, dur)
     return out, dur

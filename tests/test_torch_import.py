@@ -1,5 +1,6 @@
 """The PyTorch package stands alone: it never loads JAX and imports
-nothing of the JAX package, and neither does ``chip_smoke.py``."""
+nothing of the JAX package, and neither does ``chip_smoke.py``. A
+front-end worker process loads neither JAX nor torch."""
 
 import ast
 import os
@@ -22,7 +23,10 @@ def test_import_leaves_jax_unloaded():
     # A fresh interpreter: this test process already imported jax
     # (tests/conftest.py).
     mods = _modules()
-    for m in ("models.builder", "ops.exec_jail", "utils.fitckpt"):
+    for m in ("models.builder", "ops.exec_jail", "utils.fitckpt",
+              "models.flops", "serving.frontend", "serving.status_page",
+              "utils.alerts", "utils.flightrec", "utils.prometheus",
+              "utils.resources", "utils.timeseries"):
         assert f"learningorchestra_tpu_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -80,6 +84,33 @@ def test_exec_jail_child_never_loads_jax():
             "('jax', 'jaxlib', 'learningorchestra_tpu'))\n"
             "print(bad)\n"
             "sys.exit(1 if bad or not hasattr(j, 'main') else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_frontend_worker_loads_neither_torch_nor_jax():
+    """A front-end worker is started as ``python -m
+    learningorchestra_tpu_torch.serving.frontend`` (the supervisor's
+    spawn command names the port's module, never the JAX package's) and
+    its whole import chain reaches neither torch nor jax."""
+    from learningorchestra_tpu_torch.config import Settings
+    from learningorchestra_tpu_torch.serving.frontend import WorkerSupervisor
+
+    cmd = WorkerSupervisor(Settings(), "127.0.0.1", 1, 2)._cmd(0)
+    assert cmd[1:3] == ["-m", "learningorchestra_tpu_torch.serving.frontend"]
+    code = ("import runpy, sys\n"
+            "sys.argv = ['frontend', '--help']\n"
+            "try:\n"
+            "    runpy.run_module("
+            "'learningorchestra_tpu_torch.serving.frontend',"
+            " run_name='__main__')\n"
+            "except SystemExit:\n"
+            "    pass\n"
+            "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('torch', 'jax', 'jaxlib', 'learningorchestra_tpu'))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -184,18 +184,14 @@ REQUESTS = [
 ]
 
 
-#: Keys only the JAX package's unported planes add: a job's ``profile``
-#: holds the resource plane's device watermarks (utils/resources.py).
-CUT_KEYS = {"profile"}
-
-
 def _keys(body):
     """The JSON shape compared across packages: a dict's keys, a list's
-    first element's keys."""
+    first element's keys (a job's ``profile`` included: both packages
+    record its device watermarks)."""
     if isinstance(body, dict):
-        return sorted(set(body) - CUT_KEYS)
+        return sorted(body)
     if isinstance(body, list) and body and isinstance(body[0], dict):
-        return ["[]"] + sorted(set(body[0]) - CUT_KEYS)
+        return ["[]"] + sorted(body[0])
     return type(body).__name__
 
 
@@ -227,7 +223,8 @@ def test_metrics_and_health_are_the_jax_sections(pair):
     tm = requests.get(tctx.url("/metrics")).json()
     assert set(tm) <= set(jm)
     for section in ("serving", "jobs", "integrity", "read_pipeline",
-                    "ingest", "ops", "tracing"):
+                    "ingest", "ops", "tracing", "resources", "compile",
+                    "telemetry", "alerts", "flightrec"):
         assert section in tm, section
     assert set(tm["serving"]) == set(jm["serving"])
     assert (set(tm["serving"]["models"]["pp_lr"])
@@ -311,9 +308,13 @@ def test_error_paths(served):
     db.create_file("badfile", "file:///does/not/exist.csv")
     with pytest.raises(JobFailed):
         db.waiter.wait("badfile")
-    # Not ported routes are absent, not stubbed.
-    for path in ("/tune", "/cluster", "/status", "/alerts", "/resources"):
+    # Not ported routes are absent, not stubbed; the observability
+    # planes answer.
+    for path in ("/tune", "/cluster", "/replication"):
         assert requests.get(ctx.url(path)).status_code == 404
+    for path in ("/status", "/alerts", "/resources", "/metrics/history",
+                 "/debug/flightrec"):
+        assert requests.get(ctx.url(path)).status_code == 200, path
 
 
 def _oracle(app, name, rows):
@@ -568,10 +569,21 @@ def test_drain_gates_new_work(tmp_path):
 
 
 def test_serve_refuses_the_unported_front_end(tmp_path):
+    """``http_workers > 1`` was refused before the front end was ported;
+    now ``serve`` runs the port's ``FrontendServer``, whose workers
+    answer on the one port."""
+    from learningorchestra_tpu_torch.serving.frontend import FrontendServer
+
     app = App(_settings(Settings, tmp_path, http_workers=2), recover=False,
               device="cpu")
-    with pytest.raises(NotImplementedError, match="front end"):
-        app.serve(background=True)
+    server = app.serve(background=True)
+    try:
+        assert isinstance(server, FrontendServer)
+        base = f"http://127.0.0.1:{server.port}"
+        assert requests.get(base + "/files", timeout=30).status_code == 200
+        assert server.snapshot()["workers_alive"] == 2
+    finally:
+        server.stop()
 
 
 def test_app_refuses_without_a_card(tmp_path):
