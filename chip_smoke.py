@@ -27,7 +27,13 @@ Phases, one JSON line each (any failure exits non-zero):
    a thread) and a 784-wide row on the direct path; and descent at the
    online tier's request sizes (the 20-tree forest and one tree over 1,
    3, 8, 64 and 256 rows, also from an unaligned view), each call's time
-   beside its byte bound and a same-run empty launch;
+   beside its byte bound and a same-run empty launch; then the slice
+   forms of the four tree kernels (``*_slices``) at 24 slices over two
+   bin matrices (a tune population's trees at one level), each slice
+   ``torch.equal`` to its one-slice launch, each form against its plain
+   version on the first 2^20 rows and bit-identical over two calls, its
+   time beside its bound (the codes counted once per bin matrix for the
+   histogram);
 4. the t-SNE repulsion kernel at the MNIST-60k shape (60,416 rows, 60,000
    valid), at 60,000 rows with no padding, and with 1% of the rows
    invalid at random positions and parked at 0, each against its plain
@@ -100,7 +106,18 @@ Phases, one JSON line each (any failure exits non-zero):
    line by line with ``lo_frontend_*`` series, ``/status`` HTML,
    ``/alerts`` and ``/metrics/history`` with samples, and a
    ``POST /debug/flightrec`` bundle whose manifest names torch, CUDA and
-   the card.
+   the card;
+13. tune: ``POST /tune`` (async, the winner promoted) through a served
+   app on the same catalog: dt, rf (20 trees) and gb populations on the
+   11M train rows and lr (Adam) and mlp on a 1M-row set from the same
+   generator, 3 folds and 3 halving rungs each; per family its waves,
+   halving drops, winner and mean score, seconds, the job's
+   ``peak_hbm_bytes``, the allocator's peak beside the modeled wave
+   footprint, and the kernels' launches (dt, rf and gb through every
+   slice form); each winner answers ``ModelBuilder.predict`` and an
+   online request; ``/metrics`` counts the sweeps; then folds=1 parity
+   on the 1M-row set, every member's score its serial fit's
+   self-accuracy on the card (gb within 0.02).
 
 Each ``fit`` line of the sweep carries ``mfu`` and ``bw_util``: the
 port's FLOP and byte models (``models/flops.py``) over the fit's window,
@@ -142,7 +159,16 @@ KERNELS = {
     # The layout K2's port reads (the TPU kernel read row-major codes).
     "feature_major": (TREE_SOURCE, None),
     "tsne_repulsion": (TSNE_SOURCE, f"{PALLAS}:51"),
+    # The slice-axis launches of K1-K3 (a population's trees, one a
+    # slice): the same kernels, timed at SLICES slices.
+    "tree_histogram_slices": (TREE_SOURCE, f"{PALLAS}:208"),
+    "tree_leaf_stats_slices": (TREE_SOURCE, f"{PALLAS}:299"),
+    "tree_route_level_slices": (TREE_SOURCE, f"{PALLAS}:321"),
+    "tree_descend_slices": (TREE_SOURCE, f"{PALLAS}:372"),
 }
+#: The kernels the one-tree paths (sweep, streamed build) launch.
+SERIAL_KERNELS = ("tree_histogram", "tree_leaf_stats", "tree_route_level",
+                  "tree_descend", "feature_major")
 #: The t-SNE workload: MNIST-60k's shape, padded to whole 1024-row tiles.
 TSNE_ROWS, TSNE_DIMS, TSNE_PADDED = 60_000, 784, 60_416
 #: Float operations per unordered pair of the whole-embedding repulsion
@@ -174,6 +200,11 @@ SERVE_WORKERS = 4
 BODY_KINDS = ("dict", "list", "columnar")
 #: Seconds of the on-demand profile captured during a load.
 PROFILE_SECONDS = 2.0
+#: The slice-axis kernel checks: slices of one launch (a tune wave of 8
+#: configs × 3 folds), and the rows of a population scoring block
+#: (models/trees.py ``_SCORE_ROWS``).
+SLICES = 24
+SCORE_ROWS = 1 << 19
 
 
 def check(ok, what) -> None:
@@ -479,6 +510,198 @@ def check_kernels(n: int, n_test: int, dev) -> dict:
            copy_tb_s=2 * n * d / copy_ms / 1e9,
            plan=plan._asdict(), cases=descend_cases(dev),
            request_sizes=descend_request_cases(dev, forest, depth))
+    return results
+
+
+def check_slice_kernels(n: int, dev) -> dict:
+    """The slice-axis launches (``*_slices``) at the tune phase's shapes:
+    SLICES slices over two bin matrices of the HIGGS sweep (n train rows,
+    d=28, 32 bins, depth 5), as a population of rf or gb members grows
+    one tree each. Each against SLICES one-slice launches (``torch.equal``
+    per slice), against its plain version on the first 2^20 rows, two
+    calls bit-identical, and its time beside its bound."""
+    import torch
+
+    from learningorchestra_tpu_torch.ops import tree_kernels as tk
+
+    g_ = torch.Generator(device=dev)
+    g_.manual_seed(1)
+    G, P = SLICES, 2
+    d, nb, depth, S = 28, 32, 5, 2
+    NL, M = 2 ** (depth - 1), 2 ** (depth + 1) - 1
+    idx = [g % P for g in range(G)]
+    codes = torch.randint(0, nb, (P, n, d), generator=g_, device=dev,
+                          dtype=torch.uint8)
+    rel = torch.randint(0, NL, (G, n), generator=g_, device=dev,
+                        dtype=torch.int32)
+    active = torch.rand((G, n), generator=g_, device=dev) < 0.9
+    rel = torch.where(active, rel, torch.zeros_like(rel))
+    grads = torch.randn((G, S, n), generator=g_, device=dev)
+    g_max = tk.stat_max_abs(grads)
+    small = 1 << 20
+    results = {}
+
+    def record(name, err, ms, plain_ms, nbytes, ops, library_ms, **extra):
+        b_ms, b_by = bound(nbytes, ops)
+        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": b_ms, "bound_by": b_by,
+                         "library_ms": library_ms}
+        emit({"phase": "kernel", "name": name, "exact": True, "slices": G,
+              "bin_matrices": P, **results[name], **extra})
+
+    def per_slice(name, got, one):
+        for g in range(G):
+            check(torch.equal(got[g], one(g)),
+                  f"{name}: slice {g} differs from its one-slice launch")
+
+    def small_inputs(*ts):
+        """The first 2^20 rows of each (..., n) tensor, contiguous."""
+        return [t[..., :small].contiguous() for t in ts]
+
+    # K1, histogram form.
+    kw = dict(n_nodes=NL, n_bins=nb)
+    h = tk.tree_histogram_slices(codes, idx, grads, rel, active,
+                                 max_abs=g_max, **kw)
+    per_slice("tree_histogram_slices", h, lambda g: tk.tree_histogram(
+        codes[idx[g]], grads[g], rel[g], active[g], max_abs=g_max[g], **kw))
+    check(torch.equal(h, tk.tree_histogram_slices(
+        codes, idx, grads, rel, active, max_abs=g_max, **kw)),
+        "tree_histogram_slices: two calls differ")
+    cs = codes[:, :small].contiguous()
+    gs, rs, as_ = small_inputs(grads, rel, active)
+    counts = torch.poisson(torch.ones_like(gs), generator=g_)
+    check(torch.equal(
+        tk.tree_histogram_slices(cs, idx, counts, rs, as_, **kw),
+        tk.tree_histogram_slices_ref(cs, idx, counts, rs, as_, **kw)),
+        "tree_histogram_slices: integer stats differ from the plain version")
+    hk = tk.tree_histogram_slices(cs, idx, gs, rs, as_, **kw)
+    hr = tk.tree_histogram_slices_ref(cs, idx, gs, rs, as_, **kw)
+    atol = 1e-6 * float(gs.abs().sum(dim=(1, 2)).max())
+    err = float((hk - hr).abs().max())
+    check(torch.allclose(hk, hr, rtol=1e-5, atol=atol),
+          f"tree_histogram_slices: float stats err {err} > atol {atol}")
+    n_act = active.sum(dim=1).tolist()
+    # Codes once per bin matrix (the rows active in any of its slices),
+    # as each input is read once; the kernel reads them once per slice.
+    any_act = [int(torch.stack([active[g] for g in range(G)
+                                if idx[g] == p]).any(0).sum())
+               for p in range(P)]
+    hist_bytes = 4 * NL * d * nb * S
+    code_bytes = sum(any_act) * d
+    per_slice_codes = sum(n_act) * d
+    other = G * (n + 4 * n) + sum(n_act) * 4 * S + G * hist_bytes
+    record("tree_histogram_slices", err,
+           time_ms(lambda: tk.tree_histogram_slices(
+               codes, idx, grads, rel, active, max_abs=g_max, **kw), 5),
+           time_ms(lambda: tk.tree_histogram_slices_ref(
+               codes, idx, grads, rel, active, **kw), 1, warmup=0),
+           other + code_bytes, sum(n_act) * d * S, None,
+           codes_counted="once per bin matrix",
+           bound_codes_per_slice_ms=bound(other + per_slice_codes)[0],
+           library_note=("one index_add_ over every slice's (row, feature) "
+                         f"keys needs {8 * sum(n_act) * d / 1e9:.1f} GB of "
+                         "int64 keys"))
+    del h, hk, hr, counts
+
+    # K1, leaf form.
+    assign = torch.randint(0, M, (G, n), generator=g_, device=dev,
+                           dtype=torch.int32)
+    lk = tk.tree_leaf_stats_slices(assign, grads, n_nodes=M, max_abs=g_max)
+    per_slice("tree_leaf_stats_slices", lk, lambda g: tk.tree_leaf_stats(
+        assign[g], grads[g], n_nodes=M, max_abs=g_max[g]))
+    check(torch.equal(lk, tk.tree_leaf_stats_slices(assign, grads,
+                                                    n_nodes=M,
+                                                    max_abs=g_max)),
+          "tree_leaf_stats_slices: two calls differ")
+    a_s, = small_inputs(assign)
+    lks = tk.tree_leaf_stats_slices(a_s, gs, n_nodes=M)
+    lrs = tk.tree_leaf_stats_slices_ref(a_s, gs, n_nodes=M)
+    err = float((lks - lrs).abs().max())
+    check(torch.allclose(lks, lrs, rtol=1e-5, atol=atol),
+          f"tree_leaf_stats_slices: err {err}")
+    keys = (assign.long() + M * torch.arange(G, device=dev)[:, None]
+            ).reshape(-1)
+    src = grads.transpose(1, 2).reshape(G * n, S)
+    leaf_out = torch.zeros((G * M, S), device=dev)
+    record("tree_leaf_stats_slices", err,
+           time_ms(lambda: tk.tree_leaf_stats_slices(
+               assign, grads, n_nodes=M, max_abs=g_max), 5),
+           time_ms(lambda: tk.tree_leaf_stats_slices_ref(
+               assign, grads, n_nodes=M), 1, warmup=0),
+           G * (4 * n + 4 * S * n + 4 * M * S), G * n * S,
+           time_ms(lambda: leaf_out.index_add_(0, keys, src), 3),
+           codes_counted="none (node ids are the codes)")
+    del lk, keys, src, leaf_out
+
+    # K2, from the feature-major stack.
+    best_f = torch.randint(0, d, (G, NL), generator=g_, device=dev,
+                           dtype=torch.int32)
+    best_t = torch.randint(0, nb, (G, NL), generator=g_, device=dev,
+                           dtype=torch.int32)
+    split = torch.rand((G, NL), generator=g_, device=dev) < 0.7
+    base = rel + (NL - 1)
+    codes_T = torch.stack([tk.feature_major(c) for c in codes])
+    args = (rel, active, base, best_f, best_t, split)
+    out = tk.tree_route_level_slices(codes, idx, *args, codes_T=codes_T)
+    per_slice("tree_route_level_slices", out, lambda g: tk.tree_route_level(
+        codes[idx[g]], *(a[g] for a in args), codes_T=codes_T[idx[g]]))
+    check(torch.equal(out, tk.tree_route_level_slices(
+        codes, idx, *args, codes_T=codes_T)),
+        "tree_route_level_slices: two calls differ")
+    sargs = small_inputs(rel, active, base)
+    check(torch.equal(
+        tk.tree_route_level_slices(cs, idx, *sargs, best_f, best_t, split),
+        tk.tree_route_level_slices_ref(cs, idx, *sargs, best_f, best_t,
+                                       split)),
+        "tree_route_level_slices differs from the plain version")
+    moved = int((active & split.gather(1, rel.long())).sum())
+    record("tree_route_level_slices", 0.0,
+           time_ms(lambda: tk.tree_route_level_slices(
+               codes, idx, *args, codes_T=codes_T), 10),
+           time_ms(lambda: tk.tree_route_level_slices_ref(
+               codes, idx, *args), 1, warmup=0),
+           G * (n + 12 * n) + moved + G * 12 * NL, 0, None,
+           codes_counted="per slice (one byte per moving row)")
+    del out, codes_T, base
+
+    # K3: one tree a slice over its matrix (a gb round's descent of every
+    # member), and 20 trees a slice over a scoring block of rows.
+    feat = torch.randint(0, d, (G, 20, M), generator=g_, device=dev,
+                         dtype=torch.int32)
+    thr = torch.randint(0, nb, (G, 20, M), generator=g_, device=dev,
+                        dtype=torch.int32)
+    internal = torch.rand((G, 20, M), generator=g_, device=dev) < 0.8
+    internal[:, :, 0] = True
+    one = (feat[:, :1], thr[:, :1], internal[:, :1])
+    out = tk.tree_descend_slices(codes, idx, *one, max_depth=depth)
+    per_slice("tree_descend_slices", out, lambda g: tk.tree_descend(
+        codes[idx[g]], *(t[g] for t in one), max_depth=depth))
+    check(torch.equal(out, tk.tree_descend_slices(codes, idx, *one,
+                                                  max_depth=depth)),
+          "tree_descend_slices: two calls differ")
+    check(torch.equal(
+        tk.tree_descend_slices(cs, idx, *one, max_depth=depth),
+        tk.tree_descend_slices_ref(cs, idx, *one, max_depth=depth)),
+        "tree_descend_slices differs from the plain version")
+    block = codes[:, :SCORE_ROWS]
+    forest = (feat, thr, internal)
+    check(torch.equal(
+        tk.tree_descend_slices(block, idx, *forest, max_depth=depth),
+        tk.tree_descend_slices_ref(block, idx, *forest, max_depth=depth)),
+        "tree_descend_slices differs from the plain version (20 trees, a "
+        "row block)")
+    visits = sum(descent_visits(codes[idx[g]], *(t[g] for t in one),
+                                depth)[0] for g in range(G))
+    record("tree_descend_slices", 0.0,
+           time_ms(lambda: tk.tree_descend_slices(codes, idx, *one,
+                                                  max_depth=depth), 10),
+           time_ms(lambda: tk.tree_descend_slices_ref(
+               codes, idx, *one, max_depth=depth), 1, warmup=0),
+           visits + G * 12 * M + G * 4 * n, 0, None,
+           codes_counted="per slice (the code bytes each walk touches)",
+           forest_block_ms=time_ms(lambda: tk.tree_descend_slices(
+               block, idx, *forest, max_depth=depth), 10),
+           forest_block_rows=SCORE_ROWS)
     return results
 
 
@@ -1602,6 +1825,207 @@ def serve_workers_path(cfg, dev, ctx: dict) -> dict:
     return launches
 
 
+#: The tune phase's populations: family → (dataset, configs). dt, rf and
+#: gb sweep the HIGGS train set, lr (Adam) and mlp a 1M-row set from the
+#: same generator; every sweep at TUNE_FOLDS folds and TUNE_RUNGS rungs.
+TUNE_SWEEPS = {
+    "dt": ("train", [{"max_depth": k, "n_bins": b}
+                     for k, b in ((3, 16), (4, 32), (5, 16), (6, 32))]),
+    "rf": ("train", [{"n_trees": 20, "max_depth": k, "n_bins": b, "mtry": m}
+                     for k, b, m in ((3, 16, 3), (4, 32, 5), (5, 16, 5),
+                                     (6, 32, 3), (3, 32, 5), (4, 16, 3),
+                                     (5, 32, 3), (6, 16, 5))]),
+    "gb": ("train", [{"n_rounds": r, "max_depth": k, "step_size": st}
+                     for r, k, st in ((20, 5, 0.1), (20, 4, 0.3),
+                                      (12, 5, 0.3), (16, 3, 0.3),
+                                      (20, 2, 0.1), (8, 6, 0.1))]),
+    "lr": ("tune_small", [{"solver": "adam", "iters": 100, "lr": r}
+                          for r in (0.003, 0.03, 0.1, 0.3)]),
+    "mlp": ("tune_small", [{"hidden": h, "iters": 60, "lr": r}
+                           for h, r in ((64, 0.01), (128, 0.003),
+                                        (128, 0.03))]),
+}
+TUNE_FOLDS, TUNE_RUNGS = 3, 3
+#: Rows of the lr/mlp sweep's dataset, and of the folds=1 parity sweeps.
+TUNE_SMALL_ROWS = 1_000_000
+#: The parity sweeps (folds=1, one rung): two configs a family, each
+#: member's fold score against its serial fit's self-accuracy.
+TUNE_PARITY = {
+    "dt": [{"max_depth": 4, "n_bins": 16}, {"max_depth": 6, "n_bins": 32}],
+    "rf": [{"n_trees": 8, "max_depth": 4, "n_bins": 32},
+           {"n_trees": 8, "max_depth": 5, "n_bins": 16, "mtry": 7}],
+    "gb": [{"n_rounds": 8, "max_depth": 4}, {"n_rounds": 6, "max_depth": 3,
+                                            "step_size": 0.3}],
+    "lr": [{"solver": "adam", "iters": 40, "lr": 0.05},
+           {"solver": "adam", "iters": 30, "lr": 0.2, "l2": 1e-3}],
+    "mlp": [{"hidden": 32, "iters": 25, "lr": 0.01},
+            {"hidden": 64, "iters": 20, "lr": 0.003}],
+}
+
+
+def tune_path(cfg, store, dev) -> dict:
+    """Device-resident hyperparameter sweeps on the sweep's catalog: (b)
+    ``POST /tune`` (async, promote) of dt, rf and gb on the HIGGS train
+    set and lr and mlp on a 1M-row set, through the served app; per
+    family its waves, halving drops, winner, seconds, the job's
+    ``peak_hbm_bytes`` beside the modeled wave footprint, and the
+    kernels' launches (dt, rf and gb through the slice forms); each
+    promoted winner answers ``ModelBuilder.predict`` and an online
+    request; ``/metrics`` counts the sweeps. Then (c) folds=1 parity:
+    every member's fold score equals its serial fit's self-accuracy on
+    the card (gb within 0.02). The app's train dataset starts from the
+    sweep's design matrix (its memo), as a server that already built it
+    would. Returns the kernel launches of the phase."""
+    import torch
+
+    from benchmarks.workload import higgs_like_columns
+    from learningorchestra_tpu_torch.models import tune
+    from learningorchestra_tpu_torch.models.registry import get_trainer
+    from learningorchestra_tpu_torch.ops import preprocess
+    from learningorchestra_tpu_torch.ops import tree_kernels as tk
+    from learningorchestra_tpu_torch.serving.app import App
+
+    t0 = time.time()
+    store.create("tune_small", columns=higgs_like_columns(TUNE_SMALL_ROWS,
+                                                           2),
+                 finished=True)
+    app = App(cfg.replace(host="127.0.0.1", port=0), device=str(dev))
+    key = ("design", "label", json.dumps([]))
+    train = store.get("train")
+    design = train.memo(key, lambda: preprocess.design_matrix(
+        train, "label", ()))
+    app.store.get("train").memo(key, lambda: design)
+    server = app.serve(background=True)
+    doc = {"phase": "tune", "card": card_line(), "setup_s": time.time() - t0,
+           "folds": TUNE_FOLDS, "rungs": TUNE_RUNGS, "families": {}}
+    total = {k: 0 for k in tk.KERNELS}
+    try:
+        client = JsonHttp(server.port)
+        test = store.get("test")
+        fields = [f for f in test.metadata.fields if f != "label"]
+        row = {f: float(test.columns[f][0]) for f in fields}
+        for fam, (ds, configs) in TUNE_SWEEPS.items():
+            name = f"tuned_{fam}"
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            tk.reset_launch_counts()
+            t0 = time.time()
+            status, body = client.call("POST", "/tune", {
+                "training_filename": ds, "tune_filename": name,
+                "classificator": fam, "configs": configs, "label": "label",
+                "folds": TUNE_FOLDS, "rungs": TUNE_RUNGS, "promote": True,
+                "sync": False})
+            check(status == 201, f"POST /tune {fam}: {status} {body}")
+            meta = wait_finished(client, name)
+            torch.cuda.synchronize()
+            sweep_s = time.time() - t0
+            launches = tk.launch_counts()
+            allocator_peak = torch.cuda.max_memory_allocated(dev)
+            for k, v in launches.items():
+                total[k] += v
+            board = meta["tune"]
+            check(board["promoted"] == name,
+                  f"{fam}: winner not promoted: {board}")
+            check(len(board["results"]) == len(configs)
+                  and all(np.isfinite(r["mean_score"])
+                          for r in board["results"]),
+                  f"{fam}: board {board}")
+            if fam in ("dt", "rf", "gb"):
+                for k in tk.SLICED:
+                    check(launches[f"{k}_slices"] > 0,
+                          f"{fam} sweep launched no {k}_slices")
+            while True:
+                _, jobs_doc = client.call("GET", "/jobs")
+                (job,) = [j for j in jobs_doc if j["kind"] == "tune"
+                          and j["dataset"] == name]
+                if job["status"] != "running":
+                    break
+                check(time.time() - t0 < 900, f"{fam} tune job never ended")
+                time.sleep(0.1)
+            check(job["status"] == "done", f"{fam} tune job {job}")
+            n_rows = app.store.get(ds).num_rows
+            members = len(configs) * TUNE_FOLDS
+            peak = job["profile"]["peak_hbm_bytes"]
+            check(0 < peak <= torch.cuda.get_device_properties(
+                dev).total_memory, f"{fam} peak_hbm_bytes {peak}")
+            # The winner as a user reaches it: a batch predict and one
+            # online request.
+            app.builder.predict(name, "test", f"{name}_pred")
+            pred = app.store.get(f"{name}_pred")
+            check(pred.metadata.finished and pred.num_rows == test.num_rows,
+                  f"{fam} winner predict")
+            status, online = client.call(
+                "POST", f"/trained-models/{name}/predict", {"rows": [row]})
+            check(status == 200 and len(online["predictions"]) == 1
+                  and np.isfinite(online["probabilities"]).all(),
+                  f"{fam} winner online predict: {status} {online}")
+            doc["families"][fam] = {
+                "dataset": ds, "rows": n_rows, "configs": len(configs),
+                "members": members, "waves": board["waves"],
+                "halving_drops": sum(not r["alive"]
+                                     for r in board["results"]),
+                "winner": board["winner"]["config"],
+                "winner_mean_score": board["winner"]["mean_score"],
+                "sweep_s": sweep_s,
+                "fit_seconds": board["winner"]["fit_seconds"],
+                "peak_hbm_bytes": peak,
+                "allocator_peak_bytes": allocator_peak,
+                "modeled_wave_bytes": members * tune._per_member_bytes(
+                    fam, n_rows, 28, 2),
+                "launches": {k: v for k, v in launches.items() if v}}
+        status, metrics = client.call("GET", "/metrics")
+        check(status == 200, f"GET /metrics: {status}")
+        doc["metrics_tune"] = metrics["tune"]
+        check(metrics["tune"]["populations_fitted"] >= len(TUNE_SWEEPS)
+              and metrics["tune"]["candidates_evaluated"]
+              >= sum(len(c) for _, c in TUNE_SWEEPS.values())
+              and metrics["tune"]["rungs_completed"] > 0
+              and metrics["tune"]["halving_drops"] > 0,
+              f"/metrics tune section {metrics['tune']}")
+        client.close()
+    finally:
+        server.stop()
+
+    # (c) Parity on the card: folds=1, one rung.
+    small = store.get("tune_small")
+    X, y, _, _ = small.memo(key, lambda: preprocess.design_matrix(
+        small, "label", ()))
+    parity = {}
+    torch.cuda.synchronize()
+    tk.reset_launch_counts()
+    t0 = time.time()
+    for fam, configs in TUNE_PARITY.items():
+        board = tune.sweep(app.runtime, X, y, 2, fam, configs, cfg=cfg,
+                           folds=1, rungs=1)
+        got, want = [], []
+        for c in configs:
+            (r,) = [r for r in board["results"] if r["config"] == c]
+            trainer = get_trainer(fam)
+            prep = getattr(trainer, "host_prep", None)
+            extra = prep(X, **c) if prep is not None else {}
+            model = trainer(app.runtime, X, y, 2, **dict(c, **extra))
+            pr = np.argmax(model.predict_proba(app.runtime, X), axis=1)
+            got.append(r["fold_scores"][0])
+            want.append(round(float((pr == y).mean()), 6))
+        if fam == "gb":
+            check(all(abs(a - b) <= 0.02 for a, b in zip(got, want)),
+                  f"gb population {got} vs serial {want}")
+        else:
+            check(got == want, f"{fam} population {got} != serial {want}")
+        parity[fam] = {"population": got, "serial": want}
+    torch.cuda.synchronize()
+    launches = tk.launch_counts()
+    for k, v in launches.items():
+        total[k] += v
+    doc["parity"] = parity
+    doc["parity_rows"] = int(len(X))
+    doc["parity_s"] = time.time() - t0
+    doc["parity_launches"] = {k: v for k, v in launches.items() if v}
+    doc["launches"] = {k: v for k, v in total.items() if v}
+    emit(doc)
+    return total
+
+
 def utilization(kind: str, n_train: int, fit_time: float,
                 host_prep_s: float) -> dict:
     """A fit's ``mfu`` and ``bw_util``: the port's analytic FLOP and byte
@@ -1700,8 +2124,9 @@ def main_path(n_train: int, n_test: int, dev) -> dict:
               "predict probabilities finite, (n_test, 2)")
         check(np.allclose(probs.sum(1), 1.0, atol=1e-5),
               "predict probabilities sum to 1")
-        for name, c in counts.items():
-            check(c > 0, f"kernel {name} was not launched on the main path")
+        for name in SERIAL_KERNELS:
+            check(counts[name] > 0,
+                  f"kernel {name} was not launched on the main path")
         emit({"phase": "main_path", "build_s": build_s,
               "predict_s": predict_s, "spans_s": spans,
               "launches_build": build_counts, "launches_total": counts,
@@ -1712,7 +2137,8 @@ def main_path(n_train: int, n_test: int, dev) -> dict:
                   explore_path(store, runtime, dev)]
         serve_counts, serve_ctx = serve_path(cfg, store, dev)
         phases += [serve_counts,
-                   serve_workers_path(cfg, dev, serve_ctx)]
+                   serve_workers_path(cfg, dev, serve_ctx),
+                   tune_path(cfg, store, dev)]
         return {k: sum(p.get(k, 0) for p in phases) for k in KERNELS}
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -1812,8 +2238,9 @@ def streamed_path(cfg, store, runtime, dev, acc_resident: dict,
     doc["predict_s"] = time.time() - t0
     counts = tk.launch_counts()
     doc["launches"] = dict(counts)
-    for name, c in counts.items():
-        check(c > 0, f"kernel {name} was not launched by the streamed path")
+    for name in SERIAL_KERNELS:
+        check(counts[name] > 0,
+              f"kernel {name} was not launched by the streamed path")
     got, want = store.get("spred_gb_again"), store.get("pred_gb_again")
     check(got.metadata.finished and got.num_rows == want.num_rows,
           "streamed predict finished with every test row")
@@ -1908,6 +2335,9 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
     build_all()
     results = check_kernels(args.train_rows, TEST_ROWS, dev)
+    torch.cuda.empty_cache()
+    results.update(check_slice_kernels(args.train_rows, dev))
+    torch.cuda.empty_cache()
     results["tsne_repulsion"] = check_tsne_kernel(dev)
     torch.cuda.empty_cache()
     check_small_reference(dev)

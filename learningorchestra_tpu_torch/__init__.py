@@ -1,9 +1,10 @@
 """learningorchestra_tpu_torch — the framework's PyTorch + CUDA package.
 
-The same named-dataset catalog, preprocessing and five-classifier model
-builder (lr/dt/rf/gb/nb) as ``learningorchestra_tpu``, run as PyTorch
-tensor code on one CUDA device, with the tree-fitting hot loops as
-hand-written CUDA kernels (``csrc/tree_kernels.cu``). Entry points take
+The same named-dataset catalog, preprocessing, five-classifier model
+builder (lr/dt/rf/gb/nb, plus the mlp) and hyperparameter search as
+``learningorchestra_tpu``, run as PyTorch tensor code on one CUDA
+device, with the tree-fitting hot loops as hand-written CUDA kernels
+(``csrc/tree_kernels.cu``). Entry points take
 an explicit ``device`` and default to ``"cuda"``; ``device="cpu"`` runs
 every kernel's plain PyTorch version instead.
 """

@@ -298,6 +298,34 @@ class Settings:
     fit_ckpt_rounds: int = field(
         default_factory=lambda: _env("LO_TPU_FIT_CKPT_ROUNDS", 0)
     )
+    #: Successive-halving rungs for a hyperparameter sweep (models/
+    #: tune.py): the sweep's total unit budget (boost rounds / adam
+    #: iterations / tree batches) is cut into this many segments; after
+    #: each, every candidate's k-fold scores are taken and the bottom
+    #: half of the surviving configs is dropped (the survivors'
+    #: arithmetic is untouched). ``1`` disables halving.
+    tune_rungs: int = field(
+        default_factory=lambda: _env("LO_TPU_TUNE_RUNGS", 3)
+    )
+    #: Cross-validation folds for tune sweeps: fold membership is an
+    #: index mask over the one resident design matrix (row i belongs to
+    #: fold ``i % folds``), never a data copy. ``1`` disables CV — each
+    #: candidate trains on all rows and is scored on them too.
+    tune_folds: int = field(
+        default_factory=lambda: _env("LO_TPU_TUNE_FOLDS", 3)
+    )
+    #: Device-memory budget (MB) for sizing a tune population wave: the
+    #: largest candidate count whose modeled per-member footprint (raised
+    #: to the family's recorded ``peak_hbm_bytes`` watermark when one
+    #: exists) fits runs as one wave; extra candidates spill into
+    #: sequential waves (counted on ``/metrics``). ``0`` = unlimited.
+    tune_hbm_budget_mb: int = field(
+        default_factory=lambda: _env("LO_TPU_TUNE_HBM_BUDGET_MB", 0)
+    )
+    #: Hard cap on population members (configs × folds) per wave.
+    tune_max_population: int = field(
+        default_factory=lambda: _env("LO_TPU_TUNE_MAX_POPULATION", 64)
+    )
 
     # --- job-tier fault domain (jobs.py watchdog) ---------------------------
     #: Per-job liveness deadline (seconds): a managed job whose BODY has

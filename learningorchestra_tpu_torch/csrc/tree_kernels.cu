@@ -59,6 +59,19 @@
 //     shape (16 nodes x 28 features x 32 bins x 2 stats x 8 B = 224 KiB)
 //     there is one slice, so one read of the rows by one wave of blocks.
 //
+// The slice axis (K1, K1 leaf form, K2, K3). One launch serves G slices:
+// the trees of a population fit (models/tune.py) at one level, each with its
+// own stats, node ids and node tables, over one of P bin matrices stacked
+// (P, n, d) and named by the slice's entry of code_idx (members that share
+// n_bins share a matrix, so the codes are held once per matrix). The grid's
+// last dimension is the slice; every slice's pointers are offset at the top
+// of the kernel, and its arithmetic is the one-slice launch's: K1's sums are
+// exact int64 fixed point at the slice's own scale, K2 and K3 are integer,
+// so each slice's output is bit-identical to a launch of that slice alone.
+// A single-tree call is the one-slice case (G = 1). The codes are read once
+// per slice, not once per matrix: slices that share a matrix walk different
+// trees, so a level's reads differ.
+//
 // K2 and K3 pack their node tables as each block loads them into shared
 // memory, so the wrapper spends no tensor operations on them, and a
 // lookup is one 32-bit shared-memory load. A split compares code[f] with
@@ -238,15 +251,26 @@ __device__ __forceinline__ void add_stat(float scaled,
   }
 }
 
+// Grid (R row chunks, node groups x column groups, G slices). Slice z reads
+// matrix code_idx[z] (slice z itself where code_idx is null: the leaf form's
+// per-slice node ids) and its own stats, scales, node ids and flags.
 template <typename CodeT>
 __global__ void __launch_bounds__(kHistThreads) hist_slice_kernel(
-    const CodeT* __restrict__ codes, const float* __restrict__ stats,
-    const float* __restrict__ max_abs, const int32_t* __restrict__ rel,
-    const uint8_t* __restrict__ active, long long* __restrict__ partial,
-    int n, int d, int n_bins, int S, int n_nodes, int NG, int CG,
-    int n_cgroups, int rows_per_chunk) {
+    const CodeT* __restrict__ codes, const int32_t* __restrict__ code_idx,
+    const float* __restrict__ stats, const float* __restrict__ max_abs,
+    const int32_t* __restrict__ rel, const uint8_t* __restrict__ active,
+    long long* __restrict__ partial, int n, int d, int n_bins, int S,
+    int n_nodes, int NG, int CG, int n_cgroups, int rows_per_chunk) {
   constexpr int kGroup = CodeGroup<CodeT>::kSize;
   extern __shared__ int32_t smem[];
+  // Slice z's rows start zn entries into its (G, n) arrays and cbase
+  // rows into the stacked codes. The loop indexes from the parameters
+  // rather than from offset pointers, each of which would hold two
+  // registers through the row loop of a kernel capped at 64.
+  const int z = blockIdx.z;
+  const long long zn = (long long)z * n;
+  const long long cbase =
+      (long long)(code_idx != nullptr ? code_idx[z] : z) * n;
   const int DC = d * n_bins;
   const int g = blockIdx.y / n_cgroups;
   const int cg = blockIdx.y % n_cgroups;
@@ -263,7 +287,8 @@ __global__ void __launch_bounds__(kHistThreads) hist_slice_kernel(
 
   for (int i = threadIdx.x; i < 2 * slice; i += blockDim.x) smem[i] = 0;
   for (int s = threadIdx.x; s < S; s += blockDim.x)
-    scale[s] = __int_as_float((stat_exponent(max_abs[s]) + 127) << 23);
+    scale[s] =
+        __int_as_float((stat_exponent(max_abs[z * S + s]) + 127) << 23);
   __syncthreads();
 
   // One thread per row. All of a row's loads (flag, node id, up to
@@ -278,14 +303,15 @@ __global__ void __launch_bounds__(kHistThreads) hist_slice_kernel(
   const int f_start = words ? f_lo & ~3 : f_lo;
   const long long r0 = (long long)blockIdx.x * rows_per_chunk;
   const long long r1 = min((long long)n, r0 + rows_per_chunk);
+  const float* zstats = stats + zn * S;
   for (long long row = r0 + threadIdx.x; row < r1; row += blockDim.x) {
-    const bool act = active == nullptr || active[row] != 0;
-    const int nl = (rel != nullptr ? rel[row] : 0) - g0;
+    const bool act = active == nullptr || active[zn + row] != 0;
+    const int nl = (rel != nullptr ? rel[zn + row] : 0) - g0;
     float v[kRegStats];
 #pragma unroll
     for (int s = 0; s < kRegStats; ++s)
-      v[s] = s < S ? stats[(long long)s * n + row] : 0.0f;
-    const CodeT* crow = codes + row * d;
+      v[s] = s < S ? zstats[(long long)s * n + row] : 0.0f;
+    const CodeT* crow = codes + (cbase + row) * d;
     CodeGroup<CodeT> grp;
     grp.load(crow, f_start, min(f_start + kGroup, f_hi + 1), words);
     if (!act || nl < 0 || nl >= NG || g0 + nl >= n_nodes) continue;
@@ -300,7 +326,7 @@ __global__ void __launch_bounds__(kHistThreads) hist_slice_kernel(
                  acc_hi + node + s * cw, acc_lo + node + s * cw);
       }
       for (int s = kRegStats; s < S; ++s)
-        add_stat(stats[(long long)s * n + row] * scale[s], grp, f0, fe,
+        add_stat(zstats[(long long)s * n + row] * scale[s], grp, f0, fe,
                  n_bins, c0, c1, acc_hi + node + s * cw,
                  acc_lo + node + s * cw);
     }
@@ -309,9 +335,11 @@ __global__ void __launch_bounds__(kHistThreads) hist_slice_kernel(
 
   // Write the slice, laid out (node, stat, column) in shared memory so
   // that the lanes of one add spread over the banks by bin, into this row
-  // chunk's partial in the public (node, d*n_bins, S) layout.
+  // chunk's partial of slice z, laid out (R, G, n_nodes * d*n_bins * S)
+  // with each slice in the public (node, d*n_bins, S) layout.
   const long long total = (long long)n_nodes * DC * S;
-  long long* out = partial + (long long)blockIdx.x * total;
+  long long* out =
+      partial + ((long long)blockIdx.x * gridDim.z + z) * total;
   for (int i = threadIdx.x; i < slice; i += blockDim.x) {
     const int nl = i / (S * cw);
     const int s = i / cw % S;
@@ -322,16 +350,17 @@ __global__ void __launch_bounds__(kHistThreads) hist_slice_kernel(
   }
 }
 
-// out[i] = the R row chunks' exact sums, converted once: total * 2^-k_s.
+// out[i] = the R row chunks' exact sums, converted once at the scale of
+// the slice's stat: total * 2^-k_s. `all` = G slices of `total` values.
 __global__ void sum_partials_kernel(const long long* __restrict__ partial,
                                     const float* __restrict__ max_abs,
                                     float* __restrict__ out, long long total,
-                                    int R, int S) {
+                                    long long all, int R, int S) {
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < total; i += (long long)gridDim.x * blockDim.x) {
+       i < all; i += (long long)gridDim.x * blockDim.x) {
     long long t = 0;
-    for (int r = 0; r < R; ++r) t += partial[(long long)r * total + i];
-    const int k = stat_exponent(max_abs[i % S]);
+    for (int r = 0; r < R; ++r) t += partial[(long long)r * all + i];
+    const int k = stat_exponent(max_abs[i / total * S + i % S]);
     out[i] = (float)((double)t * __longlong_as_double((1023LL - k) << 52));
   }
 }
@@ -369,13 +398,25 @@ __device__ __forceinline__ int node_tt(int32_t w) {
 // Rows a routing thread takes: one 16-B load of rel and of assign.
 constexpr int kRouteRows = 4;
 
+// Grid (row blocks, G slices): slice y routes its own rows over its own
+// level table, reading matrix code_idx[y] of the (P, d, n) feature-major
+// stack.
 __global__ void __launch_bounds__(kThreads) route_kernel(
-    const uint8_t* __restrict__ codes_T, const int32_t* __restrict__ rel,
-    const uint8_t* __restrict__ active, const int32_t* __restrict__ assign,
-    const int32_t* __restrict__ best_f, const int32_t* __restrict__ best_t,
-    const uint8_t* __restrict__ split, int32_t* __restrict__ out, int n,
-    int d, int NL, bool vec) {
+    const uint8_t* __restrict__ codes_T, const int32_t* __restrict__ code_idx,
+    const int32_t* __restrict__ rel, const uint8_t* __restrict__ active,
+    const int32_t* __restrict__ assign, const int32_t* __restrict__ best_f,
+    const int32_t* __restrict__ best_t, const uint8_t* __restrict__ split,
+    int32_t* __restrict__ out, int n, int d, int NL, bool vec) {
   extern __shared__ int32_t s_node[];  // NL packed node words
+  const long long y = blockIdx.y;
+  codes_T += (long long)code_idx[y] * d * n;
+  rel += y * n;
+  active += y * n;
+  assign += y * n;
+  out += y * n;
+  best_f += y * NL;
+  best_t += y * NL;
+  split += y * NL;
   for (int i = threadIdx.x; i < NL; i += blockDim.x)
     s_node[i] = pack_node(best_f[i], best_t[i], split[i] != 0, d);
   __syncthreads();
@@ -587,18 +628,30 @@ __device__ __forceinline__ int load_chunk(uint32_t* s_tbl, Trees tr, int d,
   return nt;
 }
 
-// Staged path: grid (tile blocks, chunks). Shared memory: two tile
-// buffers of tile_bytes, then the chunk's tables. A tile has kRows rows a
-// thread (rows_per_tile = kRows * blockDim.x), which each thread walks
-// at once: kRows independent chains of dependent shared-memory loads,
-// interleaved to hide their latency.
+// Slice z of a launch (grid.z) walks its own (T, M) tables; its codes are
+// matrix code_idx[z] of the stack, and its leaf ids its own (T, n) block.
+__device__ __forceinline__ void slice_tables(Trees& tr, long long z) {
+  tr.feat += z * tr.T * tr.M;
+  tr.thr += z * tr.T * tr.M;
+  tr.internal += z * tr.T * tr.M;
+}
+
+// Staged path: grid (tile blocks, chunks, slices). Shared memory: two
+// tile buffers of tile_bytes, then the chunk's tables. A tile has kRows
+// rows a thread (rows_per_tile = kRows * blockDim.x), which each thread
+// walks at once: kRows independent chains of dependent shared-memory
+// loads, interleaved to hide their latency.
 template <int kRows>
 __global__ void __launch_bounds__(kDescendThreads) descend_staged_kernel(
-    const uint8_t* __restrict__ codes, Trees tr, int32_t* __restrict__ out,
-    int n, int d, int depth, int trees_per_chunk, int tile_bytes) {
+    const uint8_t* __restrict__ codes, const int32_t* __restrict__ code_idx,
+    long long code_stride, Trees tr, int32_t* __restrict__ out, int n, int d,
+    int depth, int trees_per_chunk, int tile_bytes) {
   // Named apart from the histogram kernel's int32_t smem: extern shared
   // arrays of one name must share a type.
   extern __shared__ __align__(16) uint8_t s_bytes[];
+  codes += (long long)code_idx[blockIdx.z] * code_stride;
+  out += (long long)blockIdx.z * tr.T * n;
+  slice_tables(tr, blockIdx.z);
   uint32_t* s_tbl = reinterpret_cast<uint32_t*>(s_bytes + 2 * tile_bytes);
   const int W = tr.W;
   const int nt = load_chunk<true>(s_tbl, tr, d, trees_per_chunk);
@@ -659,12 +712,16 @@ __global__ void __launch_bounds__(kDescendThreads) descend_staged_kernel(
   }
 }
 
-// Direct path: grid (row blocks, chunks); each thread walks its row's
-// codes in device memory. Shared memory: the chunk's tables.
+// Direct path: grid (row blocks, chunks, slices); each thread walks its
+// row's codes in device memory. Shared memory: the chunk's tables.
 __global__ void __launch_bounds__(kDescendThreads) descend_direct_kernel(
-    const uint8_t* __restrict__ codes, Trees tr, int32_t* __restrict__ out,
-    int n, int d, int depth, int trees_per_chunk) {
+    const uint8_t* __restrict__ codes, const int32_t* __restrict__ code_idx,
+    long long code_stride, Trees tr, int32_t* __restrict__ out, int n, int d,
+    int depth, int trees_per_chunk) {
   extern __shared__ uint32_t s_word[];
+  codes += (long long)code_idx[blockIdx.z] * code_stride;
+  out += (long long)blockIdx.z * tr.T * n;
+  slice_tables(tr, blockIdx.z);
   const int W = tr.W;
   const int nt = load_chunk<false>(s_word, tr, d, trees_per_chunk);
   const int t0 = blockIdx.y * trees_per_chunk;
@@ -689,12 +746,13 @@ int prepare_smem(K kernel, size_t smem) {
 }
 
 template <typename CodeT>
-int launch_hist(const CodeT* codes, const float* stats, const float* max_abs,
-                const int32_t* rel, const uint8_t* active, float* out,
-                long long* partial, int n, int d, int n_bins, int S,
-                int n_nodes, int NG, int CG, int R, int rows_per_chunk,
-                cudaStream_t stream) {
-  if (rows_per_chunk > kMaxRowsPerChunk) return (int)cudaErrorInvalidValue;
+int launch_hist(const CodeT* codes, const int32_t* code_idx,
+                const float* stats, const float* max_abs, const int32_t* rel,
+                const uint8_t* active, float* out, long long* partial, int n,
+                int d, int n_bins, int S, int n_nodes, int NG, int CG, int R,
+                int rows_per_chunk, int G, cudaStream_t stream) {
+  if (rows_per_chunk > kMaxRowsPerChunk || G < 1 || G > 65535)
+    return (int)cudaErrorInvalidValue;
   const int DC = d * n_bins;
   const int n_cgroups = (DC + CG - 1) / CG;
   const int n_ngroups = (n_nodes + NG - 1) / NG;
@@ -702,17 +760,18 @@ int launch_hist(const CodeT* codes, const float* stats, const float* max_abs,
                       (size_t)S * sizeof(float);
   int e = prepare_smem(hist_slice_kernel<CodeT>, smem);
   if (e) return e;
-  dim3 grid(R, n_ngroups * n_cgroups);
+  dim3 grid(R, n_ngroups * n_cgroups, G);
   hist_slice_kernel<CodeT><<<grid, kHistThreads, smem, stream>>>(
-      codes, stats, max_abs, rel, active, partial, n, d, n_bins, S, n_nodes,
-      NG, CG, n_cgroups, rows_per_chunk);
+      codes, code_idx, stats, max_abs, rel, active, partial, n, d, n_bins, S,
+      n_nodes, NG, CG, n_cgroups, rows_per_chunk);
   e = (int)cudaGetLastError();
   if (e) return e;
   const long long total = (long long)n_nodes * DC * S;
-  long long blocks = (total + kThreads - 1) / kThreads;
+  const long long all = total * G;
+  long long blocks = (all + kThreads - 1) / kThreads;
   if (blocks > 65535) blocks = 65535;
   sum_partials_kernel<<<(int)blocks, kThreads, 0, stream>>>(
-      partial, max_abs, out, total, R, S);
+      partial, max_abs, out, total, all, R, S);
   return (int)cudaGetLastError();
 }
 
@@ -726,57 +785,65 @@ int row_blocks(long long n, int cap) {
 
 extern "C" {
 
-// K1, histogram form: codes (n, d) uint8, stats (S, n) f32, max_abs (S,)
-// f32 = max |stats[s]|, rel (n,) int32, active (n,) bool -> out (n_nodes,
-// d, n_bins, S) f32. partial: (R, n_nodes*d*n_bins*S) int64 scratch; R row
-// chunks of at most 2^17 rows.
-int lo_tree_hist_u8(const void* codes, const void* stats, const void* max_abs,
-                    const void* rel, const void* active, void* out,
-                    void* partial, int n, int d, int n_bins, int S,
-                    int n_nodes, int NG, int CG, int R, int rows_per_chunk,
-                    void* stream) {
+// K1, histogram form, G slices: codes (P, n, d) uint8, code_idx (G,) int32
+// in [0, P), stats (G, S, n) f32, max_abs (G, S) f32 = max |stats[g, s]|,
+// rel (G, n) int32, active (G, n) bool -> out (G, n_nodes, d, n_bins, S)
+// f32. partial: (R, G, n_nodes*d*n_bins*S) int64 scratch; R row chunks of
+// at most 2^17 rows.
+int lo_tree_hist_u8(const void* codes, const void* code_idx,
+                    const void* stats, const void* max_abs, const void* rel,
+                    const void* active, void* out, void* partial, int n,
+                    int d, int n_bins, int S, int n_nodes, int NG, int CG,
+                    int R, int rows_per_chunk, int G, void* stream) {
   return launch_hist<uint8_t>(
-      (const uint8_t*)codes, (const float*)stats, (const float*)max_abs,
-      (const int32_t*)rel, (const uint8_t*)active, (float*)out,
-      (long long*)partial, n, d, n_bins, S, n_nodes, NG, CG, R,
-      rows_per_chunk, (cudaStream_t)stream);
+      (const uint8_t*)codes, (const int32_t*)code_idx, (const float*)stats,
+      (const float*)max_abs, (const int32_t*)rel, (const uint8_t*)active,
+      (float*)out, (long long*)partial, n, d, n_bins, S, n_nodes, NG, CG, R,
+      rows_per_chunk, G, (cudaStream_t)stream);
 }
 
-// K1, leaf form: the row's node id is its only "feature" code and every
-// row is active in the single node group: assign (n,) int32, stats (S, n),
-// max_abs (S,) -> out (n_leaf_ids, S) f32 (the caller transposes to
-// (S, M)).
+// K1, leaf form, G slices: the row's node id is its only "feature" code
+// and every row is active in the single node group: assign (G, n) int32,
+// stats (G, S, n), max_abs (G, S) -> out (G, n_leaf_ids, S) f32 (the caller
+// transposes to (G, S, M)).
 int lo_tree_leaf_i32(const void* assign, const void* stats,
                      const void* max_abs, void* out, void* partial, int n,
                      int n_ids, int S, int CG, int R, int rows_per_chunk,
-                     void* stream) {
+                     int G, void* stream) {
   return launch_hist<int32_t>(
-      (const int32_t*)assign, (const float*)stats, (const float*)max_abs,
-      nullptr, nullptr, (float*)out, (long long*)partial, n, 1, n_ids, S, 1,
-      1, CG, R, rows_per_chunk, (cudaStream_t)stream);
+      (const int32_t*)assign, nullptr, (const float*)stats,
+      (const float*)max_abs, nullptr, nullptr, (float*)out,
+      (long long*)partial, n, 1, n_ids, S, 1, 1, CG, R, rows_per_chunk, G,
+      (cudaStream_t)stream);
 }
 
-// K2: codes_T (d, n) uint8, rel/assign (n,) int32, active (n,) bool,
-// best_f/best_t (NL,) int32, split (NL,) bool -> out (n,) int32.
-int lo_tree_route(const void* codes_T, const void* rel, const void* active,
-                  const void* assign, const void* best_f,
+// K2, G slices: codes_T (P, d, n) uint8, code_idx (G,) int32 in [0, P),
+// rel/assign (G, n) int32, active (G, n) bool, best_f/best_t (G, NL) int32,
+// split (G, NL) bool -> out (G, n) int32. grid_cap bounds the row blocks of
+// the whole launch.
+int lo_tree_route(const void* codes_T, const void* code_idx, const void* rel,
+                  const void* active, const void* assign, const void* best_f,
                   const void* best_t, const void* split, void* out, int n,
-                  int d, int NL, int grid_cap, void* stream) {
+                  int d, int NL, int G, int grid_cap, void* stream) {
+  if (G < 1 || G > 65535) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)NL * sizeof(int32_t);
   int e = prepare_smem(route_kernel, smem);
   if (e) return e;
-  // Four rows a thread as 16-B vectors where the id arrays allow it.
+  // Four rows a thread as 16-B vectors where every slice's id arrays
+  // allow it (slices start n rows apart).
   const bool vec = reinterpret_cast<uintptr_t>(rel) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(assign) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(active) % 4 == 0;
+                   reinterpret_cast<uintptr_t>(active) % 4 == 0 &&
+                   (G == 1 || n % kRouteRows == 0);
   const long long groups = ((long long)n + kRouteRows - 1) / kRouteRows;
-  route_kernel<<<row_blocks(groups, grid_cap), kThreads, smem,
-                 (cudaStream_t)stream>>>(
-      (const uint8_t*)codes_T, (const int32_t*)rel, (const uint8_t*)active,
-      (const int32_t*)assign, (const int32_t*)best_f,
-      (const int32_t*)best_t, (const uint8_t*)split, (int32_t*)out, n, d,
-      NL, vec);
+  const int cap = grid_cap / G > 0 ? grid_cap / G : 1;
+  const dim3 grid(row_blocks(groups, cap), G);
+  route_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const uint8_t*)codes_T, (const int32_t*)code_idx, (const int32_t*)rel,
+      (const uint8_t*)active, (const int32_t*)assign,
+      (const int32_t*)best_f, (const int32_t*)best_t, (const uint8_t*)split,
+      (int32_t*)out, n, d, NL, vec);
   return (int)cudaGetLastError();
 }
 
@@ -792,23 +859,26 @@ int lo_feature_major(const void* codes, void* out, int n, int d,
   return (int)cudaGetLastError();
 }
 
-// K3: codes (n, d) uint8, feat/thr (T, M) int32, internal (T, M) bool
-// -> out (T, n) int32 leaf ids, walking `depth` levels over tables of
-// W = 2^depth - 1 entries. The plan (ops/tree_kernels.py descend_plan):
-// the direct path (rows_per_tile 0) or the staged one with tiles of
-// rows_per_tile = 1, 2 or 4 rows a thread and buffers of tile_bytes;
-// trees a chunk (one grid.y each) and blocks a chunk.
-int lo_tree_descend(const void* codes, const void* feat, const void* thr,
+// K3, G slices: codes, P matrices of (n, d) uint8 rows code_stride bytes
+// apart, code_idx (G,) int32 in [0, P), feat/thr (G, T, M) int32, internal
+// (G, T, M) bool -> out (G, T, n) int32 leaf ids, walking `depth` levels
+// over tables of W = 2^depth - 1 entries. The plan (ops/tree_kernels.py
+// descend_plan): the direct path (rows_per_tile 0) or the staged one with
+// tiles of rows_per_tile = 1, 2 or 4 rows a thread and buffers of
+// tile_bytes; trees a chunk (one grid.y each) and blocks a chunk and slice.
+int lo_tree_descend(const void* codes, const void* code_idx,
+                    long long code_stride, const void* feat, const void* thr,
                     const void* internal, void* out, int n, int d, int M,
                     int W, int T, int depth, int rows_per_tile,
-                    int tile_bytes, int trees_per_chunk, int blocks,
+                    int tile_bytes, int trees_per_chunk, int blocks, int G,
                     void* stream) {
+  if (G < 1 || G > 65535) return (int)cudaErrorInvalidValue;
   const Trees tr{(const int32_t*)feat, (const int32_t*)thr,
                  (const uint8_t*)internal, M, W, T};
   const int chunks =
       T > 0 ? (T + trees_per_chunk - 1) / trees_per_chunk : 1;
   const size_t tables = (size_t)trees_per_chunk * W * sizeof(uint32_t);
-  const dim3 grid(blocks, chunks);
+  const dim3 grid(blocks, chunks, G);
   int e;
   if (rows_per_tile) {
     const int per_thread = rows_per_tile / kDescendThreads;
@@ -827,15 +897,15 @@ int lo_tree_descend(const void* codes, const void* feat, const void* thr,
     e = prepare_smem(kernel, smem);
     if (e) return e;
     kernel<<<grid, kDescendThreads, smem, (cudaStream_t)stream>>>(
-        (const uint8_t*)codes, tr, (int32_t*)out, n, d, depth,
-        trees_per_chunk, tile_bytes);
+        (const uint8_t*)codes, (const int32_t*)code_idx, code_stride, tr,
+        (int32_t*)out, n, d, depth, trees_per_chunk, tile_bytes);
   } else {
     e = prepare_smem(descend_direct_kernel, tables);
     if (e) return e;
     descend_direct_kernel<<<grid, kDescendThreads, tables,
                             (cudaStream_t)stream>>>(
-        (const uint8_t*)codes, tr, (int32_t*)out, n, d, depth,
-        trees_per_chunk);
+        (const uint8_t*)codes, (const int32_t*)code_idx, code_stride, tr,
+        (int32_t*)out, n, d, depth, trees_per_chunk);
   }
   return (int)cudaGetLastError();
 }

@@ -55,9 +55,12 @@ def ordered_sum(parts):
 
 
 def ordered_matmul(X: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
-    """X (n, d) @ W (d, C), accumulated over d in index order."""
-    return ordered_sum([X[:, j:j + 1] * W[j][None, :]
-                        for j in range(W.shape[0])])
+    """X (n, d) @ W (d, C), accumulated over d in index order (one term
+    held at a time, so a wide C costs two (n, C) tensors)."""
+    acc = X[:, 0:1] * W[0][None, :]
+    for j in range(1, W.shape[0]):
+        acc = acc + X[:, j:j + 1] * W[j][None, :]
+    return acc
 
 
 def ordered_softmax(L: torch.Tensor) -> torch.Tensor:

@@ -28,12 +28,13 @@ of a third, while the device working set stays bounded.
 Each fit records ``device_s`` — the device phase through synchronised
 completion — next to wall-clock. Output contract is the JAX package's:
 dataset ``<name>_<classifier>`` per classifier, metrics in its metadata.
-With ``fit_ckpt_rounds > 0`` the segmented families (rf, gb) and the
-streamed design state checkpoint their progress (utils/fitckpt.py), so
-a retried build resumes them bit-identically.
+With ``fit_ckpt_rounds > 0`` the segmented families (rf, gb, mlp) and
+the streamed design state checkpoint their progress (utils/fitckpt.py),
+so a retried build resumes them bit-identically.
 
-Not yet ported from the JAX package: tune sweeps and the multi-process
-dispatch; ``tune`` raises ``NotImplementedError``.
+``tune`` runs a device-resident hyperparameter sweep of one family over
+a resident design (models/tune.py) and can refit and persist its winner.
+Not yet ported from the JAX package: the multi-process dispatch.
 """
 
 from __future__ import annotations
@@ -62,11 +63,6 @@ from learningorchestra_tpu_torch.utils.profiling import (
     device_span, device_trace, op_timer, timed)
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not yet ported to the PyTorch "
-                               "package")
-
-
 class ModelBuilder:
     def __init__(self, store: DatasetStore, runtime: DeviceRuntime,
                  cfg: Optional[Settings] = None):
@@ -88,6 +84,21 @@ class ModelBuilder:
             if self.store.exists(f"{prediction_name}_{c}"):
                 raise ValueError("prediction dataset already exists: "
                                  f"{prediction_name}_{c}")
+
+    def validate_tune(self, train: str, out_name: str, classifier: str,
+                      configs: Sequence[Dict[str, Any]]) -> None:
+        """Synchronous admission checks for a tune sweep — everything that
+        must 4xx at the route instead of stranding an async job: missing
+        dataset (404), duplicate output (ValueError → 406), and the full
+        per-config hyperparameter validation (unknown names / out-of-range
+        values name the offending key, models/registry.HPARAM_SPECS)."""
+        from learningorchestra_tpu_torch.models import tune as tune_mod
+
+        if not self.store.exists(train):
+            raise KeyError(f"dataset not found: {train}")
+        if self.store.exists(out_name):
+            raise ValueError(f"tune dataset already exists: {out_name}")
+        tune_mod.validate_population(classifier, configs)
 
     # -- the main path -------------------------------------------------------
 
@@ -381,8 +392,102 @@ class ModelBuilder:
         self._save_predictions(out_name, ds, preds, probs,
                                FitReport(kind=man["kind"], fit_time=0.0))
 
-    def tune(self, *args, **kwargs):
-        raise _not_ported("hyperparameter tuning")
+    # -- device-resident hyperparameter search (models/tune.py) --------------
+
+    def tune(self, train: str, out_name: str, classifier: str,
+             configs: Sequence[Dict[str, Any]], label: str,
+             steps: Sequence[Dict[str, Any]] = (),
+             folds: Optional[int] = None, rungs: Optional[int] = None,
+             promote: bool = False,
+             existing: bool = False) -> Dict[str, Any]:
+        """Run one population sweep over ``configs`` of a single family
+        against the resident design of ``train``; the leaderboard (per-
+        config fold scores, fit seconds, rung survival, winner) lands in
+        ``out_name``'s metadata and is returned.
+
+        ``promote=True`` refits the winning config on ALL rows and
+        persists it under ``out_name`` in the trained-model registry, so
+        the sweep's product is directly servable. ``existing=True`` means
+        the async route already created the marker dataset
+        metadata-first.
+        """
+        from learningorchestra_tpu_torch.models import tune as tune_mod
+
+        train_ds = self.store.get(train)
+        if self.cfg.stream_design or train_ds.over_budget:
+            # The member fold masks weight ONE resident (n, d) design; a
+            # streamed design never materializes, so there is nothing to
+            # mask.
+            raise ValueError(
+                "tune sweeps need a resident design matrix; streamed "
+                "designs are fit-only")
+        steps_key = json.dumps(list(steps), sort_keys=True, default=str)
+        with tracing.span("design.build", train=train):
+            X_train, y_train, feature_fields, state = train_ds.memo(
+                ("design", label, steps_key),
+                lambda: preprocess.design_matrix(train_ds, label, steps))
+        if y_train is None:
+            raise ValueError(f"label field {label!r} not in {train!r}")
+        num_classes = max(2, int(y_train.max()) + 1)
+        pp_meta = {"steps": list(steps), "state": state,
+                   "feature_fields": feature_fields, "label": label}
+
+        if not existing:
+            self.store.create(out_name, parent=train,
+                              extra={"classifier": classifier,
+                                     "label": label, "tune": True})
+        ckpt = None
+        if int(self.cfg.fit_ckpt_rounds) > 0:
+            # Rung-boundary checkpoints: keyed on everything that changes
+            # the sweep's arithmetic or orchestration (configs, folds,
+            # rungs, device type), so a resume under ANY changed setup
+            # starts fresh instead of splicing incompatible state.
+            ckpt = fitckpt.context(
+                self.cfg, dataset=train, family=f"tune_{classifier}",
+                config={"family": classifier, "configs": list(configs),
+                        "folds": folds, "rungs": rungs, "label": label,
+                        "steps": list(steps), "num_classes": num_classes,
+                        "device": self.runtime.device.type},
+                snapshot=f"rows={int(len(X_train))}")
+        try:
+            with device_trace(self.cfg), timed("tune"), \
+                    tracing.span("tune.sweep", family=classifier,
+                                 configs=len(configs)):
+                board = tune_mod.sweep(
+                    self.runtime, X_train, y_train, num_classes,
+                    classifier, configs, cfg=self.cfg,
+                    folds=folds, rungs=rungs, ckpt=ckpt)
+        except Exception as exc:
+            self.store.fail(out_name, f"{type(exc).__name__}: {exc}")
+            raise
+
+        if promote:
+            # Winner promotion: one full-data fit of the best config —
+            # the same trainer entry point as build, so host_prep hooks
+            # (tree quantile edges) and registry manifests match.
+            hp = dict(board["winner"]["config"])
+            trainer = get_trainer(classifier)
+            prep = getattr(trainer, "host_prep", None)
+            extra = prep(X_train, **hp) if prep is not None else {}
+            with timed("tune.promote"), resources.family_phase(classifier):
+                model = trainer(self.runtime, X_train, y_train,
+                                num_classes, **dict(hp, **extra))
+            if self.cfg.persist_models:
+                try:
+                    self.registry.save(
+                        out_name, model,
+                        metrics={"mean_score":
+                                 board["winner"]["mean_score"],
+                                 "tuned": True},
+                        preprocess=pp_meta)
+                    board["promoted"] = out_name
+                except Exception as exc:  # noqa: BLE001 — best-effort
+                    board["promote_error"] = (
+                        f"{type(exc).__name__}: {exc}")
+
+        self.store.finish(out_name, tune=board)
+        jobs.heartbeat()
+        return board
 
     def _save_predictions(self, name: str, test_ds, preds: np.ndarray,
                           probs: np.ndarray, report: FitReport) -> None:

@@ -5,7 +5,8 @@
 reaches this package) and returns a ``TrainedModel`` whose predictor is
 this package's, with the same layouts: tree tables (T, M) or (C, R, M),
 leaf statistics (T, M, S), gb leaf values and ``step_size``, bin
-``edges`` (d, n_bins-1), lr ``W``/``b``/``mu``/``sigma``, nb moments.
+``edges`` (d, n_bins-1), lr ``W``/``b``/``mu``/``sigma``, nb moments,
+mlp ``W1``/``b1``/``W2``/``b2``/``mu``/``sigma``.
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ _KEYS = {
            "theta": np.float32},
     "dt": {"edges": np.float32, "feat": np.int32, "thr": np.int32,
            "internal": np.bool_, "leaf": np.float32},
+    "mlp": {"W1": np.float32, "b1": np.float32, "W2": np.float32,
+            "b2": np.float32, "mu": np.float32, "sigma": np.float32},
     "gb": {"edges": np.float32, "feat": np.int32, "thr": np.int32,
            "internal": np.bool_, "leaf_val": np.float32,
            "step_size": np.float32},

@@ -14,8 +14,8 @@ of inflating the numerator to hide itself.
 
 Conventions: one multiply-add = 2 flops; compare/select passes count 1
 flop per element; terms an order of magnitude below the leading one are
-dropped. Shapes mirror models/logistic.py, models/trees.py and
-models/naive_bayes.py.
+dropped. Shapes mirror models/logistic.py, models/trees.py,
+models/naive_bayes.py and models/mlp.py.
 
 The tree families (dt/rf/gb) run the binned-histogram kernels
 (ops/tree_kernels.py), and their count prices the *algorithm*: a binned
@@ -138,6 +138,10 @@ def fit_flops(kind: str, n: int, d: int, num_classes: int,
                      + _descend_flops(n, d, max_depth) + n * M + 6.0 * n)
         return boosters * (n_rounds * per_round) + _binning_flops(n, d,
                                                                   n_bins)
+    if kind == "mlp":
+        hidden = float(hp.get("hidden", 64))
+        iters = float(hp.get("iters", 200))
+        return iters * 6.0 * n * hidden * (d + C)
     return 0.0
 
 
@@ -164,6 +168,9 @@ def predict_flops(kind: str, n: int, d: int, num_classes: int,
         return (_binning_flops(n, d, n_bins)
                 + trees * (_descend_flops(n, d, max_depth)
                            + 2.0 * n * M * leaf_cols))
+    if kind == "mlp":
+        hidden = float(hp.get("hidden", 64))
+        return 2.0 * n * hidden * (d + C)
     return 0.0
 
 

@@ -3,8 +3,9 @@
 The reference maps ``{"lr", "dt", "rf", "gb", "nb"}`` to pyspark.ml
 classifiers (reference model_builder.py:152-158) and returns 409 for unknown
 names (ModelBuilderRequestValidator, model_builder.py:284-292). Same five
-names here. The JAX package's extensions "mlp" and "tx" are not ported
-yet: asking for them raises a ValueError that says so.
+names here, plus the JAX package's extension "mlp" (a two-layer
+perceptron). Its sequence model "tx" is not ported yet: asking for it
+raises a ValueError that says so.
 """
 
 from __future__ import annotations
@@ -12,7 +13,8 @@ from __future__ import annotations
 from functools import partial
 from typing import Any, Callable, Dict, Tuple
 
-from learningorchestra_tpu_torch.models import logistic, naive_bayes, trees
+from learningorchestra_tpu_torch.models import (
+    logistic, mlp, naive_bayes, trees)
 
 CLASSIFIERS: Dict[str, Callable] = {
     "lr": logistic.fit,
@@ -20,14 +22,15 @@ CLASSIFIERS: Dict[str, Callable] = {
     "rf": trees.fit_rf,
     "gb": trees.fit_gb,
     "nb": naive_bayes.fit,
+    "mlp": mlp.fit,
 }
 
 #: Families of the JAX package that this package does not have yet.
-NOT_YET_PORTED = ("mlp", "tx")
+NOT_YET_PORTED = ("tx",)
 
-#: Families the online predict tier serves (models/aot.py): the JAX
-#: package's list without ``mlp``, which joins when it is ported.
-ONLINE_KINDS = ("lr", "nb", "dt", "rf", "gb")
+#: Families the online predict tier serves (models/aot.py): every
+#: continuous-feature family, the JAX package's list.
+ONLINE_KINDS = ("lr", "nb", "dt", "rf", "gb", "mlp")
 
 
 def _int_range(lo: int, hi: int) -> Tuple[Callable, str]:
@@ -71,6 +74,9 @@ HPARAM_SPECS: Dict[str, Dict[str, Tuple[Callable, str]]] = {
            "step_size": _positive()},
     "nb": {"seed": _SEED, "smoothing": _positive(),
            "event_model": _choice("gaussian", "multinomial")},
+    "mlp": {"seed": _SEED, "hidden": _int_range(1, 65536),
+            "iters": _int_range(1, 1_000_000), "lr": _positive(),
+            "l2": _nonneg()},
 }
 
 
@@ -129,6 +135,8 @@ def predictor_for(kind: str, hparams: Dict) -> Callable:
         return partial(fn, max_depth=int(hparams["max_depth"]))
     if kind == "lr":
         return logistic._predict_proba
+    if kind == "mlp":
+        return mlp._predict_proba
     if kind == "nb":
         return (naive_bayes._predict_multinomial
                 if hparams.get("event_model") == "multinomial"

@@ -96,23 +96,35 @@ def bin_features(X: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
 # Generic level-wise histogram tree builder
 # ---------------------------------------------------------------------------
 
-def _build_tree(B, stats_T, feat_gain_mask, *, max_depth, n_bins,
-                gain_fn, weight_fn, min_child_weight, min_gain,
-                codes_T=None):
-    """Grow one tree.
+def _build_trees(B, code_idx, stats_T, feat_gain_mask, *, max_depth,
+                 n_bins, gain_fn, weight_fn, min_child_weight, min_gain,
+                 codes_T=None, bin_gain_mask=None, level_allow=None):
+    """Grow G trees at once, one a slice of the kernels' slice launches.
 
-    B: (n, d) uint8 bin codes; codes_T: ``feature_major(B)`` on the card
-    (the routing kernel's layout, made once per bin matrix). stats_T:
-    (S, n) float32 per-row sufficient statistics (zero columns for
-    excluded rows). feat_gain_mask: (d,)
-    float32 — 0 allows a feature, NEG forbids it (random-forest per-tree
-    feature subsampling). gain_fn(left, total) -> gain over the trailing
-    stat dim; weight_fn(stat_sums) -> node weight for min_child_weight.
+    B: (P, n, d) uint8 bin matrices; code_idx: G ints, tree g's matrix;
+    codes_T: the (P, d, n) feature-major stack on the card (the routing
+    kernel's layout, made once per bin matrix). stats_T: (G, S, n)
+    float32 per-row sufficient statistics (zero columns for excluded
+    rows). feat_gain_mask: (G, d) float32 — 0 allows a feature, NEG
+    forbids it (random-forest per-tree feature subsampling). gain_fn(left,
+    total) -> gain over the trailing stat dim; weight_fn(stat_sums) ->
+    node weight for min_child_weight.
 
-    Returns (feat (M,), thr (M,), is_internal (M,), leaf_stats (M, S))
-    with M = 2^(max_depth+1) - 1 nodes; children of i at 2i+1 / 2i+2.
+    bin_gain_mask: optional (G, n_bins) — 0 allows a split threshold, NEG
+    forbids it; level_allow: optional (G, max_depth) bool — False forbids
+    splitting at that level. A population fit (models/tune.py) builds at
+    its members' largest n_bins and max_depth and gives each member its
+    own with these masks, which reproduce the member's own fit exactly
+    (its high bins hold no rows, and forbidden levels leave leaves).
+
+    Each tree's arithmetic is the same whatever G is: every kernel
+    slice is bit-identical to a one-slice launch, and the torch ops
+    between levels act on each tree's rows alone. Returns (feat (G, M),
+    thr (G, M), is_internal (G, M), leaf_stats (G, M, S)) with M =
+    2^(max_depth+1) - 1 nodes; children of i at 2i+1 / 2i+2.
     """
-    n, d = B.shape
+    P, n, d = B.shape
+    G = len(code_idx)
     dev = B.device
     M = 2 ** (max_depth + 1) - 1
     #: Fixed per-level node width, as in the JAX builder: every level runs
@@ -120,10 +132,10 @@ def _build_tree(B, stats_T, feat_gain_mask, *, max_depth, n_bins,
     #: real node count carry zero stats, so their gain is NEG and they
     #: never split; their node-id writes land in ids later levels rewrite.
     NL = 2 ** max(max_depth - 1, 0)
-    feat = torch.zeros((M,), dtype=torch.int32, device=dev)
-    thr = torch.zeros((M,), dtype=torch.int32, device=dev)
-    is_internal = torch.zeros((M,), dtype=torch.bool, device=dev)
-    assign = torch.zeros((n,), dtype=torch.int32, device=dev)
+    feat = torch.zeros((G, M), dtype=torch.int32, device=dev)
+    thr = torch.zeros((G, M), dtype=torch.int32, device=dev)
+    is_internal = torch.zeros((G, M), dtype=torch.bool, device=dev)
+    assign = torch.zeros((G, n), dtype=torch.int32, device=dev)
     slots = torch.arange(NL, device=dev)
     # The histogram kernel's fixed-point scales: one pass over the stats,
     # which every level of the tree shares.
@@ -134,40 +146,55 @@ def _build_tree(B, stats_T, feat_gain_mask, *, max_depth, n_bins,
         active = (rel >= 0) & (rel < offset + 1)
         rel = torch.where(active, rel, torch.zeros_like(rel))
 
-        hist = tree_kernels.tree_histogram(B, stats_T, rel, active,
-                                           n_nodes=NL, n_bins=n_bins,
-                                           max_abs=max_abs)
-        left = torch.cumsum(hist, dim=2)                         # ≤ bin t
-        total = left[:, :, -1:, :]                               # (NL,d,1,S)
-        gain = gain_fn(left, total)                              # (NL,d,nb)
+        hist = tree_kernels.tree_histogram_slices(
+            B, code_idx, stats_T, rel, active, n_nodes=NL, n_bins=n_bins,
+            max_abs=max_abs)                                 # (G,NL,d,nb,S)
+        left = torch.cumsum(hist, dim=3)                         # ≤ bin t
+        total = left[:, :, :, -1:, :]                        # (G,NL,d,1,S)
+        gain = gain_fn(left, total)                          # (G,NL,d,nb)
         # A split at the last bin sends everything left — forbid it.
-        gain[:, :, -1] = NEG
+        gain[..., -1] = NEG
         lw = weight_fn(left)
         rw = weight_fn(total) - lw
         ok = (lw >= min_child_weight) & (rw >= min_child_weight)
         gain = (torch.where(ok, gain, torch.full_like(gain, NEG))
-                + feat_gain_mask[None, :, None])
+                + feat_gain_mask[:, None, :, None])
+        if bin_gain_mask is not None:
+            gain = gain + bin_gain_mask[:, None, None, :]
 
-        flat = gain.reshape(NL, d * n_bins)
-        best = torch.argmax(flat, dim=1)
-        best_gain = flat.gather(1, best[:, None])[:, 0]
+        flat = gain.reshape(G, NL, d * n_bins)
+        best = torch.argmax(flat, dim=2)
+        best_gain = flat.gather(2, best[:, :, None])[:, :, 0]
         best_f = (best // n_bins).int()
         best_t = (best % n_bins).int()
         split = best_gain > min_gain
+        if level_allow is not None:
+            split = split & level_allow[:, level, None]
 
         node_ids = offset + slots
-        feat[node_ids] = torch.where(split, best_f, 0).int()
-        thr[node_ids] = torch.where(split, best_t, 0).int()
-        is_internal[node_ids] = split
+        feat[:, node_ids] = torch.where(split, best_f, 0).int()
+        thr[:, node_ids] = torch.where(split, best_t, 0).int()
+        is_internal[:, node_ids] = split
 
-        assign = tree_kernels.tree_route_level(B, rel.int(), active, assign,
-                                               best_f, best_t, split,
-                                               codes_T=codes_T)
+        assign = tree_kernels.tree_route_level_slices(
+            B, code_idx, rel.int(), active, assign, best_f, best_t, split,
+            codes_T=codes_T)
 
     # Leaf sufficient statistics over ALL nodes (every row sits at a leaf).
-    leaf = tree_kernels.tree_leaf_stats(assign, stats_T, n_nodes=M,
-                                        max_abs=max_abs).T
-    return feat, thr, is_internal, leaf.contiguous()
+    leaf = tree_kernels.tree_leaf_stats_slices(assign, stats_T, n_nodes=M,
+                                               max_abs=max_abs)
+    return feat, thr, is_internal, leaf.transpose(1, 2).contiguous()
+
+
+def _build_tree(B, stats_T, feat_gain_mask, *, codes_T=None, **kw):
+    """Grow one tree: ``_build_trees`` with one slice. B (n, d) uint8;
+    codes_T ``feature_major(B)`` on the card; stats_T (S, n);
+    feat_gain_mask (d,). Returns (feat (M,), thr (M,), is_internal (M,),
+    leaf_stats (M, S))."""
+    out = _build_trees(B[None], (0,), stats_T[None], feat_gain_mask[None],
+                       codes_T=None if codes_T is None else codes_T[None],
+                       **kw)
+    return tuple(t[0] for t in out)
 
 
 # ---------------------------------------------------------------------------
@@ -361,20 +388,24 @@ def _run_forest_checkpointed(ckpt, one_tree, gen, n_trees, dev):
     return tuple(torch.from_numpy(host[k]).to(dev) for k in _TREE_PARAMS)
 
 
-def _forest_proba_static(params, X, *, max_depth):
-    """Mean over trees of each tree's leaf class shares. Sums over the
-    classes and over the trees run in index order (row-invariant,
-    models/base.py); descent and the leaf gather are exact."""
-    B = bin_features(X, params["edges"])
-    assign = tree_kernels.tree_descend(
-        B, params["feat"], params["thr"], params["internal"],
-        max_depth=max_depth).long()                              # (T, n)
-    leaf = params["leaf"]                                        # (T, M, S)
+def _forest_proba_leaves(leaf, assign):
+    """Mean over trees of each tree's leaf class shares: leaf (T, M, S)
+    stats, assign (T, n) leaf ids → (n, S). Sums over the classes and
+    over the trees run in index order (row-invariant, models/base.py);
+    the leaf gather is exact."""
     S = leaf.shape[2]
-    counts = leaf.gather(1, assign[:, :, None].expand(-1, -1, S))
+    counts = leaf.gather(1, assign.long()[:, :, None].expand(-1, -1, S))
     total = ordered_sum([counts[:, :, s] for s in range(S)])     # (T, n)
     probs = counts / torch.clamp(total, min=1e-12)[:, :, None]
     return ordered_sum(list(probs)) / probs.shape[0]
+
+
+def _forest_proba_static(params, X, *, max_depth):
+    B = bin_features(X, params["edges"])
+    assign = tree_kernels.tree_descend(
+        B, params["feat"], params["thr"], params["internal"],
+        max_depth=max_depth)                                     # (T, n)
+    return _forest_proba_leaves(params["leaf"], assign)
 
 
 def fit_dt(runtime: DeviceRuntime, X, y, num_classes, seed=0, *,
@@ -497,17 +528,23 @@ def _run_gbt_checkpointed(ckpt, B, yf, *, n_rounds, **kw):
     return tuple(torch.from_numpy(host[k]).to(B.device) for k in _GBT_PARAMS)
 
 
+def _gbt_proba_leaves(leaf_val, step_size, assign):
+    """Binary booster probabilities from its rounds' leaf values (R, M),
+    its step size and the rows' leaf ids (R, n) → (n, 2)."""
+    vals = leaf_val.gather(1, assign.long())                     # (R, n)
+    # Rounds summed in order (row-invariant, models/base.py).
+    margin = step_size * ordered_sum(list(vals))
+    p1 = ordered_sigmoid(margin)
+    return torch.stack([1 - p1, p1], dim=1)
+
+
 def _gbt_proba_static(params, X, *, max_depth):
     B = bin_features(X, params["edges"])
     # One descent launch for all rounds of the booster.
     assign = tree_kernels.tree_descend(
         B, params["feat"], params["thr"], params["internal"],
-        max_depth=max_depth).long()                              # (R, n)
-    vals = params["leaf_val"].gather(1, assign)                  # (R, n)
-    # Rounds summed in order (row-invariant, models/base.py).
-    margin = params["step_size"] * ordered_sum(list(vals))
-    p1 = ordered_sigmoid(margin)
-    return torch.stack([1 - p1, p1], dim=1)
+        max_depth=max_depth)                                     # (R, n)
+    return _gbt_proba_leaves(params["leaf_val"], params["step_size"], assign)
 
 
 def _gbt_ovr_proba_static(params, X, *, max_depth):
@@ -579,3 +616,179 @@ def fit_gb(runtime: DeviceRuntime, X, y, num_classes, seed=0, *,
 
 
 fit_gb.host_prep = _edge_prep
+
+
+# ---------------------------------------------------------------------------
+# Config-population programs (models/tune.py)
+#
+# A population of same-family configs, each fitted on every fold, grows
+# its trees together: tree t of every live member is one slice of the
+# same kernel launches (``_build_trees``). Static shapes are the
+# population's maxima (max_depth, n_bins); a member's smaller depth and
+# bin count ride as ``level_allow``/``bin_gain_mask``, which reproduce
+# the member's own fit exactly. Per-member row weights carry k-fold
+# membership (fold masks over the one resident design, never copies).
+# Members that share n_bins share one bin matrix. A dropped member, or a
+# gb member past its own rounds, grows nothing: its slots stay inert
+# (zero trees score nothing), as the JAX package's zeroed weights make
+# them.
+# ---------------------------------------------------------------------------
+
+#: Rows a population scoring pass descends at a time (bounds its
+#: (members, trees, rows) leaf ids).
+_SCORE_ROWS = 1 << 19
+
+
+def _bin_features_pop(X, edges_pop):
+    """Bin matrices for a population: (n, d) features × (P, d,
+    n_bins_max - 1) edge stacks, each padded with +inf past its own
+    n_bins - 1 edges → (P, n, d) uint8. ``x > inf`` is never true, so a
+    padded stack gives the codes its own shorter edge list gives."""
+    n, d = X.shape
+    out = torch.empty((len(edges_pop), n, d), dtype=torch.uint8,
+                      device=X.device)
+    for p, e in enumerate(edges_pop):
+        out[p] = bin_features(X, e)
+    return out
+
+
+def _pop_codes_T(B):
+    """The routing kernel's feature-major stack of a population's bin
+    matrices on the card; None on the CPU."""
+    return torch.stack([_route_codes(b) for b in B]) if B.is_cuda else None
+
+
+def _fit_forest_pop_batch(B, code_idx, y, w_pop, draws, bin_mask,
+                          level_allow, *, num_classes, max_depth, n_bins,
+                          codes_T=None):
+    """One batch of trees for the live members of a dt/rf population: for
+    each tree of the batch, one ``_build_trees`` call whose G slices are
+    the members. B (P, n, d) with member m on matrix code_idx[m]; w_pop
+    (G, n) row weights (fold membership); draws: per tree, (boot (G, n)
+    Poisson weights or None for dt, fmask (G, d)); bin_mask (G, n_bins),
+    level_allow (G, max_depth). Stats are the serial fit's: class one-hot
+    × row weights × bootstrap. Returns (feat, thr, internal, leaf) with a
+    (G, trees) leading shape."""
+    classes = torch.arange(num_classes, dtype=y.dtype, device=y.device)
+    base = ((y[None, None, :] == classes[None, :, None]).float()
+            * w_pop[:, None, :])                                 # (G, C, n)
+    outs = []
+    for boot, fmask in draws:
+        stats = base if boot is None else base * boot[:, None, :]
+        outs.append(_build_trees(
+            B, code_idx, stats.contiguous(), fmask, max_depth=max_depth,
+            n_bins=n_bins, gain_fn=_gini_gain,
+            weight_fn=lambda s: s.sum(-1), min_child_weight=1.0,
+            min_gain=1e-9, codes_T=codes_T, bin_gain_mask=bin_mask,
+            level_allow=level_allow))
+    return tuple(torch.stack(p, dim=1) for p in zip(*outs))
+
+
+def _pop_accuracy(B, code_idx, y, ew_pop, tables, max_depth, proba):
+    """Per-member accuracy on per-member (eval-fold) row weights: the
+    members' trees descend their own bin matrices in one slice launch per
+    block of rows, and ``proba(m, assign)`` gives member m's
+    probabilities from its (T, rows) leaf ids — the family's own predict
+    arithmetic, so a member's predictions are its serial fit's.
+    Returns (G,) float64 host values."""
+    n = B.shape[1]
+    G = len(code_idx)
+    hits = torch.zeros((G,), dtype=torch.float64, device=B.device)
+    for a in range(0, n, _SCORE_ROWS):
+        b = min(n, a + _SCORE_ROWS)
+        assign = tree_kernels.tree_descend_slices(
+            B[:, a:b], code_idx, *tables, max_depth=max_depth)   # (G, T, r)
+        for m in range(G):
+            pred = torch.argmax(proba(m, assign[m]), dim=1)
+            hits[m] += ((pred == y[a:b]).double() * ew_pop[m, a:b]).sum()
+    tot = ew_pop.double().sum(dim=1)
+    return (hits / torch.clamp(tot, min=1.0)).cpu().numpy()
+
+
+def _forest_pop_scores(B, code_idx, y, ew_pop, feat, thr, internal, leaf, *,
+                       max_depth):
+    """Per-member forest accuracy. Tree arrays arrive at the full (G,
+    n_trees, ...) shape with all-zero slots for trees not built yet (zero
+    leaf counts, no probability mass), and the mean divides by n_trees,
+    as the serial forest's does once every tree is built."""
+    return _pop_accuracy(
+        B, code_idx, y, ew_pop, (feat, thr, internal), max_depth,
+        lambda m, assign: _forest_proba_leaves(leaf[m], assign))
+
+
+def _fit_gbt_pop_seg(B, code_idx, y, w_pop, margin, step_sizes,
+                     round_active, bin_mask, level_allow, *, max_depth,
+                     n_bins, n_rounds, codes_T=None):
+    """One segment of boost rounds for a gb population. Per round, the
+    members whose ``round_active`` (G, n_rounds) entry is set grow one
+    tree each in one ``_build_trees`` call and descend it in one slice
+    launch; the others keep their margin and get an inert round (zero
+    leaf values). The round's arithmetic is the serial fit's (lam = 1.0)
+    on per-member row weights w_pop (G, n) and step sizes (G,). Returns
+    the segment's (feat, thr, internal, leaf_val) with a (G, n_rounds)
+    leading shape, and the margins (G, n)."""
+    G, n = margin.shape
+    d = B.shape[2]
+    M = 2 ** (max_depth + 1) - 1
+    dev = B.device
+    gain_fn = _make_newton_gain(1.0)
+    yf = y.float()
+    feat = torch.zeros((G, n_rounds, M), dtype=torch.int32, device=dev)
+    thr = torch.zeros_like(feat)
+    internal = torch.zeros((G, n_rounds, M), dtype=torch.bool, device=dev)
+    leaf_val = torch.zeros((G, n_rounds, M), dtype=torch.float32,
+                           device=dev)
+    ractive = round_active.bool().cpu().numpy()
+    for r in range(n_rounds):
+        live = [m for m in range(G) if ractive[m, r]]
+        if not live:
+            continue
+        rows = torch.tensor(live, device=dev)
+        p = torch.sigmoid(margin[rows])
+        w = w_pop[rows]
+        g = (p - yf) * w
+        h = torch.clamp(p * (1 - p), min=1e-6) * w
+        stats = torch.stack([g, h], dim=1)                       # (L, 2, n)
+        f, t, it, leaf = _build_trees(
+            B, [code_idx[m] for m in live], stats,
+            torch.zeros((len(live), d), dtype=torch.float32, device=dev),
+            max_depth=max_depth, n_bins=n_bins, gain_fn=gain_fn,
+            weight_fn=lambda s: s[..., 1], min_child_weight=1e-3,
+            min_gain=1e-9, codes_T=codes_T, bin_gain_mask=bin_mask[rows],
+            level_allow=level_allow[rows])
+        lv = -leaf[:, :, 0] / (leaf[:, :, 1] + 1.0)              # (L, M)
+        assign = tree_kernels.tree_descend_slices(
+            B, [code_idx[m] for m in live], f[:, None], t[:, None],
+            it[:, None], max_depth=max_depth)[:, 0]              # (L, n)
+        margin[rows] = (margin[rows] + step_sizes[rows][:, None]
+                        * lv.gather(1, assign.long()))
+        feat[rows, r], thr[rows, r] = f, t
+        internal[rows, r], leaf_val[rows, r] = it, lv
+    return (feat, thr, internal, leaf_val), margin
+
+
+def _gbt_pop_replay_margin(B, code_idx, feat, thr, internal, leaf_val,
+                           step_sizes, *, max_depth):
+    """Per-member margins rebuilt from a checkpoint's population trees —
+    the resume path's analogue of ``_gbt_replay_margin``: every member's
+    rounds descend in one slice launch, and the rounds' updates fold in
+    order, as ``_fit_gbt_pop_seg`` made them (inert rounds add zero)."""
+    G, R = feat.shape[:2]
+    assign = tree_kernels.tree_descend_slices(
+        B, code_idx, feat, thr, internal, max_depth=max_depth)   # (G, R, n)
+    margin = torch.zeros((G, B.shape[1]), dtype=torch.float32,
+                         device=B.device)
+    for r in range(R):
+        margin = margin + step_sizes[:, None] * leaf_val[:, r].gather(
+            1, assign[:, r].long())
+    return margin
+
+
+def _gbt_pop_scores(B, code_idx, y, ew_pop, feat, thr, internal, leaf_val,
+                    step_sizes, *, max_depth):
+    """Per-member binary-gb accuracy. Unbuilt and inert rounds carry zero
+    leaf values, so a member's margin is its own rounds' sum."""
+    return _pop_accuracy(
+        B, code_idx, y, ew_pop, (feat, thr, internal), max_depth,
+        lambda m, assign: _gbt_proba_leaves(leaf_val[m], step_sizes[m],
+                                            assign))

@@ -18,11 +18,21 @@ wrapper               replaces (pallas_kernels.py)
 ``tree_descend``      ``tree_descend`` → ``_tree_descend_kernel``
 ====================  ==============================================
 
+Each of the four tree kernels takes a slice axis: ``*_slices`` launches
+serve G slices at once — the trees of a population fit (models/tune.py)
+at one level, each with its own stats, node ids and tables, over one of
+P bin matrices stacked (P, n, d) and named by the slice's entry of
+``code_idx``. Each slice's output is bit-identical to a launch of that
+slice alone, and the single-tree wrappers are the G = 1 calls of the
+same launches.
+
 Beside each wrapper is its plain PyTorch version (``*_ref``), blocked
-over rows so nothing (n, d·n_bins)-shaped exists. A wrapper takes the
-plain version only for tensors on the CPU; for CUDA tensors it launches
-its kernel or raises. Each launch adds one to the wrapper's count
-(``launch_counts``), so a run can show which kernels it went through.
+over rows so nothing (n, d·n_bins)-shaped exists; the slice forms' plain
+versions loop it over the slices. A wrapper takes the plain version only
+for tensors on the CPU; for CUDA tensors it launches its kernel or
+raises. Each launch adds one to a count (``launch_counts``), so a run
+can show which kernels it went through: a one-slice launch under the
+kernel's name, a launch of more slices under ``<name>_slices``.
 Public layouts are the JAX package's: histograms (n_nodes, d, n_bins, S),
 leaf stats (S, M), node ids int32; the routing kernel also reads a
 feature-major (d, n) copy of the codes, made once per bin matrix.
@@ -31,7 +41,8 @@ feature-major (d, n) copy of the codes, made once per bin matrix.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple, Tuple
+import functools
+from typing import Dict, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -67,11 +78,17 @@ _ROW_BLOCKS_PER_SM = 8
 #: Rows per block of the plain versions.
 _REF_BLOCK = 1 << 18
 
-KERNELS = ("tree_histogram", "tree_leaf_stats", "tree_route_level",
-           "tree_descend", "feature_major")
+#: The kernels that take a slice axis; a launch of more than one slice
+#: counts under ``<name>_slices``.
+SLICED = ("tree_histogram", "tree_leaf_stats", "tree_route_level",
+          "tree_descend")
+KERNELS = SLICED + ("feature_major",) + tuple(f"{k}_slices" for k in SLICED)
 
 _counter = LaunchCounter(KERNELS)
-_count = _counter.add
+
+
+def _count(name: str, G: int = 1) -> None:
+    _counter.add(name if G == 1 else f"{name}_slices")
 
 
 def launch_counts() -> Dict[str, int]:
@@ -89,12 +106,13 @@ def reset_launch_counts() -> None:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _LIB = CudaLibrary("tree_kernels", {
-    "lo_tree_hist_u8": [_P] * 7 + [_I] * 9 + [_P],
-    "lo_tree_leaf_i32": [_P] * 5 + [_I] * 6 + [_P],
-    "lo_tree_route": [_P] * 8 + [_I] * 4 + [_P],
+    "lo_tree_hist_u8": [_P] * 8 + [_I] * 10 + [_P],
+    "lo_tree_leaf_i32": [_P] * 5 + [_I] * 7 + [_P],
+    "lo_tree_route": [_P] * 9 + [_I] * 5 + [_P],
     "lo_feature_major": [_P] * 2 + [_I] * 2 + [_P],
-    "lo_tree_descend": [_P] * 5 + [_I] * 10 + [_P],
+    "lo_tree_descend": [_P] * 2 + [_L] + [_P] * 4 + [_I] * 11 + [_P],
 })
 SOURCE = _LIB.source
 BUILD_DIR = _LIB.build_dir
@@ -105,6 +123,27 @@ log_path = _LIB.log_path
 #: Compile the kernels if this source has no library yet.
 build = _LIB.build
 _library = _LIB.load
+
+
+@functools.lru_cache(maxsize=256)
+def _index_tensor(code_idx: Tuple[int, ...],
+                  device: torch.device) -> torch.Tensor:
+    return torch.tensor(code_idx, dtype=torch.int32, device=device)
+
+
+def slice_index(code_idx: Sequence[int], P: int,
+                device: torch.device) -> torch.Tensor:
+    """The (G,) int32 device tensor a slice launch reads its matrix
+    indices from, after checking each lies in [0, P). Cached by value, so
+    the levels of a tree group copy it to the card once."""
+    idx = tuple(int(i) for i in code_idx)
+    if not idx:
+        raise ValueError("a slice launch needs at least one slice")
+    if len(idx) > 65535:
+        raise ValueError(f"{len(idx)} slices exceed a launch's 65,535")
+    if min(idx) < 0 or max(idx) >= P:
+        raise ValueError(f"code_idx {idx} outside the {P} bin matrices")
+    return _index_tensor(idx, device)
 
 
 # ---------------------------------------------------------------------------
@@ -118,13 +157,15 @@ def hist_smem_bytes(NG: int, CG: int, S: int) -> int:
 
 
 def hist_plan(n: int, d: int, n_bins: int, S: int, n_nodes: int,
-              n_sms: int) -> Tuple[int, int, int, int]:
-    """Launch shape of the histogram kernel: (NG nodes and CG of the
-    d·n_bins columns per shared-memory slice, R row chunks, rows per
-    chunk). The slice is the whole accumulator when it fits the block's
-    shared memory; past that, node groups halve first, then columns. Row
-    chunks fill one wave of resident blocks, with at most HIST_MAX_ROWS
-    rows each."""
+              n_sms: int, G: int = 1) -> Tuple[int, int, int, int]:
+    """Launch shape of the histogram kernel over G slices: (NG nodes and
+    CG of the d·n_bins columns per shared-memory slice, R row chunks,
+    rows per chunk). The slice is the whole accumulator when it fits the
+    block's shared memory; past that, node groups halve first, then
+    columns. Row chunks of all G slices together fill one wave of
+    resident blocks, with at most HIST_MAX_ROWS rows each; the int64
+    partials of all slices (R · G histograms) stay within
+    ``_PARTIAL_BYTES`` unless the row cap needs more chunks."""
     DC = d * n_bins
     NG, CG = max(n_nodes, 1), max(DC, 1)
     while hist_smem_bytes(NG, CG, S) > SMEM_BYTES and NG > 1:
@@ -133,31 +174,33 @@ def hist_plan(n: int, d: int, n_bins: int, S: int, n_nodes: int,
         CG = -(-CG // 2)
     if hist_smem_bytes(NG, CG, S) > SMEM_BYTES:
         raise ValueError(f"{S} stats per row do not fit a histogram slice")
-    slices = -(-n_nodes // NG) * -(-DC // CG)
+    groups = -(-n_nodes // NG) * -(-DC // CG)
     # One wave: as many row chunks as the SMs hold blocks at once.
     per_sm = max(1, min(_HIST_MAX_BLOCKS_PER_SM, _SM_SMEM_BYTES
                         // (hist_smem_bytes(NG, CG, S) + 1024)))
-    R = max(1, min(-(-n // _HIST_MIN_ROWS), -(-per_sm * n_sms // slices)))
-    R = min(R, max(1, _PARTIAL_BYTES // max(n_nodes * DC * S * 8, 1)))
+    R = max(1, min(-(-n // _HIST_MIN_ROWS),
+                   -(-per_sm * n_sms // (groups * G))))
+    R = min(R, max(1, _PARTIAL_BYTES // max(G * n_nodes * DC * S * 8, 1)))
     R = max(R, -(-n // HIST_MAX_ROWS))
     rows = max(1, -(-n // R))
     return NG, CG, max(1, -(-n // rows)), rows
 
 
 def stat_max_abs(stats_T: torch.Tensor) -> torch.Tensor:
-    """max |stats_T[s]| per stat row, (S,) float32 on the stats' device:
+    """max |stats_T[..., s, :]| per stat row: (S,) for (S, n) stats,
+    (G, S) for a slice launch's (G, S, n), float32 on the stats' device:
     the histogram kernel's fixed-point scale input. Compute it once for
     stats that several histograms share (a tree's levels)."""
-    if stats_T.shape[1] == 0:
-        return torch.zeros((stats_T.shape[0],), dtype=torch.float32,
+    if stats_T.shape[-1] == 0:
+        return torch.zeros(stats_T.shape[:-1], dtype=torch.float32,
                            device=stats_T.device)
-    return stats_T.abs().amax(dim=1).float().contiguous()
+    return stats_T.abs().amax(dim=-1).float().contiguous()
 
 
 def _max_abs_arg(stats_T, max_abs):
     if max_abs is None:
         return stat_max_abs(stats_T)
-    _need(max_abs, "max_abs", torch.float32, (stats_T.shape[0],))
+    _need(max_abs, "max_abs", torch.float32, tuple(stats_T.shape[:-1]))
     if max_abs.device != stats_T.device:
         raise ValueError(f"max_abs on {max_abs.device}, stats on "
                          f"{stats_T.device}")
@@ -197,29 +240,59 @@ def tree_histogram(codes, stats_T, rel, active, *, n_nodes: int,
     n_bins, S) float32. On the card the sums are exact integer sums of
     the stats in fixed point (csrc/tree_kernels.cu): integer-valued stats
     give the plain version's float sums exactly, float stats agree within
-    max|v|·2^-27 a row, and every run gives the same bits."""
+    max|v|·2^-27 a row, and every run gives the same bits. The one-slice
+    launch of ``tree_histogram_slices``."""
     if not _on_cuda(codes, stats_T, rel, active):
         return tree_histogram_ref(codes, stats_T, rel, active,
                                   n_nodes=n_nodes, n_bins=n_bins)
-    n, d = codes.shape
-    S = stats_T.shape[0]
-    _need(codes, "codes", torch.uint8, (n, d))
-    _need(stats_T, "stats_T", torch.float32, (S, n))
-    _need(rel, "rel", torch.int32, (n,))
-    _need(active, "active", torch.bool, (n,))
+    return tree_histogram_slices(
+        codes[None], (0,), stats_T[None], rel[None], active[None],
+        n_nodes=n_nodes, n_bins=n_bins,
+        max_abs=None if max_abs is None else max_abs[None])[0]
+
+
+def tree_histogram_slices_ref(codes, code_idx, stats_T, rel, active, *,
+                              n_nodes: int, n_bins: int) -> torch.Tensor:
+    """Plain version of ``tree_histogram_slices``: the plain histogram of
+    each slice."""
+    return torch.stack([
+        tree_histogram_ref(codes[int(c)], stats_T[g], rel[g], active[g],
+                           n_nodes=n_nodes, n_bins=n_bins)
+        for g, c in enumerate(code_idx)])
+
+
+def tree_histogram_slices(codes, code_idx, stats_T, rel, active, *,
+                          n_nodes: int, n_bins: int,
+                          max_abs=None) -> torch.Tensor:
+    """``tree_histogram`` for G slices in one launch: codes (P, n, d)
+    uint8, a stack of bin matrices; code_idx: G ints, slice g's matrix;
+    stats_T (G, S, n) float32; rel (G, n) int32; active (G, n) bool;
+    max_abs (G, S) or None. Returns (G, n_nodes, d, n_bins, S), each
+    slice bit-identical to its own one-slice launch."""
+    G = len(code_idx)
+    if not _on_cuda(codes, stats_T, rel, active):
+        return tree_histogram_slices_ref(codes, code_idx, stats_T, rel,
+                                         active, n_nodes=n_nodes,
+                                         n_bins=n_bins)
+    P, n, d = codes.shape
+    S = stats_T.shape[1]
+    _need(codes, "codes", torch.uint8, (P, n, d))
+    _need(stats_T, "stats_T", torch.float32, (G, S, n))
+    _need(rel, "rel", torch.int32, (G, n))
+    _need(active, "active", torch.bool, (G, n))
     max_abs = _max_abs_arg(stats_T, max_abs)
     dev = codes.device
-    NG, CG, R, rows = hist_plan(n, d, n_bins, S, n_nodes, _num_sms(dev))
-    out = torch.empty((n_nodes, d, n_bins, S), dtype=torch.float32,
+    idx = slice_index(code_idx, P, dev)
+    NG, CG, R, rows = hist_plan(n, d, n_bins, S, n_nodes, _num_sms(dev), G)
+    out = torch.empty((G, n_nodes, d, n_bins, S), dtype=torch.float32,
                       device=dev)
     partial = torch.empty((R, out.numel()), dtype=torch.int64, device=dev)
-    lib = _library()
-    _check(lib.lo_tree_hist_u8(
-        codes.data_ptr(), stats_T.data_ptr(), max_abs.data_ptr(),
-        rel.data_ptr(), active.data_ptr(), out.data_ptr(),
-        partial.data_ptr(), n, d, n_bins, S, n_nodes, NG, CG, R, rows,
-        _stream(dev)), "tree_histogram")
-    _count("tree_histogram")
+    _check(_library().lo_tree_hist_u8(
+        codes.data_ptr(), idx.data_ptr(), stats_T.data_ptr(),
+        max_abs.data_ptr(), rel.data_ptr(), active.data_ptr(),
+        out.data_ptr(), partial.data_ptr(), n, d, n_bins, S, n_nodes, NG, CG,
+        R, rows, G, _stream(dev)), "tree_histogram")
+    _count("tree_histogram", G)
     return out
 
 
@@ -238,25 +311,47 @@ def tree_leaf_stats(assign, stats_T, *, n_nodes: int,
     histogram kernel with one synthetic feature whose code is the node id,
     in the same fixed point. assign: (n,) int32 in [0, n_nodes); stats_T:
     (S, n) float32; max_abs as for ``tree_histogram``. Returns
-    (S, n_nodes) float32 (a transposed view)."""
+    (S, n_nodes) float32 (a transposed view). The one-slice launch of
+    ``tree_leaf_stats_slices``."""
     if not _on_cuda(assign, stats_T):
         return tree_leaf_stats_ref(assign, stats_T, n_nodes=n_nodes)
-    n = assign.shape[0]
-    S = stats_T.shape[0]
-    _need(assign, "assign", torch.int32, (n,))
-    _need(stats_T, "stats_T", torch.float32, (S, n))
+    return tree_leaf_stats_slices(
+        assign[None], stats_T[None], n_nodes=n_nodes,
+        max_abs=None if max_abs is None else max_abs[None])[0]
+
+
+def tree_leaf_stats_slices_ref(assign, stats_T, *,
+                               n_nodes: int) -> torch.Tensor:
+    """Plain version of ``tree_leaf_stats_slices``."""
+    return torch.stack([tree_leaf_stats_ref(a, s, n_nodes=n_nodes)
+                        for a, s in zip(assign, stats_T)])
+
+
+def tree_leaf_stats_slices(assign, stats_T, *, n_nodes: int,
+                           max_abs=None) -> torch.Tensor:
+    """``tree_leaf_stats`` for G slices in one launch: assign (G, n)
+    int32, stats_T (G, S, n) float32, max_abs (G, S) or None. Returns
+    (G, S, n_nodes) float32 (a transposed view), each slice bit-identical
+    to its own one-slice launch."""
+    if not _on_cuda(assign, stats_T):
+        return tree_leaf_stats_slices_ref(assign, stats_T, n_nodes=n_nodes)
+    G, n = assign.shape
+    S = stats_T.shape[1]
+    if G > 65535:
+        raise ValueError(f"{G} slices exceed a launch's 65,535")
+    _need(assign, "assign", torch.int32, (G, n))
+    _need(stats_T, "stats_T", torch.float32, (G, S, n))
     max_abs = _max_abs_arg(stats_T, max_abs)
     dev = assign.device
-    _, CG, R, rows = hist_plan(n, 1, n_nodes, S, 1, _num_sms(dev))
-    out = torch.empty((n_nodes, S), dtype=torch.float32, device=dev)
+    _, CG, R, rows = hist_plan(n, 1, n_nodes, S, 1, _num_sms(dev), G)
+    out = torch.empty((G, n_nodes, S), dtype=torch.float32, device=dev)
     partial = torch.empty((R, out.numel()), dtype=torch.int64, device=dev)
-    lib = _library()
-    _check(lib.lo_tree_leaf_i32(
+    _check(_library().lo_tree_leaf_i32(
         assign.data_ptr(), stats_T.data_ptr(), max_abs.data_ptr(),
-        out.data_ptr(), partial.data_ptr(), n, n_nodes, S, CG, R, rows,
+        out.data_ptr(), partial.data_ptr(), n, n_nodes, S, CG, R, rows, G,
         _stream(dev)), "tree_leaf_stats")
-    _count("tree_leaf_stats")
-    return out.T
+    _count("tree_leaf_stats", G)
+    return out.transpose(1, 2)
 
 
 # ---------------------------------------------------------------------------
@@ -322,10 +417,7 @@ def tree_route_level(codes, rel, active, assign, best_f, best_t, split, *,
     active (n,) bool; best_f, best_t (NL,) int32, split (NL,) bool;
     codes_T: ``feature_major(codes)`` if the caller has it (made here
     otherwise on the card; unused on the CPU). Returns the new (n,) int32
-    node ids."""
-    extra = () if codes_T is None else (codes_T,)
-    cuda = _on_cuda(codes, rel, active, assign, best_f, best_t, split,
-                    *extra)
+    node ids. The one-slice launch of ``tree_route_level_slices``."""
     n, d = codes.shape
     if codes_T is not None:
         _need(codes_T, "codes_T", torch.uint8, (d, n))
@@ -334,13 +426,53 @@ def tree_route_level(codes, rel, active, assign, best_f, best_t, split, *,
         if tuple(t.shape) != (NL,):
             raise ValueError(f"{name} has shape {tuple(t.shape)}, the level "
                              f"tables ({NL},)")
-    if not cuda:
+    extra = () if codes_T is None else (codes_T,)
+    if not _on_cuda(codes, rel, active, assign, best_f, best_t, split,
+                    *extra):
         return tree_route_level_ref(codes, rel, active, assign, best_f,
                                     best_t, split)
-    _need(codes, "codes", torch.uint8, (n, d))
-    _need(rel, "rel", torch.int32, (n,))
-    _need(active, "active", torch.bool, (n,))
-    _need(assign, "assign", torch.int32, (n,))
+    return tree_route_level_slices(
+        codes[None], (0,), rel[None], active[None], assign[None],
+        best_f[None], best_t[None], split[None],
+        codes_T=None if codes_T is None else codes_T[None])[0]
+
+
+def tree_route_level_slices_ref(codes, code_idx, rel, active, assign,
+                                best_f, best_t, split) -> torch.Tensor:
+    """Plain version of ``tree_route_level_slices``."""
+    return torch.stack([
+        tree_route_level_ref(codes[int(c)], rel[g], active[g], assign[g],
+                             best_f[g], best_t[g], split[g])
+        for g, c in enumerate(code_idx)])
+
+
+def tree_route_level_slices(codes, code_idx, rel, active, assign, best_f,
+                            best_t, split, *, codes_T=None) -> torch.Tensor:
+    """``tree_route_level`` for G slices in one launch: codes (P, n, d)
+    uint8, a stack of bin matrices; code_idx: G ints, slice g's matrix;
+    rel, assign (G, n) int32; active (G, n) bool; best_f, best_t (G, NL)
+    int32, split (G, NL) bool; codes_T the (P, d, n) feature-major stack
+    (``feature_major`` of each matrix; made here on the card otherwise).
+    Returns (G, n) int32, each slice bit-identical to its own one-slice
+    launch."""
+    G = len(code_idx)
+    P, n, d = codes.shape
+    if codes_T is not None:
+        _need(codes_T, "codes_T", torch.uint8, (P, d, n))
+    NL = best_f.shape[1]
+    for name, t in (("best_f", best_f), ("best_t", best_t), ("split", split)):
+        if tuple(t.shape) != (G, NL):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, the level "
+                             f"tables ({G}, {NL})")
+    extra = () if codes_T is None else (codes_T,)
+    if not _on_cuda(codes, rel, active, assign, best_f, best_t, split,
+                    *extra):
+        return tree_route_level_slices_ref(codes, code_idx, rel, active,
+                                           assign, best_f, best_t, split)
+    _need(codes, "codes", torch.uint8, (P, n, d))
+    _need(rel, "rel", torch.int32, (G, n))
+    _need(active, "active", torch.bool, (G, n))
+    _need(assign, "assign", torch.int32, (G, n))
     check_node_features(d)
     if 4 * NL > SMEM_BYTES:
         raise ValueError(f"a {NL}-node level table does not fit shared "
@@ -348,17 +480,18 @@ def tree_route_level(codes, rel, active, assign, best_f, best_t, split, *,
     best_f, best_t = best_f.int().contiguous(), best_t.int().contiguous()
     split = split.bool().contiguous()
     if codes_T is None:
-        codes_T = feature_major(codes)
+        codes_T = (feature_major(codes[0])[None] if P == 1
+                   else torch.stack([feature_major(c) for c in codes]))
     dev = codes.device
-    out = torch.empty((n,), dtype=torch.int32, device=dev)
-    lib = _library()
-    _check(lib.lo_tree_route(
-        codes_T.data_ptr(), rel.data_ptr(), active.data_ptr(),
-        assign.data_ptr(), best_f.data_ptr(), best_t.data_ptr(),
-        split.data_ptr(), out.data_ptr(), n, d, NL,
+    idx = slice_index(code_idx, P, dev)
+    out = torch.empty((G, n), dtype=torch.int32, device=dev)
+    _check(_library().lo_tree_route(
+        codes_T.data_ptr(), idx.data_ptr(), rel.data_ptr(),
+        active.data_ptr(), assign.data_ptr(), best_f.data_ptr(),
+        best_t.data_ptr(), split.data_ptr(), out.data_ptr(), n, d, NL, G,
         _ROW_BLOCKS_PER_SM * _num_sms(dev), _stream(dev)),
         "tree_route_level")
-    _count("tree_route_level")
+    _count("tree_route_level", G)
     return out
 
 
@@ -407,12 +540,13 @@ def descend_tile_bytes(rows: int, d: int) -> int:
 
 
 def descend_plan(n: int, d: int, depth: int, T: int,
-                 n_sms: int) -> DescendPlan:
-    """Path and launch shape of ``tree_descend``. Staged where a row is
-    at most SECTOR_BYTES × depth wide and two tiles of DESCEND_THREADS
-    rows fit beside one table, with as many rows a thread (4, 2 or 1) as
-    fit; direct otherwise. Trees go in chunks as large as the shared
-    memory left beside the tiles holds. Raises ``ValueError`` past
+                 n_sms: int, G: int = 1) -> DescendPlan:
+    """Path and launch shape of ``tree_descend`` over G slices. Staged
+    where a row is at most SECTOR_BYTES × depth wide and two tiles of
+    DESCEND_THREADS rows fit beside one table, with as many rows a thread
+    (4, 2 or 1) as fit; direct otherwise. Trees go in chunks as large as
+    the shared memory left beside the tiles holds; the blocks of all
+    chunks and slices fill one wave. Raises ``ValueError`` past
     MAX_DESCEND_DEPTH."""
     if depth > MAX_DESCEND_DEPTH:
         raise ValueError(f"a depth-{depth} walk exceeds the "
@@ -439,7 +573,7 @@ def descend_plan(n: int, d: int, depth: int, T: int,
     chunks = -(-T // per_chunk)
     resident = max(1, min(_DESCEND_BLOCKS_PER_SM,
                           _SM_SMEM_BYTES // (smem + 1024)))
-    blocks = max(1, min(units, -(-resident * n_sms // chunks)))
+    blocks = max(1, min(units, -(-resident * n_sms // (chunks * G))))
     # As few blocks as keep the rounds over the units the same, so that
     # no last round runs a few blocks alone.
     blocks = -(-units // -(-units // blocks)) if units else 1
@@ -479,31 +613,64 @@ def tree_descend(codes, feat, thr, internal, *,
     """Leaf node id of every binned row. codes (n, d) uint8; feat, thr,
     internal (M,) for one tree or (T, M) for T trees in one launch, which
     reads the codes once per chunk of trees (``descend_plan``). Returns
-    (n,) or (T, n) int32."""
+    (n,) or (T, n) int32. The one-slice launch of
+    ``tree_descend_slices``."""
     if not _on_cuda(codes, feat, thr, internal):
         return tree_descend_ref(codes, feat, thr, internal,
                                 max_depth=max_depth)
-    n, d = codes.shape
-    _need(codes, "codes", torch.uint8, (n, d))
-    check_node_features(d)
     single = feat.dim() == 1
     M = feat.shape[-1]
-    feat, thr = (t.reshape(-1, M).int().contiguous() for t in (feat, thr))
-    internal = internal.reshape(-1, M).bool().contiguous()
-    T = feat.shape[0]
-    _need(thr, "thr", torch.int32, (T, M))
-    _need(internal, "internal", torch.bool, (T, M))
-    depth = descend_depth(M, max_depth)
-    dev = codes.device
-    plan = descend_plan(n, d, depth, T, _num_sms(dev))
-    out = torch.empty((T, n), dtype=torch.int32, device=dev)
-    lib = _library()
-    _check(lib.lo_tree_descend(
-        codes.data_ptr(), feat.data_ptr(), thr.data_ptr(),
-        internal.data_ptr(), out.data_ptr(), n, d, M, table_words(depth), T,
-        depth, plan.rows_per_tile, plan.tile_bytes, plan.trees_per_chunk,
-        plan.blocks, _stream(dev)),
-        "tree_descend")
-    _count("tree_descend")
+    out = tree_descend_slices(
+        codes[None], (0,), feat.reshape(1, -1, M), thr.reshape(1, -1, M),
+        internal.reshape(1, -1, M), max_depth=max_depth)[0]
     return out[0] if single else out
 
+
+def tree_descend_slices_ref(codes, code_idx, feat, thr, internal, *,
+                            max_depth: int) -> torch.Tensor:
+    """Plain version of ``tree_descend_slices``."""
+    return torch.stack([
+        tree_descend_ref(codes[int(c)], feat[g], thr[g], internal[g],
+                         max_depth=max_depth)
+        for g, c in enumerate(code_idx)])
+
+
+def tree_descend_slices(codes, code_idx, feat, thr, internal, *,
+                        max_depth: int) -> torch.Tensor:
+    """``tree_descend`` for G slices in one launch, each walking its own
+    T trees: codes (P, n, d) uint8, a stack of bin matrices whose rows
+    are contiguous (a row range of a stack is fine); code_idx: G ints,
+    slice g's matrix; feat, thr, internal (G, T, M). Returns (G, T, n)
+    int32, each slice bit-identical to its own one-slice launch."""
+    G = len(code_idx)
+    if not _on_cuda(codes, feat, thr, internal):
+        return tree_descend_slices_ref(codes, code_idx, feat, thr, internal,
+                                       max_depth=max_depth)
+    P, n, d = codes.shape
+    if (codes.dtype != torch.uint8
+            or (n > 1 and codes.stride(1) != d)
+            or (d > 1 and codes.stride(2) != 1)):
+        raise ValueError(f"codes: expected uint8 (P, n, d) with contiguous "
+                         f"rows, got {codes.dtype} strides {codes.stride()}")
+    check_node_features(d)
+    M = feat.shape[-1]
+    T = feat.shape[1]
+    feat, thr = (t.int().contiguous() for t in (feat, thr))
+    internal = internal.bool().contiguous()
+    for name, t in (("feat", feat), ("thr", thr), ("internal", internal)):
+        if tuple(t.shape) != (G, T, M):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"({G}, {T}, {M})")
+    depth = descend_depth(M, max_depth)
+    dev = codes.device
+    idx = slice_index(code_idx, P, dev)
+    plan = descend_plan(n, d, depth, T, _num_sms(dev), G)
+    out = torch.empty((G, T, n), dtype=torch.int32, device=dev)
+    _check(_library().lo_tree_descend(
+        codes.data_ptr(), idx.data_ptr(), codes.stride(0), feat.data_ptr(),
+        thr.data_ptr(), internal.data_ptr(), out.data_ptr(), n, d, M,
+        table_words(depth), T, depth, plan.rows_per_tile, plan.tile_bytes,
+        plan.trees_per_chunk, plan.blocks, G, _stream(dev)),
+        "tree_descend")
+    _count("tree_descend", G)
+    return out

@@ -19,8 +19,9 @@ image service and online predict tier, on one CUDA device (``device``,
 ``"cuda"`` unless the caller passes ``"cpu"``), with its observability
 planes (``/status``, ``/metrics/history``, ``/resources``, ``/alerts``,
 ``/debug/flightrec``, ``/debug/profile``, ``/metrics?format=prometheus``)
-and the multi-process front end (``http_workers > 1``,
-serving/frontend.py). Not ported yet, and so not routed: ``/tune``;
+the multi-process front end (``http_workers > 1``,
+serving/frontend.py) and the device-resident hyperparameter search
+(``POST /tune``, models/tune.py). Not ported yet, and so not routed:
 ``/cluster`` and ``/replication`` (the pod planes); the replication
 receive server (``replica_port``).
 """
@@ -456,6 +457,56 @@ class App:
             return 201, {"result": "model build started",
                          "prediction_datasets": pred_datasets}
 
+        # ---- device-resident hyperparameter search (models/tune.py):
+        # one family, a population of configs fitted together on the
+        # card, masked k-fold CV over the resident design, successive
+        # halving on checkpoint rungs. The leaderboard lands in the
+        # marker dataset's metadata; promote=true also refits the winner
+        # on all rows and persists it under tune_filename in the
+        # trained-model registry.
+        @self._route("POST", "/tune")
+        def tune_sweep(req):
+            (train, out, classifier, configs, label) = req.require(
+                "training_filename", "tune_filename", "classificator",
+                "configs", "label")
+            steps = req.body.get("steps", ())
+            folds = req.body.get("folds")
+            rungs = req.body.get("rungs")
+            promote = bool(req.body.get("promote", False))
+            sync = bool(req.body.get("sync", True))
+            # Admission BEFORE any dataset exists: a bad config 406s
+            # naming the offending key (models/registry.HPARAM_SPECS)
+            # instead of stranding a doomed async marker.
+            app.builder.validate_tune(train, out, classifier, configs)
+
+            if sync:
+                board = app.builder.tune(train, out, classifier, configs,
+                                         label, steps=steps, folds=folds,
+                                         rungs=rungs, promote=promote)
+                return 201, {"result": board}
+
+            # Metadata-first marker + recorded job spec: a process death
+            # mid-sweep re-runs the sweep from this record, and the
+            # rung-boundary fit checkpoints make the re-run resume
+            # instead of restarting (builder.tune → tune.sweep).
+            job_spec = {"kind": "tune", "train": train, "out": out,
+                        "classifier": classifier,
+                        "configs": list(configs), "label": label,
+                        "steps": list(steps), "folds": folds,
+                        "rungs": rungs, "promote": promote}
+            app.store.create(out, parent=train,
+                             extra={"classifier": classifier,
+                                    "label": label, "tune": True,
+                                    "job": job_spec})
+
+            def run():
+                app.builder.tune(train, out, classifier, configs, label,
+                                 steps=steps, folds=folds, rungs=rungs,
+                                 promote=promote, existing=True)
+
+            app.jobs.submit("tune", out, run)
+            return 201, {"result": "tune sweep started", "poll": out}
+
         # ---- trained-model registry (upgrade: the reference discards
         # fitted models, SURVEY.md §5; here they persist + re-serve)
         @self._route("GET", "/trained-models")
@@ -721,6 +772,7 @@ class App:
         from learningorchestra_tpu_torch import jobs as jobs_module
         from learningorchestra_tpu_torch.catalog import ingest as ingest_module
         from learningorchestra_tpu_torch.catalog import readpipe
+        from learningorchestra_tpu_torch.models import tune as tune_module
         from learningorchestra_tpu_torch.utils import fitckpt
         from learningorchestra_tpu_torch.utils.profiling import op_timer
 
@@ -734,6 +786,11 @@ class App:
                # The resumable-fit plane: the fit-checkpoint store's
                # disk footprint and its write/resume/discard counters.
                "fit_checkpoints": fitckpt.disk_snapshot(self.cfg),
+               # Hyperparameter-search plane: populations fitted,
+               # candidates evaluated, halving drops, memory-budget wave
+               # spills (rendered as lo_tune_* on the exposition
+               # surface).
+               "tune": tune_module.counters_snapshot(),
                "integrity": self.store.integrity_snapshot(),
                "read_pipeline": readpipe.snapshot(),
                "ingest": ingest_module.counters_snapshot(),
@@ -923,6 +980,16 @@ class App:
         if kind == "model_predict":
             return lambda: self.builder.predict(
                 spec["model"], spec["dataset"], spec["out"], existing=True)
+        if kind == "tune":
+            # The re-run resumes from the sweep's rung-boundary fit
+            # checkpoints (same config key), so a process death at rung k
+            # costs rung k, not the whole population.
+            return lambda: self.builder.tune(
+                spec["train"], spec["out"], spec["classifier"],
+                spec["configs"], spec["label"],
+                steps=spec.get("steps") or (),
+                folds=spec.get("folds"), rungs=spec.get("rungs"),
+                promote=bool(spec.get("promote")), existing=True)
         return None
 
     def _rescan_failed_jobs(self) -> None:

@@ -60,7 +60,7 @@ FP_CKPT_PRE_READ = failpoints.declare("fit.ckpt.pre_read")
 #: Families whose fits carry natural mid-fit checkpoint boundaries (the
 #: builder only mints contexts for these; lr/nb/dt fits are single
 #: closed-form/one-batch fits whose only boundary is the start).
-SEGMENTED_FAMILIES = ("gb", "rf")
+SEGMENTED_FAMILIES = ("gb", "rf", "mlp")
 
 _counter_lock = threading.Lock()
 _counters = {"writes": 0, "resumes": 0, "discarded": 0}

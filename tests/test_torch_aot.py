@@ -264,9 +264,9 @@ def test_rows_bit_identical_across_buckets_and_batch_path(trt, kind,
 
 
 def test_online_kinds_are_the_ported_families():
-    assert set(ONLINE_KINDS) == {"lr", "nb", "dt", "rf", "gb"}
+    assert set(ONLINE_KINDS) == {"lr", "nb", "dt", "rf", "gb", "mlp"}
     with pytest.raises(ValueError, match="not servable online"):
-        aot.AotModel("m", (0, 0), {"kind": "mlp", "preprocess": PP}, None,
+        aot.AotModel("m", (0, 0), {"kind": "tx", "preprocess": PP}, None,
                      BUCKETS, device="cpu")
 
 

@@ -134,14 +134,21 @@ def test_persistence_round_trip(sweeps):
 def test_unported_paths_raise(sweeps):
     cfg, store, mb, _ = sweeps["torch"]
     with pytest.raises(ValueError, match="not yet ported"):
-        mb.validate("train", "test", ["mlp"], "p2")
+        mb.validate("train", "test", ["tx"], "p2")
     # Exec preprocessing is ported behind the JAX package's gate (off).
     assert not cfg.allow_exec_preprocessing
     with pytest.raises(PermissionError, match="disabled"):
         mb.build("train", "test", "p3", ["lr"], "Survived",
                  preprocessor_code="pass")
-    with pytest.raises(NotImplementedError):
-        mb.tune("train", "t", "gb", [{}], "Survived")
+    # Tune is ported; what the JAX package refuses, this one refuses too:
+    # a family with no population path, and a streamed design.
+    with pytest.raises(ValueError, match="population"):
+        mb.validate_tune("train", "t", "nb", [{}])
+    streamed = ModelBuilder(store, mb.runtime,
+                            cfg.replace(stream_design=True))
+    with pytest.raises(ValueError, match="resident design"):
+        streamed.tune("train", "t", "gb", [{}], "Survived")
+    assert not store.exists("t")
 
 
 @pytest.mark.parametrize("knob", ["stream_design", "fit_ckpt_rounds"])

@@ -61,10 +61,11 @@ HPARAMS = {
     "dt": [{}, {"max_depth": 8, "n_bins": 64}],
     "rf": [{}, {"n_trees": 3, "max_depth": 4, "n_bins": 16}],
     "gb": [{}, {"n_rounds": 7, "max_depth": 3, "n_bins": 128}],
+    "mlp": [{}, {"hidden": 32, "iters": 40}],
 }
 
 
-@pytest.mark.parametrize("kind", FAMILIES)
+@pytest.mark.parametrize("kind", FAMILIES + ("mlp",))
 def test_flops_equal_the_jax_kernel_path(kind):
     for (n, d, c), hp in itertools.product(SHAPES, HPARAMS[kind]):
         case = (kind, n, d, c, hp)

@@ -308,10 +308,15 @@ def test_error_paths(served):
     db.create_file("badfile", "file:///does/not/exist.csv")
     with pytest.raises(JobFailed):
         db.waiter.wait("badfile")
-    # Not ported routes are absent, not stubbed; the observability
-    # planes answer.
-    for path in ("/tune", "/cluster", "/replication"):
+    # Not ported routes are absent, not stubbed; /tune is routed (a
+    # family without a population path is refused as in the JAX
+    # package); the observability planes answer.
+    for path in ("/cluster", "/replication"):
         assert requests.get(ctx.url(path)).status_code == 404
+    r = requests.post(ctx.url("/tune"), json={
+        "training_filename": "dup1", "tune_filename": "dup1t",
+        "classificator": "nb", "configs": [{}], "label": "Survived"})
+    assert r.status_code == 406 and "population" in r.text
     for path in ("/status", "/alerts", "/resources", "/metrics/history",
                  "/debug/flightrec"):
         assert requests.get(ctx.url(path)).status_code == 200, path
@@ -681,7 +686,10 @@ def test_persistence_recovery_and_retry_specs(served):
         {"kind": "model_predict", "model": "om_lr", "dataset": "otrain",
          "out": "x"}, ["x"])
     assert callable(runner)
-    assert app._retry_runner({"kind": "tune"}, ["y"]) is None
+    assert callable(app._retry_runner(
+        {"kind": "tune", "train": "otrain", "out": "y",
+         "classifier": "dt", "configs": [{}], "label": "Survived"}, ["y"]))
+    assert app._retry_runner({"kind": "cluster"}, ["y"]) is None
 
 
 def test_server_times_out_half_sent_request(tmp_path):
