@@ -117,7 +117,26 @@ Phases, one JSON line each (any failure exits non-zero):
    slice form); each winner answers ``ModelBuilder.predict`` and an
    online request; ``/metrics`` counts the sweeps; then folds=1 parity
    on the 1M-row set, every member's score its serial fit's
-   self-accuracy on the card (gb within 0.02).
+   self-accuracy on the card (gb within 0.02);
+14. tx, the sequence classifier (no kernel of its own: PyTorch tensor
+   ops, full float32 products): (a) forward, loss and all 24
+   gradients at 16/32/4/2/64 on the card against the CPU from the same
+   params, causal and not, remat and not (rtol 1e-4, atol 1e-5); (b)
+   blockwise attention (1,024-key folds) at T = 8,192, B 1, H 8, D 64
+   against full attention on the card, causal and not (rtol 1e-4, atol
+   1e-5), each timed; (c) one train step through a one-rank NCCL
+   group (``distributed.initialize`` on a free 127.0.0.1 port), every
+   all-reduce counted, ``torch.equal`` in loss, params and Adam state to
+   the step with no process group; (d) ``POST /models`` of tx at
+   bench_transformer.py's ``large`` widths (512/8/8/2048, batch 16, 100
+   steps) on 4,096 train and 256 test rows of 1,024 tokens (the
+   dominance task of tests/test_sequence.py) through the port's client
+   SDK on a served ``App``: accuracy ≥ 0.9, the prediction dataset
+   finished, the model re-served through
+   ``/trained-models/{name}/predictions`` with the same predictions;
+   ``fit_time`` and the allocator's peak; (e) the train step at
+   bench_transformer.py's four shapes, ``step_s``, tokens/s, loss and
+   the allocator's peak each.
 
 Each ``fit`` line of the sweep carries ``mfu`` and ``bw_util``: the
 port's FLOP and byte models (``models/flops.py``) over the fit's window,
@@ -2026,6 +2045,306 @@ def tune_path(cfg, store, dev) -> dict:
     return total
 
 
+#: The tx phase: (a) the card against the CPU at test_ring_attention.py's
+#: widths; (b) blockwise attention at 8,192 tokens; (d) REST at
+#: bench_transformer.py's ``large`` widths; (e) its four train steps
+#: (widths, batch, seq, timed steps).
+TX_SMALL = dict(vocab=16, d_model=32, n_heads=4, n_layers=2, d_ff=64,
+                n_classes=3, max_len=64)
+TX_LONG_T, TX_LONG_HEADS, TX_LONG_HEAD_DIM = 8192, 8, 64
+TX_LARGE = dict(d_model=512, n_heads=8, n_layers=8, d_ff=2048)
+TX_REST_T, TX_REST_TRAIN, TX_REST_TEST = 1024, 4096, 256
+TX_REST_HPARAMS = dict(TX_LARGE, batch=16, train_steps=100, lr=1e-3)
+TX_STEP_SHAPES = (
+    (dict(d_model=256, n_heads=8, n_layers=4, d_ff=1024), 32, 1024, 5),
+    (TX_LARGE, 16, 2048, 3),
+    (TX_LARGE, 4, 8192, 2),
+    (dict(TX_LARGE, remat=True), 1, 32768, 1),
+)
+
+
+def _tx_grads(params, tokens, labels, cfg, mesh):
+    """Logits, loss and every leaf's gradient of the port's sharded
+    program on ``mesh``."""
+    import torch
+
+    from learningorchestra_tpu_torch.models import transformer as ttx
+
+    names = list(params)
+    leaves = [params[k].detach().requires_grad_(True) for k in names]
+    p = dict(zip(names, leaves))
+    with torch.no_grad():
+        logits = ttx.forward_shard(p, tokens, cfg=cfg, mesh=mesh)
+    loss = ttx.loss_shard(p, tokens, labels, cfg=cfg, mesh=mesh)
+    grads = dict(zip(names, torch.autograd.grad(loss, leaves)))
+    ttx.reduce_grads(grads, mesh)
+    return logits, loss.detach(), grads
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dominance_rows(n: int, T: int, seed: int):
+    """tests/test_sequence.py's task: label 1 when token 0 fills 60% of
+    the sequence, else tokens 1-7 uniformly (label 0)."""
+    rng = np.random.default_rng(seed)
+    y = (rng.random(n) >= 0.5).astype(np.int64)
+    X = rng.integers(1, 8, (n, T))
+    zero = (rng.random((n, T)) < 0.6) & (y[:, None] == 1)
+    X[zero] = 0
+    return X, y
+
+
+def _write_token_csv(path: str, X, y) -> str:
+    T = X.shape[1]
+    header = ",".join([f"t{j}" for j in range(T)] + ["label"])
+    np.savetxt(path, np.concatenate([X, y[:, None]], axis=1), fmt="%d",
+               delimiter=",", header=header, comments="")
+    return f"file://{path}"
+
+
+def tx_path(cfg, dev) -> None:
+    """The tx sequence classifier on the card: (a) forward, loss and
+    gradients against the CPU; (b) blockwise attention at 8,192 tokens
+    against full attention; (c) a train step through a one-rank NCCL
+    group, bit for bit the step with no process group; (d) ``POST
+    /models`` of tx at the ``large`` widths on 1,024-token rows through
+    the port's client, re-served through ``/trained-models``; (e) the
+    train step at bench_transformer.py's four shapes."""
+    import torch
+    import torch.distributed as dist
+
+    from learningorchestra_tpu_torch.client import Context, DatabaseApi, Model
+    from learningorchestra_tpu_torch.models import transformer as ttx
+    from learningorchestra_tpu_torch.parallel import distributed
+    from learningorchestra_tpu_torch.parallel.mesh import (
+        ProcessMesh, local_mesh)
+    from learningorchestra_tpu_torch.parallel.ring_attention import (
+        reference_attention, ring_attention)
+    from learningorchestra_tpu_torch.serving.app import App
+
+    # Full float32 products on the card, as on the CPU.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    check(torch.get_float32_matmul_precision() == "highest",
+          "float32 matmul precision is not 'highest'")
+    t_phase = time.time()
+    cpu = torch.device("cpu")
+    no_group = ProcessMesh((1, 1, 1))
+
+    # (a) The card against the CPU, from the same params and tokens.
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, TX_SMALL["vocab"], (8, 16))
+    labels = rng.integers(0, TX_SMALL["n_classes"], 8)
+    doc = {"phase": "tx_card_vs_cpu", "card": card_line(), "cases": []}
+    for causal in (False, True):
+        for remat in (False, True):
+            c = ttx.TxConfig(**TX_SMALL, causal=causal, remat=remat)
+            params = ttx.init_params(torch.Generator().manual_seed(0), c)
+            (lc, sc, gc), (lg, sg, gg) = (
+                _tx_grads({k: v.to(d) for k, v in params.items()},
+                          torch.from_numpy(tokens).to(d),
+                          torch.from_numpy(labels).to(d), c, no_group)
+                for d in (cpu, dev))
+            pairs = [("logits", lc, lg), ("loss", sc, sg)] + [
+                (k, gc[k], gg[k]) for k in gc]
+            worst = 0.0
+            for name, a, b in pairs:
+                b = b.cpu()
+                check(torch.allclose(b, a, rtol=1e-4, atol=1e-5),
+                      f"tx card vs CPU ({causal=}, {remat=}): {name} "
+                      f"differs by {float((b - a).abs().max())}")
+                worst = max(worst, float((b - a).abs().max()))
+            doc["cases"].append({"causal": causal, "remat": remat,
+                                 "max_abs_diff": worst,
+                                 "leaves": len(gc)})
+    emit(doc)
+
+    # (b) Blockwise attention at 8,192 tokens against full attention.
+    g = torch.Generator(device=dev).manual_seed(1)
+    shape = (1, TX_LONG_T, TX_LONG_HEADS, TX_LONG_HEAD_DIM)
+    q, k, v = (torch.randn(shape, generator=g, device=dev)
+               for _ in range(3))
+    B, T, H, D = shape
+    doc = {"phase": "tx_blockwise", "card": card_line(), "T": TX_LONG_T,
+           "heads": TX_LONG_HEADS, "head_dim": TX_LONG_HEAD_DIM,
+           "kv_block": 1024, "cases": []}
+    with torch.no_grad():
+        for causal in (False, True):
+            got = ring_attention(q, k, v, causal=causal, kv_block=1024)
+            want = reference_attention(q, k, v, causal=causal)
+            err = float((got - want).abs().max())
+            check(torch.allclose(got, want, rtol=1e-4, atol=1e-5),
+                  f"blockwise attention at T={TX_LONG_T} ({causal=}) "
+                  f"differs by {err}")
+            # The least the card could take: q, k, v read and the output
+            # written once; the two products (2·T²·D multiply-adds a head,
+            # half of them under a causal mask) at the float32 peak.
+            doc["cases"].append({
+                "causal": causal, "max_abs_err": err,
+                "bound_ms": bound(4 * B * T * H * D * 4,
+                                  4 * B * H * T * T * D
+                                  * (0.5 if causal else 1.0))[0],
+                "blockwise_ms": time_ms(lambda: ring_attention(
+                    q, k, v, causal=causal, kv_block=1024), 3),
+                "full_ms": time_ms(lambda: reference_attention(
+                    q, k, v, causal=causal), 3)})
+            del got, want
+    emit(doc)
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    # (c) One train step through a one-rank NCCL group, every collective
+    # issued, against the same step with no process group.
+    c = ttx.TxConfig(**TX_SMALL)
+    params = ttx.init_params(torch.Generator().manual_seed(2), c)
+    tok = torch.from_numpy(tokens).to(dev)
+    lab = torch.from_numpy(labels).to(dev)
+
+    def one_step(mesh):
+        p = {k: v.to(dev) for k, v in params.items()}
+        p, state, loss = ttx.train_step(p, ttx.adam_init(p), tok, lab,
+                                        cfg=c, mesh=mesh, lr=1e-3)
+        torch.cuda.synchronize()
+        return p, state, loss
+
+    check(not dist.is_initialized(), "a process group exists already")
+    distributed.initialize(f"127.0.0.1:{_free_port()}", 1, 0)
+    reduces = []
+    all_reduce = dist.all_reduce
+    try:
+        mesh = local_mesh(cfg.replace(mesh_shape="1,1,1"))
+        check(all(gr is not None for gr in mesh.groups.values())
+              and dist.get_backend() == "nccl",
+              "the one-rank mesh has no NCCL groups")
+
+        def counted(*a, **kw):
+            reduces.append(1)
+            return all_reduce(*a, **kw)
+
+        dist.all_reduce = counted
+        grouped = one_step(mesh)
+    finally:
+        dist.all_reduce = all_reduce
+        dist.destroy_process_group()
+    plain = one_step(no_group)
+    same = (torch.equal(grouped[2], plain[2])
+            and all(torch.equal(grouped[0][k], plain[0][k])
+                    for k in params)
+            and all(torch.equal(grouped[1][m][k], plain[1][m][k])
+                    for m in ("mu", "nu") for k in params))
+    check(same, "the step through a one-rank NCCL group differs from the "
+          "step with no process group")
+    # psum/pvary: 2 + 2 a layer, the pooled psum, the loss's two psums;
+    # the gradients: every leaf over data, all but head_w/head_b over seq.
+    want = 4 * c.n_layers + 3 + 2 * len(params) - 2
+    check(len(reduces) == want,
+          f"{len(reduces)} all-reduces in the grouped step, {want} expected")
+    emit({"phase": "tx_nccl_one_rank", "card": card_line(),
+          "bit_identical": True, "all_reduces": len(reduces),
+          "loss": float(plain[2])})
+
+    # (d) REST at the large widths: POST /models of tx through the port's
+    # client, the predictions route on the saved model.
+    work = os.path.join(ROOT, "build", "chip_smoke_tx")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    Xtr, ytr = _dominance_rows(TX_REST_TRAIN, TX_REST_T, 3)
+    Xte, yte = _dominance_rows(TX_REST_TEST, TX_REST_T, 4)
+    train_url = _write_token_csv(os.path.join(work, "train.csv"), Xtr, ytr)
+    test_url = _write_token_csv(os.path.join(work, "test.csv"), Xte, yte)
+    app = App(cfg.replace(host="127.0.0.1", port=0,
+                          store_root=os.path.join(work, "store")),
+              recover=False, device=str(dev))
+    check(dict(app.runtime.mesh.shape) == {"data": 1, "model": 1, "seq": 1},
+          "the App's mesh is not one rank")
+    server = app.serve(background=True)
+    try:
+        ctx = Context(f"http://127.0.0.1:{server.port}", poll_seconds=0.1,
+                      timeout=900)
+        db, model = DatabaseApi(ctx), Model(ctx)
+        t0 = time.time()
+        db.create_file("tx_train", train_url, wait=True)
+        db.create_file("tx_test", test_url, wait=True)
+        ingest_s = time.time() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.time()
+        out = model.create_model("tx_train", "tx_test", "txpred", ["tx"],
+                                 "label", hparams={"tx": TX_REST_HPARAMS})
+        build_s = time.time() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        rep = out["result"][0]
+        check(rep["classifier"] == "tx" and "error" not in rep,
+              f"tx fit: {rep}")
+        check(rep["accuracy"] >= 0.9, f"tx accuracy {rep['accuracy']} < 0.9")
+        meta = db.read_file("txpred_tx", limit=1)[0]
+        check(meta["finished"] and not meta.get("error"), meta)
+        man = app.builder.registry.manifest("txpred_tx")
+        check(man["kind"] == "tx" and man["hparams"]["max_len"] == TX_REST_T
+              and man["hparams"]["d_model"] == TX_REST_HPARAMS["d_model"],
+              man["hparams"])
+        t0 = time.time()
+        model.predict("txpred_tx", "tx_test", "txpred_again", wait=True)
+        predict_s = time.time() - t0
+        again = db.read_file("txpred_again", limit=1)[0]
+        check(again["finished"] and not again.get("error"), again)
+        first = app.store.get("txpred_tx").columns["prediction"]
+        second = app.store.get("txpred_again").columns["prediction"]
+        check(np.array_equal(first, second) and len(second) == TX_REST_TEST,
+              "the re-served predictions differ from the fit's")
+        emit({"phase": "tx_rest", "card": card_line(),
+              "train_rows": TX_REST_TRAIN, "test_rows": TX_REST_TEST,
+              "tokens": TX_REST_T, "hparams": TX_REST_HPARAMS,
+              "ingest_s": ingest_s, "build_s": build_s,
+              "fit_time": rep["fit_time"], "accuracy": rep["accuracy"],
+              "f1": rep["f1"], "predict_s": predict_s,
+              "peak_allocated_bytes": peak})
+    finally:
+        server.stop()
+        shutil.rmtree(work, ignore_errors=True)
+    del app
+    torch.cuda.empty_cache()
+
+    # (e) The train step at bench_transformer.py's shapes.
+    steps = []
+    for widths, batch, seq, iters in TX_STEP_SHAPES:
+        c = ttx.TxConfig(max_len=seq, **widths)
+        p = {k: v.to(dev) for k, v in ttx.init_params(
+            torch.Generator().manual_seed(0), c).items()}
+        state = ttx.adam_init(p)
+        rng = np.random.default_rng(0)
+        tok = torch.from_numpy(rng.integers(0, c.vocab, (batch, seq))).to(dev)
+        lab = torch.from_numpy(rng.integers(0, c.n_classes, batch)).to(dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        p, state, loss = ttx.train_step(p, state, tok, lab, cfg=c,
+                                        mesh=no_group, lr=1e-3)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(iters):
+            p, state, loss = ttx.train_step(p, state, tok, lab, cfg=c,
+                                            mesh=no_group, lr=1e-3)
+        loss = float(loss)            # waits for the last step
+        step_s = (time.time() - t0) / iters
+        check(np.isfinite(loss), f"tx step at seq {seq}: loss {loss}")
+        steps.append({"d_model": c.d_model, "layers": c.n_layers,
+                      "seq": seq, "batch": batch, "remat": c.remat,
+                      "steps": iters, "step_s": step_s,
+                      "tokens_per_s": batch * seq / step_s, "loss": loss,
+                      "peak_allocated_bytes":
+                          torch.cuda.max_memory_allocated(dev)})
+        del p, state, tok, lab
+        torch.cuda.empty_cache()
+    emit({"phase": "tx_step", "card": card_line(), "shapes": steps,
+          "seconds": time.time() - t_phase})
+
+
 def utilization(kind: str, n_train: int, fit_time: float,
                 host_prep_s: float) -> dict:
     """A fit's ``mfu`` and ``bw_util``: the port's analytic FLOP and byte
@@ -2139,6 +2458,7 @@ def main_path(n_train: int, n_test: int, dev) -> dict:
         phases += [serve_counts,
                    serve_workers_path(cfg, dev, serve_ctx),
                    tune_path(cfg, store, dev)]
+        tx_path(cfg, dev)
         return {k: sum(p.get(k, 0) for p in phases) for k in KERNELS}
     finally:
         shutil.rmtree(work, ignore_errors=True)

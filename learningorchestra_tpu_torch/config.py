@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass, field, fields
+from typing import Optional
 
 
 def _env(name: str, default, cast=None):
@@ -153,6 +154,12 @@ class Settings:
         default_factory=lambda: _env("LO_TPU_INGEST_PARTITION_MIN_BYTES",
                                      4 << 20)
     )
+
+    # --- mesh / parallelism (parallel/mesh.py) -------------------------------
+    #: Optional forced mesh shape "D,M" or "D,M,S" (data × model × seq)
+    #: over the ranks of the process group; empty = every rank on the
+    #: data axis.
+    mesh_shape: str = field(default_factory=lambda: _env("LO_TPU_MESH_SHAPE", ""))
 
     # --- serving (serving/app.py, serving/http.py) ---------------------------
     #: The one service port; the reference's seven Flask ports become
@@ -494,6 +501,27 @@ def mesh_epoch() -> int:
         return int(os.environ.get("LO_TPU_MESH_EPOCH", "0") or 0)
     except ValueError:
         return 0
+
+
+def coordinator_address(default: Optional[str] = None) -> Optional[str]:
+    """``host:port`` of process 0's rendezvous for the process group
+    (``LO_TPU_COORDINATOR``, parallel/distributed.py). None/default =
+    single-process."""
+    return os.environ.get("LO_TPU_COORDINATOR") or default
+
+
+def num_processes() -> Optional[int]:
+    """Process count of the process group (``LO_TPU_NUM_PROCESSES``);
+    None = unset (single-process)."""
+    raw = os.environ.get("LO_TPU_NUM_PROCESSES")
+    return int(raw) if raw else None
+
+
+def process_id() -> Optional[int]:
+    """This process's rank in the process group (``LO_TPU_PROCESS_ID``);
+    None = unset (single-process)."""
+    raw = os.environ.get("LO_TPU_PROCESS_ID")
+    return int(raw) if raw is not None and raw != "" else None
 
 
 def failpoint_spec() -> str:

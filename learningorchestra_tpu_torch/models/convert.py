@@ -6,7 +6,10 @@ reaches this package) and returns a ``TrainedModel`` whose predictor is
 this package's, with the same layouts: tree tables (T, M) or (C, R, M),
 leaf statistics (T, M, S), gb leaf values and ``step_size``, bin
 ``edges`` (d, n_bins-1), lr ``W``/``b``/``mu``/``sigma``, nb moments,
-mlp ``W1``/``b1``/``W2``/``b2``/``mu``/``sigma``.
+mlp ``W1``/``b1``/``W2``/``b2``/``mu``/``sigma``. A tx model's nested
+pytree (``embed``, ``pos``, ``head_w``, ``head_b`` and a list of layer
+dicts) becomes the flat dict of models/transformer.py
+(``layers.<i>.<name>``).
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ import torch
 
 from learningorchestra_tpu_torch.models.base import TrainedModel
 from learningorchestra_tpu_torch.models.registry import predictor_for
+from learningorchestra_tpu_torch.models.transformer import (
+    TxConfig, param_names)
 
 #: Parameter keys per family, with the dtype each is held in.
 _KEYS = {
@@ -36,11 +41,23 @@ _KEYS = {
 _KEYS["rf"] = _KEYS["dt"]
 
 
-def from_jax_params(kind: str, params: Dict[str, np.ndarray],
+def _flatten_tx(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    flat = {k: v for k, v in params.items() if k != "layers"}
+    for i, layer in enumerate(params.get("layers", ())):
+        flat.update({f"layers.{i}.{k}": v for k, v in layer.items()})
+    return flat
+
+
+def from_jax_params(kind: str, params: Dict[str, Any],
                     num_classes: int, hparams: Dict[str, Any]) -> TrainedModel:
-    if kind not in _KEYS:
+    if kind == "tx":
+        params = _flatten_tx(params)
+        keys = dict.fromkeys(param_names(
+            TxConfig(n_layers=int(hparams["n_layers"]))), np.float32)
+    elif kind not in _KEYS:
         raise ValueError(f"no conversion for classifier kind {kind!r}")
-    keys = _KEYS[kind]
+    else:
+        keys = _KEYS[kind]
     unknown = set(params) - set(keys)
     if unknown:
         raise ValueError(f"unexpected {kind} params: {sorted(unknown)}")

@@ -3,9 +3,9 @@
 The reference maps ``{"lr", "dt", "rf", "gb", "nb"}`` to pyspark.ml
 classifiers (reference model_builder.py:152-158) and returns 409 for unknown
 names (ModelBuilderRequestValidator, model_builder.py:284-292). Same five
-names here, plus the JAX package's extension "mlp" (a two-layer
-perceptron). Its sequence model "tx" is not ported yet: asking for it
-raises a ValueError that says so.
+names here, plus the JAX package's extensions "mlp" (a two-layer
+perceptron) and "tx" (the dp×tp×sp transformer with ring attention,
+models/sequence.py).
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from functools import partial
 from typing import Any, Callable, Dict, Tuple
 
 from learningorchestra_tpu_torch.models import (
-    logistic, mlp, naive_bayes, trees)
+    logistic, mlp, naive_bayes, sequence, trees)
 
 CLASSIFIERS: Dict[str, Callable] = {
     "lr": logistic.fit,
@@ -23,13 +23,14 @@ CLASSIFIERS: Dict[str, Callable] = {
     "gb": trees.fit_gb,
     "nb": naive_bayes.fit,
     "mlp": mlp.fit,
+    "tx": sequence.fit,
 }
 
-#: Families of the JAX package that this package does not have yet.
-NOT_YET_PORTED = ("tx",)
-
 #: Families the online predict tier serves (models/aot.py): every
-#: continuous-feature family, the JAX package's list.
+#: continuous-feature family, the JAX package's list. "tx" is excluded —
+#: it consumes token sequences, so inline JSON feature rows are
+#: out-of-domain for it (its serving story is the batch predictions
+#: route).
 ONLINE_KINDS = ("lr", "nb", "dt", "rf", "gb", "mlp")
 
 
@@ -50,6 +51,10 @@ def _nonneg() -> Tuple[Callable, str]:
 
 def _choice(*opts: str) -> Tuple[Callable, str]:
     return (lambda v: v in opts, f"one of {sorted(opts)}")
+
+
+def _boolean() -> Tuple[Callable, str]:
+    return (lambda v: isinstance(v, bool), "a boolean")
 
 
 #: Per-family user-settable hyperparameters with their legal ranges —
@@ -77,6 +82,12 @@ HPARAM_SPECS: Dict[str, Dict[str, Tuple[Callable, str]]] = {
     "mlp": {"seed": _SEED, "hidden": _int_range(1, 65536),
             "iters": _int_range(1, 1_000_000), "lr": _positive(),
             "l2": _nonneg()},
+    "tx": {"seed": _SEED, "d_model": _int_range(8, 4096),
+           "n_heads": _int_range(1, 64), "n_layers": _int_range(1, 64),
+           "d_ff": _int_range(8, 16384), "vocab": _int_range(0, 2 ** 22),
+           "train_steps": _int_range(1, 1_000_000),
+           "batch": _int_range(1, 1 << 22), "lr": _positive(),
+           "causal": _boolean(), "remat": _boolean()},
 }
 
 
@@ -109,10 +120,6 @@ def get_trainer(name: str) -> Callable:
     try:
         return CLASSIFIERS[name]
     except KeyError:
-        if name in NOT_YET_PORTED:
-            raise ValueError(
-                f"classifier {name!r} is not yet ported to the PyTorch "
-                f"package; choose from {sorted(CLASSIFIERS)}") from None
         raise ValueError(
             f"invalid classifier {name!r}; choose from "
             f"{sorted(CLASSIFIERS)}") from None
@@ -141,4 +148,6 @@ def predictor_for(kind: str, hparams: Dict) -> Callable:
         return (naive_bayes._predict_multinomial
                 if hparams.get("event_model") == "multinomial"
                 else naive_bayes._predict_proba)
+    if kind == "tx":
+        return sequence.predictor(hparams)
     raise ValueError(f"no predictor for classifier kind {kind!r}")

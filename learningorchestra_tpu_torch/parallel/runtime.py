@@ -1,9 +1,11 @@
 """Device runtime — one CUDA device holding the framework's tensors.
 
 The JAX package row-shards every array over a device mesh
-(``learningorchestra_tpu/parallel/mesh.py``). This package runs on one
-device, so ``shard_rows`` is a host→device copy of the whole array and
-``replicate`` a copy of a small one. What carries over is the transfer
+(``learningorchestra_tpu/parallel/mesh.py``). This package's process
+runs on one device, so ``shard_rows`` is a host→device copy of the whole
+array and ``replicate`` a copy of a small one; a program sharded over
+several processes (the tx train step) reads its rank's place from
+``mesh`` (parallel/mesh.py). What carries over is the transfer
 cache: a five-classifier build hands the same design matrix to five
 trainers, and each would otherwise copy gigabytes over PCIe again —
 one copy of X serves every family.
@@ -34,6 +36,7 @@ import torch
 from learningorchestra_tpu_torch.catalog import readpipe
 from learningorchestra_tpu_torch.config import (
     Settings, settings as global_settings)
+from learningorchestra_tpu_torch.parallel.mesh import ProcessMesh, local_mesh
 
 
 def host_rows(x) -> np.ndarray:
@@ -127,6 +130,18 @@ class DeviceRuntime:
         # lock-holding allocation; a plain Lock would self-deadlock.
         self._lock = threading.RLock()
         self._transfer_cache: dict = {}
+        self._mesh: Optional[ProcessMesh] = None
+
+    @property
+    def mesh(self) -> ProcessMesh:
+        """The (data, model, seq) mesh over the process group's ranks
+        (parallel/mesh.py), built at first use: with a process group that
+        first use is collective, so every rank reaches it in the same
+        order. 1×1×1 with no process group."""
+        with self._lock:
+            if self._mesh is None:
+                self._mesh = local_mesh(self.cfg)
+        return self._mesh
 
     def _put(self, arr: np.ndarray) -> torch.Tensor:
         with warnings.catch_warnings():

@@ -13,10 +13,12 @@ import torch
 
 from learningorchestra_tpu.catalog.store import DatasetStore as JaxStore
 from learningorchestra_tpu.config import Settings as JaxSettings
+from learningorchestra_tpu.models.aot import AotModel as JaxAotModel
 from learningorchestra_tpu.models.builder import ModelBuilder as JaxBuilder
 from learningorchestra_tpu.parallel.mesh import MeshRuntime
 from learningorchestra_tpu_torch.catalog.store import DatasetStore
 from learningorchestra_tpu_torch.config import Settings
+from learningorchestra_tpu_torch.models.aot import AotModel
 from learningorchestra_tpu_torch.models.builder import ModelBuilder
 from learningorchestra_tpu_torch.models.persistence import ModelRegistry
 from learningorchestra_tpu_torch.parallel.runtime import DeviceRuntime
@@ -133,8 +135,10 @@ def test_persistence_round_trip(sweeps):
 
 def test_unported_paths_raise(sweeps):
     cfg, store, mb, _ = sweeps["torch"]
-    with pytest.raises(ValueError, match="not yet ported"):
-        mb.validate("train", "test", ["tx"], "p2")
+    jmb = sweeps["jax"][2]
+    # tx is ported: a build asking for it validates, as in the JAX package.
+    jmb.validate("train", "test", ["tx"], "p2")
+    mb.validate("train", "test", ["tx"], "p2")
     # Exec preprocessing is ported behind the JAX package's gate (off).
     assert not cfg.allow_exec_preprocessing
     with pytest.raises(PermissionError, match="disabled"):
@@ -144,6 +148,15 @@ def test_unported_paths_raise(sweeps):
     # a family with no population path, and a streamed design.
     with pytest.raises(ValueError, match="population"):
         mb.validate_tune("train", "t", "nb", [{}])
+    # Neither package tunes tx or serves it online (token sequences are
+    # not feature rows).
+    for builder in (jmb, mb):
+        with pytest.raises(ValueError, match="population"):
+            builder.validate_tune("train", "t", "tx", [{}])
+    with pytest.raises(ValueError, match="not servable online"):
+        JaxAotModel("m", (0, 0), {"kind": "tx"}, None, (1,))
+    with pytest.raises(ValueError, match="not servable online"):
+        AotModel("m", (0, 0), {"kind": "tx"}, None, (1,), device="cpu")
     streamed = ModelBuilder(store, mb.runtime,
                             cfg.replace(stream_design=True))
     with pytest.raises(ValueError, match="resident design"):
