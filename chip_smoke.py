@@ -136,7 +136,27 @@ Phases, one JSON line each (any failure exits non-zero):
    ``/trained-models/{name}/predictions`` with the same predictions;
    ``fit_time`` and the allocator's peak; (e) the train step at
    bench_transformer.py's four shapes, ``step_s``, tokens/s, loss and
-   the allocator's peak each.
+   the allocator's peak each;
+15. pod, the data-parallel pod on the one card: two ranks of
+   ``python -m learningorchestra_tpu_torch.serving --device cuda
+   --dist-backend gloo`` (NCCL refuses two ranks on one device) under
+   ``python -m learningorchestra_tpu_torch.supervisor``, whose pod
+   command starts both, on the sweep's store: through rank 0's REST API
+   ``POST /models`` of the five families (dt and gb accuracies the
+   sweep's exactly, lr and nb within 1e-4, rf above its floor and lr), a
+   batch predict of the pod's gb model (every probability the sweep's
+   predict's), a histogram (exact) and the 60,000 × 784 t-SNE image (the
+   row-form kernel launched 750 times a rank; 10-NN agreement above
+   PCA-2's; stand-in matplotlib/seaborn on the ranks' path write the
+   plotted points); then rank 1 dies at the device ops of a second build
+   (the ``spmd.worker.pre_device`` failpoint): ``/cluster`` reports the
+   pod error, a gated route answers 503 with ``Retry-After``, the
+   supervisor restarts the pod under epoch 1, the rescan re-runs the
+   build, and it ends with the first build's accuracies. The ``pod``
+   line has the times, spans, each rank's allocator peak and the
+   launches by kernel and rank (read from ``/cluster``). Before the
+   paths, the row form and the histogram kernel's fixed-point forms are
+   checked at the pod's per-rank shapes against their plain versions.
 
 Each ``fit`` line of the sweep carries ``mfu`` and ``bw_util``: the
 port's FLOP and byte models (``models/flops.py``) over the fit's window,
@@ -178,6 +198,8 @@ KERNELS = {
     # The layout K2's port reads (the TPU kernel read row-major codes).
     "feature_major": (TREE_SOURCE, None),
     "tsne_repulsion": (TSNE_SOURCE, f"{PALLAS}:51"),
+    # The row form (query rows against every row): the pod's path.
+    "tsne_repulsion_rows": (TSNE_SOURCE, f"{PALLAS}:104"),
     # The slice-axis launches of K1-K3 (a population's trees, one a
     # slice): the same kernels, timed at SLICES slices.
     "tree_histogram_slices": (TREE_SOURCE, f"{PALLAS}:208"),
@@ -1056,6 +1078,115 @@ def check_tsne_kernel(dev) -> dict:
           "rows_form_ms": time_ms(
               lambda: tsk.tsne_repulsion_rows(Y, valid, Y, valid, 0), 20),
           "ordered_pair_bound_ms": ordered_ms, **rows_form, **result})
+    return result
+
+
+def check_fixed_forms(n: int, dev) -> dict:
+    """The histogram kernel's fixed-point forms (the pod's K1 launches)
+    at one rank's shape of the pod sweep (n rows): the int64 totals equal
+    the plain version's integers; ``fixed_to_float`` of them is the float
+    launch bit for bit, and so is the sum of two row halves' totals (two
+    ranks' shards at one scale). Returns the fields the K1 kernel lines
+    carry."""
+    import torch
+
+    from learningorchestra_tpu_torch.ops import tree_kernels as tk
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    d, nb, depth, S = 28, 32, 5, 2
+    NL, M = 2 ** (depth - 1), 2 ** (depth + 1) - 1
+    codes = torch.randint(0, nb, (n, d), generator=g, device=dev,
+                          dtype=torch.uint8)[None]
+    rel = torch.randint(0, NL, (1, n), generator=g, device=dev,
+                        dtype=torch.int32)
+    active = torch.rand((1, n), generator=g, device=dev) < 0.9
+    stats = torch.randn((1, S, n), generator=g, device=dev)
+    assign = torch.randint(0, M, (1, n), generator=g, device=dev,
+                           dtype=torch.int32)
+    max_abs = tk.stat_max_abs(stats)
+    kw = dict(n_nodes=NL, n_bins=nb, max_abs=max_abs)
+    fixed = tk.tree_histogram_fixed(codes, (0,), stats, rel, active, **kw)
+    check(torch.equal(fixed, tk.tree_histogram_fixed_ref(
+        codes, (0,), stats, rel, active, **kw)),
+        "tree_histogram_fixed: totals differ from the plain version's")
+    check(torch.equal(tk.fixed_to_float(fixed, max_abs),
+                      tk.tree_histogram_slices(codes, (0,), stats, rel,
+                                               active, **kw)),
+          "tree_histogram_fixed: converted totals differ from the float "
+          "launch")
+    h = n // 2
+    halves = [tk.tree_histogram_fixed(
+        codes[:, a:b], (0,), stats[:, :, a:b].contiguous(), rel[:, a:b],
+        active[:, a:b], **kw) for a, b in ((0, h), (h, n))]
+    check(torch.equal(halves[0] + halves[1], fixed),
+          "tree_histogram_fixed: two halves' totals do not add up")
+    lfixed = tk.tree_leaf_stats_fixed(assign, stats, n_nodes=M,
+                                      max_abs=max_abs)
+    check(torch.equal(lfixed, tk.tree_leaf_stats_fixed_ref(
+        assign, stats, n_nodes=M, max_abs=max_abs)),
+        "tree_leaf_stats_fixed: totals differ from the plain version's")
+    check(torch.equal(tk.fixed_to_float(lfixed, max_abs),
+                      tk.tree_leaf_stats_slices(assign, stats, n_nodes=M,
+                                                max_abs=max_abs)
+                      .transpose(1, 2)),
+          "tree_leaf_stats_fixed: converted totals differ")
+    doc = {"rows": n,
+           "hist_fixed_ms": time_ms(lambda: tk.tree_histogram_fixed(
+               codes, (0,), stats, rel, active, **kw), 10),
+           "hist_float_ms": time_ms(lambda: tk.tree_histogram_slices(
+               codes, (0,), stats, rel, active, **kw), 10),
+           "leaf_fixed_ms": time_ms(lambda: tk.tree_leaf_stats_fixed(
+               assign, stats, n_nodes=M, max_abs=max_abs), 10)}
+    emit({"phase": "kernel", "name": "tree_histogram_fixed", "exact": True,
+          **doc})
+    return doc
+
+
+def check_rows_kernel(dev) -> dict:
+    """The t-SNE row form at the pod's shapes: the 60,000 rows padded to
+    whole tiles on every rank (61,440 = 30 × 1,024 × 2, viz/tsne.py),
+    each rank's half against all of them, against its plain version."""
+    import torch
+
+    from learningorchestra_tpu_torch.ops import tsne_kernels as tsk
+
+    per = 1024 * POD_RANKS
+    n, nv = -(-TSNE_ROWS // per) * per, TSNE_ROWS
+    h = n // POD_RANKS
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    Y = torch.randn((n, 2), generator=g, device=dev) * 10.0
+    valid = (torch.arange(n, device=dev) < nv).float()
+    errs = []
+    for off in range(0, n, h):
+        Zq, Fq = tsk.tsne_repulsion_rows(Y[off:off + h], valid[off:off + h],
+                                         Y, valid, off)
+        Zr, Fr = tsk.tsne_repulsion_rows_ref(
+            Y[off:off + h], valid[off:off + h], Y, valid, off)
+        f_tol = 1e-4 * float(Fr.abs().max())
+        errs.append(float((Fq - Fr).abs().max()))
+        check(abs(float(Zq) - float(Zr)) <= 1e-4 * abs(float(Zr)),
+              f"tsne_repulsion_rows at {off}: Z {float(Zq)} vs "
+              f"{float(Zr)}")
+        check(errs[-1] <= f_tol, f"tsne_repulsion_rows at {off}: F err "
+              f"{errs[-1]} > {f_tol}")
+    Z2, F2 = tsk.tsne_repulsion_rows(Y[:h], valid[:h], Y, valid, 0)
+    Z1, F1 = tsk.tsne_repulsion_rows(Y[:h], valid[:h], Y, valid, 0)
+    check(torch.equal(Z1, Z2) and torch.equal(F1, F2),
+          "tsne_repulsion_rows: two calls differ")
+    # Bytes: Yq and its flags, Y and its flags read once, F and Z written
+    # once; operations: each (valid query row, valid row) pair once.
+    q_valid = min(h, nv)
+    b_ms, b_by = bound(12 * h + 12 * n + 8 * h + 4,
+                       TSNE_OPS_PER_ORDERED_PAIR * q_valid * nv)
+    result = {"max_abs_err": max(errs), "ms": time_ms(
+        lambda: tsk.tsne_repulsion_rows(Y[:h], valid[:h], Y, valid, 0), 20),
+        "plain_ms": time_ms(lambda: tsk.tsne_repulsion_rows_ref(
+            Y[:h], valid[:h], Y, valid, 0), 3),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    emit({"phase": "kernel", "name": "tsne_repulsion_rows", "rows": h,
+          "against": n, **result})
     return result
 
 
@@ -2345,6 +2476,438 @@ def tx_path(cfg, dev) -> None:
           "seconds": time.time() - t_phase})
 
 
+# ---------------------------------------------------------------------------
+# The data-parallel pod: two ranks on the one card over gloo
+# ---------------------------------------------------------------------------
+
+#: Ranks of the pod, all on the data axis, sharing the one card.
+POD_RANKS = 2
+#: The dispatched job of rank 1's at whose device ops it dies, through
+#: the ``spmd.worker.pre_device`` failpoint: build, predict, histogram,
+#: embed, then the second build (the fifth).
+POD_CRASH_JOB = 5
+#: Start-up, and each job's, time limit (seconds).
+POD_START_S, POD_JOB_S = 300.0, 600.0
+
+#: The pod's launcher, run by the supervisor as its one pod command: it
+#: starts every rank of the pod on this host, forwards SIGTERM to them,
+#: and exits once they all have (with the first failing rank's code). It
+#: logs each rank's exit (rank, code, time, epoch) as a JSON line.
+POD_LAUNCHER = r'''
+import json, os, signal, subprocess, sys, time
+work, ranks = sys.argv[1], int(sys.argv[2])
+cmd = sys.argv[3:]
+epoch = os.environ.get("LO_TPU_MESH_EPOCH", "0")
+procs = []
+for r in range(ranks):
+    env = dict(os.environ, LO_TPU_PROCESS_ID=str(r),
+               LO_TPU_NUM_PROCESSES=str(ranks))
+    if r == 1 and epoch == "0":
+        env["LO_TPU_FAILPOINTS"] = "spmd.worker.pre_device=crash:%s" % (
+            os.environ["POD_CRASH_JOB"])
+    log = open(os.path.join(work, "rank%d_epoch%s.log" % (r, epoch)), "w")
+    procs.append(subprocess.Popen(cmd, env=env, stdout=log,
+                                  stderr=subprocess.STDOUT))
+with open(os.path.join(work, "pids"), "a") as f:
+    f.write(" ".join(str(p.pid) for p in procs) + "\n")
+
+def stop(signum, frame):
+    for p in procs:
+        if p.poll() is None:
+            p.terminate()
+    deadline = time.time() + 4.0
+    for p in procs:
+        while p.poll() is None and time.time() < deadline:
+            time.sleep(0.05)
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    sys.exit(143)
+
+signal.signal(signal.SIGTERM, stop)
+codes = [None] * ranks
+while any(c is None for c in codes):
+    for r, p in enumerate(procs):
+        if codes[r] is None and p.poll() is not None:
+            codes[r] = p.returncode
+            with open(os.path.join(work, "exits.jsonl"), "a") as f:
+                f.write(json.dumps({"rank": r, "code": codes[r],
+                                    "t": time.time(), "epoch": epoch})
+                        + "\n")
+    time.sleep(0.05)
+sys.exit(next((c for c in codes if c), 0))
+'''
+
+#: Stand-ins for matplotlib and seaborn, first on the pod's path: the
+#: card's machine may lack both, and the image route draws its PNG with
+#: them. ``savefig`` writes the plotted (n, 2) points as a .npy file at
+#: the image's path, where the phase reads the embedding back.
+POD_PLOT_STUBS = {
+    "matplotlib/__init__.py": "def use(*args, **kwargs):\n    pass\n",
+    "matplotlib/pyplot.py": (
+        "import numpy as np\n\n\n"
+        "class _Fig:\n"
+        "    points = None\n\n"
+        "    def savefig(self, path, **kwargs):\n"
+        "        with open(path, 'wb') as f:\n"
+        "            np.save(f, self.points)\n\n\n"
+        "class _Ax:\n"
+        "    def __init__(self, fig):\n"
+        "        self.fig = fig\n\n"
+        "    def set_title(self, title):\n"
+        "        pass\n\n\n"
+        "def subplots(*args, **kwargs):\n"
+        "    fig = _Fig()\n"
+        "    return fig, _Ax(fig)\n\n\n"
+        "def close(fig):\n"
+        "    pass\n"),
+    "seaborn/__init__.py": (
+        "import numpy as np\n\n\n"
+        "def scatterplot(x=None, y=None, ax=None, **kwargs):\n"
+        "    ax.fig.points = np.stack([np.asarray(x), np.asarray(y)],\n"
+        "                             1).astype(np.float32)\n"),
+}
+
+
+def _pod_get(port: int, path: str, timeout: float = 10.0):
+    """(status, JSON body, headers) of one request, or (None, None, {})
+    while the server is down (a restart in progress)."""
+    import http.client
+
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", port,
+                                          timeout=timeout)
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        raw = resp.read()
+        conn.close()
+        return resp.status, (json.loads(raw) if raw else None), \
+            dict(resp.getheaders())
+    except (OSError, ValueError):
+        return None, None, {}
+
+
+def _pod_post(port: int, path: str, body: dict):
+    """(status, JSON body, headers) of one POST."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.request("POST", path, body=json.dumps(body).encode(),
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    raw = resp.read()
+    conn.close()
+    return resp.status, (json.loads(raw) if raw else None), \
+        dict(resp.getheaders())
+
+
+def _stored(value):
+    """A list or dict cell as read back from disk, where it is its
+    Python literal."""
+    import ast
+
+    return ast.literal_eval(value) if isinstance(value, str) else value
+
+
+def _pod_column(reader, name: str, field: str):
+    """Column ``field`` of dataset ``name`` as another process wrote it
+    to the shared store. The server flips ``finished`` in memory just
+    before it saves, so a poller can see it first: wait for the save."""
+    t0 = time.time()
+    while True:
+        ds = reader.load(name)
+        if ds.metadata.finished or time.time() - t0 > 60:
+            break
+        time.sleep(0.1)
+    cols = ds.columns
+    check(field in cols, f"{name} on disk has no column {field}: fields "
+          f"{ds.metadata.fields}, columns {list(cols)}, rows "
+          f"{ds.num_rows}, finished {ds.metadata.finished}")
+    return cols[field]
+
+
+def _pod_cluster(port: int, want, timeout_s: float) -> dict:
+    """Poll ``GET /cluster`` until ``want(doc)``; the doc."""
+    t0 = time.time()
+    while True:
+        status, doc, _ = _pod_get(port, "/cluster")
+        if status == 200 and want(doc):
+            return doc
+        check(time.time() - t0 < timeout_s,
+              f"pod /cluster never reached the wanted state: {doc}")
+        time.sleep(0.05)
+
+
+def _pod_launches(doc: dict) -> dict:
+    """{rank: {kernel: launches}} of a /cluster doc."""
+    return {int(r): dict(snap.get("launches") or {})
+            for r, snap in (doc.get("resources") or {}).items()}
+
+
+def _pod_wait(port: int, name: str, timeout_s: float = POD_JOB_S,
+              retried: bool = False) -> dict:
+    """Poll ``GET /files/{name}`` until finished without error (and, with
+    ``retried``, re-run by the rescan); the metadata doc. A failure that
+    is not a retried pod failure fails the run."""
+    t0 = time.time()
+    while True:
+        status, docs, _ = _pod_get(port, f"/files/{name}?limit=1")
+        if status == 200 and docs and docs[0].get("finished"):
+            doc = docs[0]
+            if not doc.get("error") and (doc.get("retries") or not retried):
+                return doc
+            check(retried and (doc.get("error") or "").startswith(
+                ("pod failure:", "interrupted:")),
+                  f"{name} failed: {doc.get('error')}")
+        check(time.time() - t0 < timeout_s, f"{name} never finished")
+        time.sleep(0.25)
+
+
+def pod_path(cfg, store, runtime, dev, acc_sweep: dict) -> dict:
+    """Phase 15 of the module docstring: two ranks of the serving module
+    on the card over gloo under the supervisor, driven through rank 0's
+    REST API on the sweep's catalog; then rank 1 dies during a second
+    build and the pod recovers. Returns the kernel launches of both
+    ranks over both incarnations."""
+    import signal as _signal
+
+    import torch
+
+    from learningorchestra_tpu_torch.catalog.store import DatasetStore
+    from learningorchestra_tpu_torch.viz.service import embed_dataset
+
+    families = ["lr", "dt", "rf", "gb", "nb"]
+    for name in ("train", "test", "mnist_like", "pred_gb_again"):
+        store.save(name)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    work = os.path.join(os.path.dirname(cfg.store_root), "pod")
+    shutil.rmtree(work, ignore_errors=True)
+    stubs = os.path.join(work, "stubs")
+    for rel, text in POD_PLOT_STUBS.items():
+        os.makedirs(os.path.dirname(os.path.join(stubs, rel)), exist_ok=True)
+        with open(os.path.join(stubs, rel), "w") as f:
+            f.write(text)
+    launcher = os.path.join(work, "launch.py")
+    with open(launcher, "w") as f:
+        f.write(POD_LAUNCHER)
+    image_root = os.path.join(work, "images")
+    http_port, coord, job_port = _free_port(), _free_port(), _free_port()
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("LO_TPU_")}
+    env.update({
+        "PYTHONPATH": os.pathsep.join(
+            [stubs, ROOT] + [p for p in [os.environ.get("PYTHONPATH")]
+                             if p]),
+        "LO_TPU_STORE_ROOT": cfg.store_root,
+        "LO_TPU_IMAGE_ROOT": image_root,
+        "LO_TPU_COORDINATOR": f"127.0.0.1:{coord}",
+        "LO_TPU_JOB_PORT": str(job_port),
+        "LO_TPU_HEALTH_INTERVAL_S": "3", "LO_TPU_RESTART_BACKOFF_S": "1",
+        "LO_TPU_JOB_RETRIES": "1", "LO_TPU_DRAIN_TIMEOUT_S": "2",
+        "POD_CRASH_JOB": str(POD_CRASH_JOB)})
+    rank_cmd = [sys.executable, "-m", "learningorchestra_tpu_torch.serving",
+                "--device", "cuda", "--dist-backend", "gloo",
+                "--host", "127.0.0.1", "--port", str(http_port),
+                "--store-root", cfg.store_root]
+    sup_log = open(os.path.join(work, "supervisor.log"), "w")
+    t_start = time.time()
+    sup = subprocess.Popen(
+        [sys.executable, "-m", "learningorchestra_tpu_torch.supervisor",
+         "--health-url", f"http://127.0.0.1:{http_port}/cluster", "--",
+         sys.executable, launcher, work, str(POD_RANKS)] + rank_cmd,
+        env=env, cwd=ROOT, stdout=sup_log, stderr=subprocess.STDOUT)
+    doc = {"phase": "pod", "ranks": POD_RANKS, "backend": "gloo"}
+    launches = {}
+    try:
+        info = _pod_cluster(
+            http_port, lambda d: (d["process_count"] == POD_RANKS and
+                                  str(POD_RANKS - 1) in d["resources"]),
+            POD_START_S)
+        doc["start_s"] = time.time() - t_start
+        check(info["mesh"] == {"data": POD_RANKS, "model": 1, "seq": 1}
+              and info["backend"] == "gloo" and info["healthy"],
+              f"pod /cluster: {info}")
+        reader = DatasetStore(cfg)
+
+        # (a) the five families through POST /models
+        t0 = time.time()
+        status, body, _ = _pod_post(http_port, "/models", {
+            "training_filename": "train", "test_filename": "test",
+            "prediction_filename": "pod", "classificators_list": families,
+            "label": "label", "sync": False})
+        check(status == 201, f"pod POST /models: {status} {body}")
+        fits = {c: _pod_wait(http_port, f"pod_{c}") for c in families}
+        doc["build_s"] = time.time() - t0
+        acc = {c: fits[c]["accuracy"] for c in families}
+        doc["fit_time"] = {c: fits[c]["fit_time"] for c in families}
+        doc["accuracy"] = acc
+        for c in ("dt", "gb"):
+            check(acc[c] == acc_sweep[c], f"pod {c} accuracy {acc[c]} != "
+                  f"the one-process sweep's {acc_sweep[c]}")
+        for c in ("lr", "nb"):
+            check(abs(acc[c] - acc_sweep[c]) <= 1e-4,
+                  f"pod {c} accuracy {acc[c]} vs {acc_sweep[c]}")
+        check(acc["rf"] > ACC_FLOOR["rf"] and acc["rf"] > acc["lr"],
+              f"pod rf accuracy {acc['rf']}")
+        doc["launches_build"] = _pod_launches(_pod_get(
+            http_port, "/cluster")[1])
+
+        # (b) a batch predict of the saved gb model
+        t0 = time.time()
+        status, body, _ = _pod_post(
+            http_port, "/trained-models/pod_gb/predictions",
+            {"dataset_name": "test", "prediction_filename": "pod_gb_again"})
+        check(status == 201, f"pod predictions: {status} {body}")
+        _pod_wait(http_port, "pod_gb_again")
+        doc["predict_s"] = time.time() - t0
+        probs = [np.array([_stored(p) for p in
+                           _pod_column(reader, n, "probability")],
+                          np.float64)
+                 for n in ("pod_gb_again", "pred_gb_again")]
+        check(probs[0].shape == (TEST_ROWS, 2)
+              and np.array_equal(probs[0], probs[1]),
+              "pod gb predictions differ from the one-process predict's")
+
+        # (c) a histogram
+        t0 = time.time()
+        status, body, _ = _pod_post(http_port, "/histograms/train", {
+            "histogram_filename": "pod_hist", "fields": ["label"]})
+        check(status == 201, f"pod histogram: {status} {body}")
+        _pod_wait(http_port, "pod_hist")
+        doc["histogram_s"] = time.time() - t0
+        got = {int(k): int(v) for k, v in _stored(
+            _pod_column(reader, "pod_hist", "counts")[0]).items()}
+        want = {int(v): int(c) for v, c in enumerate(
+            np.bincount(store.get("train").columns["label"])) if c}
+        check(got == want, f"pod histogram {got} != {want}")
+
+        # (d) the 60,000 × 784 t-SNE image
+        before = _pod_launches(_pod_get(http_port, "/cluster")[1])
+        t0 = time.time()
+        status, body, _ = _pod_post(http_port, "/tsne/images/mnist_like", {
+            "image_name": "pod_tsne", "label_name": "label"})
+        check(status == 201, f"pod t-SNE: {status} {body}")
+        _pod_wait(http_port, "img.tsne.pod_tsne")
+        doc["embed_s"] = time.time() - t0
+        after = _pod_launches(_pod_get(http_port, "/cluster")[1])
+        rows_launches = {r: after[r].get("tsne_repulsion_rows", 0)
+                         - before.get(r, {}).get("tsne_repulsion_rows", 0)
+                         for r in after}
+        check(all(v == 750 for v in rows_launches.values())
+              and len(rows_launches) == POD_RANKS,
+              f"pod t-SNE: row-form launches {rows_launches}, not 750 a "
+              "rank")
+        doc["embed_rows_launches"] = rows_launches
+        status, jobs_doc, _ = _pod_get(http_port, "/jobs")
+        rec = [j for j in jobs_doc if j["dataset"] == "img.tsne.pod_tsne"]
+        spans = {}
+        if rec and rec[0].get("trace_id"):
+            _, tree, _ = _pod_get(http_port, f"/trace/{rec[0]['trace_id']}")
+            for sp in (tree or {}).get("spans", []):
+                if sp["name"].startswith(("viz.", "worker.", "dispatch.")):
+                    key = f"{sp['name']}@{sp['process']}"
+                    spans[key] = spans.get(key, 0.0) + sp["duration_ms"] / 1e3
+        doc["embed_spans_s"] = spans
+        with open(os.path.join(image_root, "tsne", "pod_tsne.png"),
+                  "rb") as f:
+            emb = np.load(f)
+        labels = store.get("mnist_like").columns["label"]
+        check(emb.shape == (TSNE_ROWS, 2) and np.isfinite(emb).all(),
+              "pod t-SNE embedding: finite, (60000, 2)")
+        emb_pca2, _ = embed_dataset(store, runtime, "pca", "mnist_like",
+                                    label="label")
+        pick = np.random.default_rng(3).choice(
+            TSNE_ROWS, min(5000, TSNE_ROWS), replace=False)
+        agree = knn_class_agreement(emb[pick], labels[pick], dev)
+        agree_pca = knn_class_agreement(emb_pca2[pick], labels[pick], dev)
+        check(agree > agree_pca, f"pod t-SNE 10-NN agreement {agree} <= "
+              f"PCA-2's {agree_pca}")
+        doc["knn10_agreement"] = agree
+        doc["knn10_agreement_pca2"] = agree_pca
+
+        # (e) rank 1 dies during a second build: the chain of recovery
+        status, body, _ = _pod_post(http_port, "/models", {
+            "training_filename": "train", "test_filename": "test",
+            "prediction_filename": "pod2", "classificators_list": families,
+            "label": "label", "sync": False})
+        check(status == 201, f"pod second POST /models: {status} {body}")
+        degraded = _pod_cluster(http_port, lambda d: d["pod_error"],
+                                POD_JOB_S)
+        launches[0] = _pod_launches(degraded)
+        doc["pod_error"] = degraded["pod_error"]
+        check(not degraded["healthy"], f"degraded pod: {degraded}")
+        status, body, headers = _pod_post(
+            http_port, "/histograms/train",
+            {"histogram_filename": "pod_refused", "fields": ["label"]})
+        check(status == 503 and int(headers.get("Retry-After", 0)) >= 1,
+              f"gated route on a degraded pod: {status} {headers} {body}")
+        doc["gated_503_retry_after"] = headers["Retry-After"]
+        with open(os.path.join(work, "exits.jsonl")) as f:
+            exits = [json.loads(line) for line in f]
+        killed = [e for e in exits if e["rank"] == 1 and e["epoch"] == "0"]
+        check(killed and killed[0]["code"] == 41,
+              f"rank 1 did not die at its failpoint: {exits}")
+        t_kill = killed[0]["t"]
+        recovered = _pod_cluster(
+            http_port, lambda d: (d["mesh_epoch"] == 1 and d["healthy"]
+                                  and d["process_count"] == POD_RANKS),
+            POD_JOB_S)
+        doc["restarted_s"] = time.time() - t_kill
+        again = {c: _pod_wait(http_port, f"pod2_{c}", retried=True)
+                 for c in families}
+        doc["recovery_s"] = time.time() - t_kill
+        for c in families:
+            check(again[c]["retries"] == 1
+                  and again[c]["accuracy"] == acc[c],
+                  f"retried pod2_{c}: {again[c].get('accuracy')} vs "
+                  f"{acc[c]}, retries {again[c].get('retries')}")
+        final = _pod_get(http_port, "/cluster")[1]
+        launches[1] = _pod_launches(final)
+        doc["restarts"] = final["restarts"]
+        doc["peak_device_bytes"] = {
+            r: snap["devices"]["peak_bytes_in_use"]
+            for r, snap in final["resources"].items()}
+    finally:
+        sup.send_signal(_signal.SIGTERM)
+        try:
+            sup.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            sup.kill()
+            sup.wait()
+        # Any rank the launcher left behind goes with the phase.
+        try:
+            with open(os.path.join(work, "pids")) as f:
+                pids = [int(p) for line in f for p in line.split()]
+        except OSError:
+            pids = []
+        for pid in pids:
+            try:
+                os.kill(pid, _signal.SIGKILL)
+            except OSError:
+                pass
+        sup_log.close()
+    doc["supervisor_rc"] = sup.returncode
+    by_rank = {}
+    for incarnation in launches.values():
+        for r, counts in incarnation.items():
+            acc_r = by_rank.setdefault(r, {})
+            for k, v in counts.items():
+                acc_r[k] = acc_r.get(k, 0) + v
+    doc["launches_by_rank"] = by_rank
+    total = {}
+    for counts in by_rank.values():
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    doc["launches"] = total
+    for name in SERIAL_KERNELS + ("tsne_repulsion_rows",):
+        check(total.get(name, 0) > 0,
+              f"kernel {name} was not launched on the pod path")
+    doc["seconds"] = time.time() - t_start
+    emit(doc)
+    return total
+
+
 def utilization(kind: str, n_train: int, fit_time: float,
                 host_prep_s: float) -> dict:
     """A fit's ``mfu`` and ``bw_util``: the port's analytic FLOP and byte
@@ -2459,6 +3022,7 @@ def main_path(n_train: int, n_test: int, dev) -> dict:
                    serve_workers_path(cfg, dev, serve_ctx),
                    tune_path(cfg, store, dev)]
         tx_path(cfg, dev)
+        phases.append(pod_path(cfg, store, runtime, dev, acc))
         return {k: sum(p.get(k, 0) for p in phases) for k in KERNELS}
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -2659,6 +3223,9 @@ def main() -> int:
     results.update(check_slice_kernels(args.train_rows, dev))
     torch.cuda.empty_cache()
     results["tsne_repulsion"] = check_tsne_kernel(dev)
+    results["tsne_repulsion_rows"] = check_rows_kernel(dev)
+    results["tree_histogram"]["fixed_form"] = check_fixed_forms(
+        -(-args.train_rows // POD_RANKS), dev)
     torch.cuda.empty_cache()
     check_small_reference(dev)
     check_tsne_small_reference(dev)

@@ -73,6 +73,13 @@ class Settings:
     replica_peers: str = field(
         default_factory=lambda: _env("LO_TPU_REPLICA_PEERS", "")
     )
+    #: Port for this host's ReplicaServer (the receive side of the
+    #: replication plane). 0 (default) does not start one — set it on
+    #: every host that should hold peers' replicas. Bound on
+    #: LO_TPU_HOST.
+    replica_port: int = field(
+        default_factory=lambda: _env("LO_TPU_REPLICA_PORT", 0)
+    )
     #: Socket timeout, seconds, for every replication frame exchange
     #: (push, fetch, probe). A dead peer costs at most this long per
     #: attempt before the push is recorded as failed and the dataset
@@ -239,14 +246,15 @@ class Settings:
     serve_restart_backoff_s: float = field(
         default_factory=lambda: _env("LO_TPU_SERVE_RESTART_BACKOFF_S", 0.2)
     )
-    #: Restarts of a front-end worker slot (serving/frontend.py
-    #: ``WorkerSupervisor``) before the slot is abandoned; each slot has
-    #: its own budget.
+    #: Restarts the pod supervisor (supervisor.py) attempts before it
+    #: declares the pod failed, and of a front-end worker slot
+    #: (serving/frontend.py ``WorkerSupervisor``) before the slot is
+    #: abandoned; each slot has its own budget.
     restart_budget: int = field(
         default_factory=lambda: _env("LO_TPU_RESTART_BUDGET", 5)
     )
-    #: First worker restart delay (seconds); doubles per restart up to
-    #: ``restart_backoff_max_s``.
+    #: First pod or worker restart delay (seconds); doubles per restart
+    #: up to ``restart_backoff_max_s``.
     restart_backoff_s: float = field(
         default_factory=lambda: _env("LO_TPU_RESTART_BACKOFF_S", 1.0)
     )
@@ -255,10 +263,17 @@ class Settings:
     restart_backoff_max_s: float = field(
         default_factory=lambda: _env("LO_TPU_RESTART_BACKOFF_MAX_S", 30.0)
     )
-    #: After this many seconds of continuous health the worker
-    #: supervisor restores every slot's restart budget. 0 disables it.
+    #: After this many seconds of continuous health the pod supervisor
+    #: and the worker supervisor restore their restart budgets. 0
+    #: disables it.
     restart_healthy_s: float = field(
         default_factory=lambda: _env("LO_TPU_RESTART_HEALTHY_S", 300.0)
+    )
+    #: Cadence of the pod supervisor's /cluster health poll, seconds
+    #: (supervisor.py) — catches degradations where no supervised process
+    #: died (a worker vanished and the watchdog poisoned the pod).
+    health_interval_s: float = field(
+        default_factory=lambda: _env("LO_TPU_HEALTH_INTERVAL_S", 2.0)
     )
     #: Graceful-drain window (seconds): on SIGTERM or ``App.drain`` the
     #: server answers new work 503 and lets accepted work finish for up
@@ -492,11 +507,22 @@ class Settings:
 settings = Settings()
 
 
+def restart_count() -> int:
+    """This incarnation's supervisor restart ordinal
+    (``LO_TPU_RESTART_COUNT``, set by supervisor.py for each supervised
+    child; 0 = first launch). Served on ``/cluster`` as ``restarts``."""
+    try:
+        return int(os.environ.get("LO_TPU_RESTART_COUNT", "0") or 0)
+    except ValueError:
+        return 0
+
+
 def mesh_epoch() -> int:
-    """The deployment's generation (``LO_TPU_MESH_EPOCH``), bumped on every
-    supervised restart. Fit checkpoints record the epoch that wrote them
-    and refuse one from a newer generation (utils/fitckpt.py). Read per
-    call, never cached."""
+    """The pod's mesh generation (``LO_TPU_MESH_EPOCH``) — bumped by the
+    supervisor on every restart so the SPMD job channel can reject
+    workers from a previous incarnation (parallel/spmd.py); fit
+    checkpoints record it too (utils/fitckpt.py). Read per call, never
+    cached: the epoch-scoped pod poison follows the env."""
     try:
         return int(os.environ.get("LO_TPU_MESH_EPOCH", "0") or 0)
     except ValueError:
@@ -508,6 +534,22 @@ def coordinator_address(default: Optional[str] = None) -> Optional[str]:
     (``LO_TPU_COORDINATOR``, parallel/distributed.py). None/default =
     single-process."""
     return os.environ.get("LO_TPU_COORDINATOR") or default
+
+
+def job_port(default: int) -> int:
+    """Explicit SPMD job-channel port (``LO_TPU_JOB_PORT``); defaults to
+    the coordinator port + 1 computed by the caller. A malformed value
+    raises immediately: silently falling back would have coordinator and
+    workers listening on different ports, surfacing as an opaque
+    handshake timeout instead of a config error."""
+    raw = os.environ.get("LO_TPU_JOB_PORT")
+    if not raw:
+        return default
+    try:
+        return int(raw)
+    except ValueError:
+        raise ValueError(
+            f"LO_TPU_JOB_PORT must be an integer, got {raw!r}") from None
 
 
 def num_processes() -> Optional[int]:
@@ -548,3 +590,13 @@ def peak_bw() -> float:
         return float(os.environ.get("LO_TPU_PEAK_BW", "") or 0.0)
     except ValueError:
         return 0.0
+
+
+def shard_host() -> Optional[int]:
+    """Explicit placement identity of this host for shard-map planning
+    (``LO_TPU_SHARD_HOST``): which ingest-partition owner's chunks count
+    as host-local when the runtime's streamed feed classifies its rows.
+    None = unset — pods use the process group's rank
+    (parallel/spmd.local_host_id)."""
+    raw = os.environ.get("LO_TPU_SHARD_HOST")
+    return int(raw) if raw is not None and raw != "" else None

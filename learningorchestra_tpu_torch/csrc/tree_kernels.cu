@@ -365,6 +365,19 @@ __global__ void sum_partials_kernel(const long long* __restrict__ partial,
   }
 }
 
+// out[i] = the R row chunks' exact sums, left as integers: the totals a
+// pod adds across ranks before the one conversion (models/trees.py).
+__global__ void sum_partials_i64_kernel(const long long* __restrict__ partial,
+                                        long long* __restrict__ out,
+                                        long long all, int R) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < all; i += (long long)gridDim.x * blockDim.x) {
+    long long t = 0;
+    for (int r = 0; r < R; ++r) t += partial[(long long)r * all + i];
+    out[i] = t;
+  }
+}
+
 // The packed node word (see K2 and K3 above): the feature and the
 // threshold field; a word < 0 keeps the row where it is.
 constexpr int kTtBits = 9;
@@ -745,12 +758,14 @@ int prepare_smem(K kernel, size_t smem) {
   return 0;
 }
 
+// out is float (G, ...) sums, or with `fixed` the int64 fixed-point totals.
 template <typename CodeT>
 int launch_hist(const CodeT* codes, const int32_t* code_idx,
                 const float* stats, const float* max_abs, const int32_t* rel,
-                const uint8_t* active, float* out, long long* partial, int n,
-                int d, int n_bins, int S, int n_nodes, int NG, int CG, int R,
-                int rows_per_chunk, int G, cudaStream_t stream) {
+                const uint8_t* active, void* out, bool fixed,
+                long long* partial, int n, int d, int n_bins, int S,
+                int n_nodes, int NG, int CG, int R, int rows_per_chunk, int G,
+                cudaStream_t stream) {
   if (rows_per_chunk > kMaxRowsPerChunk || G < 1 || G > 65535)
     return (int)cudaErrorInvalidValue;
   const int DC = d * n_bins;
@@ -770,8 +785,13 @@ int launch_hist(const CodeT* codes, const int32_t* code_idx,
   const long long all = total * G;
   long long blocks = (all + kThreads - 1) / kThreads;
   if (blocks > 65535) blocks = 65535;
-  sum_partials_kernel<<<(int)blocks, kThreads, 0, stream>>>(
-      partial, max_abs, out, total, all, R, S);
+  if (fixed) {
+    sum_partials_i64_kernel<<<(int)blocks, kThreads, 0, stream>>>(
+        partial, (long long*)out, all, R);
+  } else {
+    sum_partials_kernel<<<(int)blocks, kThreads, 0, stream>>>(
+        partial, max_abs, (float*)out, total, all, R, S);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -798,7 +818,22 @@ int lo_tree_hist_u8(const void* codes, const void* code_idx,
   return launch_hist<uint8_t>(
       (const uint8_t*)codes, (const int32_t*)code_idx, (const float*)stats,
       (const float*)max_abs, (const int32_t*)rel, (const uint8_t*)active,
-      (float*)out, (long long*)partial, n, d, n_bins, S, n_nodes, NG, CG, R,
+      out, false, (long long*)partial, n, d, n_bins, S, n_nodes, NG, CG, R,
+      rows_per_chunk, G, (cudaStream_t)stream);
+}
+
+// lo_tree_hist_u8 with out (G, n_nodes, d, n_bins, S) int64: each stat's
+// fixed-point total at the scale of max_abs, before the conversion.
+int lo_tree_hist_u8_fixed(const void* codes, const void* code_idx,
+                          const void* stats, const void* max_abs,
+                          const void* rel, const void* active, void* out,
+                          void* partial, int n, int d, int n_bins, int S,
+                          int n_nodes, int NG, int CG, int R,
+                          int rows_per_chunk, int G, void* stream) {
+  return launch_hist<uint8_t>(
+      (const uint8_t*)codes, (const int32_t*)code_idx, (const float*)stats,
+      (const float*)max_abs, (const int32_t*)rel, (const uint8_t*)active,
+      out, true, (long long*)partial, n, d, n_bins, S, n_nodes, NG, CG, R,
       rows_per_chunk, G, (cudaStream_t)stream);
 }
 
@@ -812,7 +847,19 @@ int lo_tree_leaf_i32(const void* assign, const void* stats,
                      int G, void* stream) {
   return launch_hist<int32_t>(
       (const int32_t*)assign, nullptr, (const float*)stats,
-      (const float*)max_abs, nullptr, nullptr, (float*)out,
+      (const float*)max_abs, nullptr, nullptr, out, false,
+      (long long*)partial, n, 1, n_ids, S, 1, 1, CG, R, rows_per_chunk, G,
+      (cudaStream_t)stream);
+}
+
+// lo_tree_leaf_i32 with out (G, n_leaf_ids, S) int64 fixed-point totals.
+int lo_tree_leaf_i32_fixed(const void* assign, const void* stats,
+                           const void* max_abs, void* out, void* partial,
+                           int n, int n_ids, int S, int CG, int R,
+                           int rows_per_chunk, int G, void* stream) {
+  return launch_hist<int32_t>(
+      (const int32_t*)assign, nullptr, (const float*)stats,
+      (const float*)max_abs, nullptr, nullptr, out, true,
       (long long*)partial, n, 1, n_ids, S, 1, 1, CG, R, rows_per_chunk, G,
       (cudaStream_t)stream);
 }

@@ -326,9 +326,13 @@ class JobManager:
         """Post-transition actions for one watchdog-killed job: pollable
         failure records (the retryable ``interrupted:`` prefix — the
         restarted pod's rescan re-runs the job, which then resumes from
-        its fit checkpoint) and a flight-recorder evidence bundle. The
-        hung thread itself cannot be killed from Python. This package
-        runs one process on one device: there is no pod to poison."""
+        its fit checkpoint), pod poison (the supervisor's health poll
+        sees the degradation and restarts the pod under a fresh mesh
+        epoch, which is what actually tears down the hung program), and a
+        flight-recorder evidence bundle. The hung thread itself cannot be
+        killed from Python — bounding its damage is the supervisor
+        restart's job."""
+        from learningorchestra_tpu_torch.parallel import spmd
         from learningorchestra_tpu_torch.utils import flightrec
 
         with _fault_lock:
@@ -340,6 +344,8 @@ class JobManager:
                     self.store.fail(name, rec.error)
             except Exception:  # noqa: BLE001 — best-effort flagging
                 pass
+        spmd.poison_pod(f"watchdog: job {rec.job_id} ({rec.kind}) hung "
+                        f"past its {rec.deadline_s:.1f}s deadline")
         flightrec.incident(
             "job:watchdog",
             detail={"job_id": rec.job_id, "kind": rec.kind,
@@ -405,6 +411,8 @@ class JobManager:
                     pass
 
         def run():
+            from learningorchestra_tpu_torch.parallel.spmd import PodDegraded
+
             token = _job_record.set(rec)
             # The liveness clock starts HERE, not at submit: time spent
             # queued behind the bounded pool never reads as a hang.
@@ -421,16 +429,29 @@ class JobManager:
                 # seam: every managed job's profile carries
                 # peak_hbm_bytes / compile_s / host_rss_delta, refined
                 # mid-job by the builder's per-phase samples.
+                from learningorchestra_tpu_torch import config
                 from learningorchestra_tpu_torch.utils import resources
 
                 with tracing.job_trace(
                         f"job.{kind}", trace_id=rec.trace_id,
                         parent=parent_ctx,
                         attrs={"kind": kind, "dataset": rec.dataset,
-                               "job_id": rec.job_id}), \
+                               "job_id": rec.job_id,
+                               "mesh_epoch": config.mesh_epoch()}), \
                         resources.job_phase():
                     fn()
                 settled = self._settle(rec, "done")
+            except PodDegraded as exc:
+                # A job refused (or interrupted) because the pod is
+                # degraded failed from INFRASTRUCTURE, exactly like one
+                # the watchdog flagged — record it under the retryable
+                # prefix so the restarted pod's rescan re-runs it, e.g.
+                # a build queued behind the one whose worker died.
+                settled = self._settle(rec, "failed",
+                                       f"pod failure: {exc}")
+                traceback.print_exc()
+                if settled:
+                    _fail_datasets()
             except Exception as exc:  # noqa: BLE001 — job boundary
                 settled = self._settle(rec, "failed",
                                        f"{type(exc).__name__}: {exc}")

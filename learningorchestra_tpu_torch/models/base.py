@@ -18,8 +18,7 @@ from typing import Any, Callable, Dict
 import numpy as np
 import torch
 
-from learningorchestra_tpu_torch.parallel.runtime import (
-    DeviceRuntime, host_rows)
+from learningorchestra_tpu_torch.parallel.runtime import DeviceRuntime
 
 
 def as_design(X):
@@ -98,16 +97,20 @@ class TrainedModel:
                       X: np.ndarray) -> np.ndarray:
         X = as_design(X)
         params = {k: runtime.replicate(v) for k, v in self.params.items()}
+        # Row-sharded on a pod: each rank predicts its block and
+        # ``runtime.host_rows`` gathers the blocks.
         if len(X) <= self.PREDICT_CHUNK:
             X_dev, n = runtime.shard_rows(X)
-            return host_rows(self.predict_proba_fn(params, X_dev))[:n]
+            return runtime.host_rows(self.predict_proba_fn(params, X_dev),
+                                     n)
         outs = []
         for i in range(0, len(X), self.PREDICT_CHUNK):
             chunk = (X.rows(i, i + self.PREDICT_CHUNK)
                      if hasattr(X, "rows")
                      else np.ascontiguousarray(X[i:i + self.PREDICT_CHUNK]))
             X_dev, n = runtime.shard_rows(chunk)
-            outs.append(host_rows(self.predict_proba_fn(params, X_dev))[:n])
+            outs.append(runtime.host_rows(
+                self.predict_proba_fn(params, X_dev), n))
         return np.concatenate(outs, axis=0)
 
     def predict(self, runtime: DeviceRuntime, X: np.ndarray) -> np.ndarray:

@@ -34,7 +34,12 @@ so a retried build resumes them bit-identically.
 
 ``tune`` runs a device-resident hyperparameter sweep of one family over
 a resident design (models/tune.py) and can refit and persist its winner.
-Not yet ported from the JAX package: the multi-process dispatch.
+
+On a pod (parallel/spmd.py) ``build`` and ``predict`` dispatch one job
+to every worker first, and the build runs its fits one after another:
+the trainers all-reduce over the data axis, so every rank must issue
+their collectives in one order, which threads overlapping fits would
+not keep. Fit checkpoints are off there.
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ from learningorchestra_tpu_torch.models.metrics import classification_metrics
 from learningorchestra_tpu_torch.models.persistence import ModelRegistry
 from learningorchestra_tpu_torch.models.registry import get_trainer
 from learningorchestra_tpu_torch.ops import preprocess
+from learningorchestra_tpu_torch.parallel import spmd
 from learningorchestra_tpu_torch.parallel.runtime import DeviceRuntime
 from learningorchestra_tpu_torch.utils import fitckpt, resources, tracing
 from learningorchestra_tpu_torch.utils.profiling import (
@@ -117,12 +123,17 @@ class ModelBuilder:
         train_ds = self.store.get(train)
         test_ds = self.store.get(test)
         hparams = hparams or {}
+        multi = spmd.is_multiprocess()
         ck_on = int(self.cfg.fit_ckpt_rounds) > 0
         rp0 = readpipe.snapshot()
 
         streamed = False
         design_t0 = time.monotonic()
         if preprocessor_code is not None:
+            if multi:
+                raise PermissionError(
+                    "exec preprocessing cannot run SPMD (workers rebuild "
+                    "inputs deterministically); use declarative steps")
             if not self.cfg.allow_exec_preprocessing:
                 raise PermissionError(
                     "exec preprocessing is disabled; enable "
@@ -199,9 +210,13 @@ class ModelBuilder:
         # change the fit's arithmetic — hparams, label/steps, row
         # snapshot, device type (the card's fixed-point histogram sums
         # differ from the CPU's float sums) — so a resume under ANY
-        # changed configuration starts fresh.
+        # changed configuration starts fresh. The single-process paths
+        # only: the dispatched round must run one identical program on
+        # every rank, and a resume decided from local disk state could
+        # diverge between them (job-level retry and the design-state
+        # checkpoint still cover the pod).
         ckpt_ctxs: Dict[str, Any] = {}
-        if ck_on:
+        if ck_on and not multi:
             for c in classifiers:
                 if c not in fitckpt.SEGMENTED_FAMILIES:
                     continue
@@ -282,9 +297,16 @@ class ModelBuilder:
             return FitReport(kind=c, fit_time=0.0,
                              metrics={"error": str(exc)})
 
-        reports = self._build_pipelined(classifiers, prep_fit, dispatch_fit,
-                                        collect_fit, finish_host,
-                                        fail_report)
+        if multi:
+            reports = self._build_dispatched(
+                train, test, prediction_name, classifiers, label, steps,
+                hparams, X_train, X_test, state, feature_fields, streamed,
+                prep_fit, dispatch_fit, collect_fit, finish_host,
+                fail_report)
+        else:
+            reports = self._build_pipelined(classifiers, prep_fit,
+                                            dispatch_fit, collect_fit,
+                                            finish_host, fail_report)
         device_s = {r.kind: r.metrics["device_s"] for r in reports
                     if "device_s" in r.metrics}
         rp1 = readpipe.snapshot()
@@ -359,6 +381,77 @@ class ModelBuilder:
             futures = {c: pool.submit(fit_guarded, c) for c in classifiers}
             return [fut.result() for fut in futures.values()]
 
+    def _build_dispatched(self, train, test, prediction_name, classifiers,
+                          label, steps, hparams, X_train, X_test, state,
+                          feature_fields, streamed, prep_fit, dispatch_fit,
+                          collect_fit, finish_host,
+                          fail_report) -> List[FitReport]:
+        """Multi-process SPMD: broadcast ONE build spec covering every
+        classifier, then run the sweep as one dispatch round: every
+        family's fit, one after another, then the probability passes in
+        the same order, then all host-side finishing (metrics, prediction
+        datasets, persistence) — exactly the worker-side device-op
+        sequence (parallel/spmd.prep_build_job), so the collectives come
+        in one order on every rank. Per-family failures are caught and
+        the family's remaining device ops skipped identically everywhere
+        (deterministic inputs ⇒ deterministic failures).
+
+        Row counts, state and feature fields pin the snapshot: a worker
+        rebuilding its design from a longer dataset would otherwise build
+        a different matrix than process 0's."""
+        fitted: Dict[str, Any] = {}
+        results: Dict[str, Any] = {}
+        with device_trace(self.cfg), spmd.dispatch_job(
+                self.store, (train, test), {
+                    "op": "build", "train": train, "test": test,
+                    "label": label, "steps": list(steps),
+                    "classifiers": list(classifiers),
+                    "hparams": hparams,
+                    "n_train": int(len(X_train)),
+                    "n_test": int(len(X_test)),
+                    "state": spmd.jsonable_state(state),
+                    "feature_fields": list(feature_fields),
+                    "streamed": streamed,
+                },
+                outputs=[f"{prediction_name}_{c}" for c in classifiers]):
+            for c in classifiers:           # phase 1: every fit
+                t0 = time.time()
+                try:
+                    extra, prep_s = prep_fit(c)
+                    tracing.record_span(f"fit.{c}.host_prep", prep_s)
+                    with resources.family_phase(c):
+                        model = dispatch_fit(c, extra)
+                        spmd.serialize_collectives(model.params)
+                    fitted[c] = (model, time.time() - t0, t0)
+                except Exception as exc:  # noqa: BLE001 — per-model boundary
+                    fitted[c] = exc
+            for c in classifiers:           # phase 2: probability passes
+                if isinstance(fitted[c], Exception):
+                    results[c] = fitted[c]
+                    continue
+                model, pre_s, t0 = fitted[c]
+                try:
+                    probs, device_s = collect_fit(c, model, pre_s)
+                    # Per-fit time = the family's fit-to-probabilities
+                    # wall span.
+                    results[c] = (model, probs, time.time() - t0,
+                                  device_s)
+                except Exception as exc:  # noqa: BLE001 — per-model boundary
+                    results[c] = exc
+        reports = []
+        for c in classifiers:               # phase 3: host finishing
+            res = results[c]
+            if isinstance(res, Exception):
+                reports.append(fail_report(c, res))
+                continue
+            try:
+                with Timer() as tf:
+                    reports.append(finish_host(c, *res))
+                tracing.record_span(f"fit.{c}.finish", tf.elapsed)
+            except Exception as exc:  # noqa: BLE001 — per-model boundary
+                reports.append(fail_report(c, exc))
+        return reports
+
     def predict(self, model_name: str, dataset: str, out_name: str,
                 existing: bool = False) -> None:
         """Serve a persisted model on a stored dataset: apply its train-time
@@ -387,7 +480,13 @@ class ModelBuilder:
                 X, _, _, _ = preprocess.design_matrix(
                     ds, pp["label"], pp["steps"], state=pp["state"],
                     feature_fields=pp["feature_fields"])
-            probs = model.predict_proba(self.runtime, X)
+            with spmd.dispatch_job(
+                    self.store, (dataset,),
+                    {"op": "predict", "model": model_name,
+                     "dataset": dataset, "n_rows": int(len(X)),
+                     "streamed": streamed},
+                    outputs=(out_name,)):
+                probs = model.predict_proba(self.runtime, X)
         preds = np.argmax(probs, axis=1)
         self._save_predictions(out_name, ds, preds, probs,
                                FitReport(kind=man["kind"], fit_time=0.0))

@@ -12,10 +12,14 @@ solvers, as in the JAX package:
   bf16-rounded standardized design matrix.
 
 Operands are rounded to bf16 where the JAX package casts them, so both
-packages round the same intermediates. The fit's matrix products are
-plain ``torch.matmul`` — the JAX package leaves them to XLA, not to a
-kernel; the predict path sums in a fixed order instead, so a row's
-probabilities do not depend on its batch (models/base.py).
+packages round the same intermediates. On a pod (rows sharded over the
+data axis) each rank accumulates its rows and the sums are all-reduced
+where the JAX package psums them: the feature stats, the Newton step's
+row count, gradient and Hessian blocks, Adam's gradients and mask
+total. The fit's matrix products are plain ``torch.matmul`` — the JAX
+package leaves them to XLA, not to a kernel; the predict path sums in a
+fixed order instead, so a row's probabilities do not depend on its
+batch (models/base.py).
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import torch
 
 from learningorchestra_tpu_torch.models.base import (
     TrainedModel, as_design, ordered_matmul, ordered_softmax)
+from learningorchestra_tpu_torch.parallel.mesh import DATA_AXIS, all_reduce_
 from learningorchestra_tpu_torch.parallel.runtime import DeviceRuntime
 
 #: Rows per Newton accumulation block (bounds the (B, C·(d+1)) A tensor
@@ -55,39 +60,60 @@ def _predict_proba(params, X):
     return ordered_softmax(_logits(params, X))
 
 
-def _device_stats(X):
+def _dsum(t, mesh):
+    """``t`` summed over the data axis (in place; no-op without one)."""
+    if mesh is not None:
+        all_reduce_(t, mesh, DATA_AXIS)
+    return t
+
+
+def _device_stats(X, n=None, valid=None, mesh=None):
     """Per-feature mean/std — two-pass (mean first, then Σ(x−μ)²): the
     one-pass E[x²]−E[x]² form cancels catastrophically in f32 for
-    features with |mean| ≫ std."""
-    nf = max(float(X.shape[0]), 1.0)
-    mu = X.sum(dim=0) / nf
+    features with |mean| ≫ std. On a pod X is this rank's rows: ``n``
+    counts all of them, ``valid`` masks the padding and the sums run
+    over ``mesh``'s data axis."""
+    nf = max(float(X.shape[0] if n is None else n), 1.0)
+    Xm = X if valid is None else X * valid[:, None]
+    mu = _dsum(Xm.sum(dim=0), mesh) / nf
     dx = X - mu
-    var = (dx * dx).sum(dim=0) / nf
+    if valid is not None:
+        dx = dx * valid[:, None]
+    var = _dsum((dx * dx).sum(dim=0), mesh) / nf
     sigma = torch.sqrt(torch.clamp(var, min=0.0))
     return mu, torch.where(sigma < 1e-7, torch.ones_like(sigma), sigma)
 
 
-def _fit_newton(X, y, mu, sigma, *, num_classes, iters, l2):
+def _row_weights(X, valid):
+    """(1, n) row weights: 1 a row, 0 a padding row."""
+    if valid is not None:
+        return valid[None, :]
+    return torch.ones((1, X.shape[0]), dtype=torch.float32, device=X.device)
+
+
+def _fit_newton(X, y, mu, sigma, *, num_classes, iters, l2, valid=None,
+                mesh=None):
     """Exact multinomial-Newton (IRLS) fit: the population program at
-    population one, every row weighted 1."""
-    ones = torch.ones((1, X.shape[0]), dtype=torch.float32, device=X.device)
+    population one, every row weighted 1 (a padding row 0)."""
     Wz = _fit_pop_newton(
-        X, y, ones, mu, sigma, [l2], [iters], [1.0],
+        X, y, _row_weights(X, valid), mu, sigma, [l2], [iters], [1.0],
         [torch.zeros((X.shape[1] + 1, num_classes), dtype=torch.float32,
                      device=X.device)], 0,
-        num_classes=num_classes, iters=iters)[0]
+        num_classes=num_classes, iters=iters, mesh=mesh)[0]
     d = X.shape[1]
     return {"W": Wz[:d].contiguous(), "b": Wz[d].contiguous(), "mu": mu,
             "sigma": sigma}
 
 
-def _fit(X, y, mu, sigma, *, num_classes, iters, lr, l2, W0):
+def _fit(X, y, mu, sigma, *, num_classes, iters, lr, l2, W0, valid=None,
+         mesh=None):
     """Full-batch Adam from the initial weights ``W0`` (d, C): the
-    population program at population one, every row weighted 1."""
+    population program at population one, every row weighted 1 (a
+    padding row 0)."""
     Xs = _standardized(X, mu, sigma)
-    ones = torch.ones((1, X.shape[0]), dtype=torch.float32, device=X.device)
-    state = _fit_pop_adam([_adam_init(W0, num_classes)], Xs, y, ones, [lr],
-                          [l2], [iters], [1.0], 0, iters=iters)[0]
+    state = _fit_pop_adam([_adam_init(W0, num_classes)], Xs, y,
+                          _row_weights(X, valid), [lr], [l2], [iters],
+                          [1.0], 0, iters=iters, mesh=mesh)[0]
     return {"W": state["W"], "b": state["b"], "mu": mu, "sigma": sigma}
 
 
@@ -106,20 +132,22 @@ def fit(runtime: DeviceRuntime, X: np.ndarray, y: np.ndarray,
     """``W0`` (d, C) sets Adam's initial weights; by default they are
     0.01·N(0, 1) from a ``torch.Generator`` seeded with ``seed``."""
     X = as_design(X)
-    X_dev, _ = runtime.shard_rows(X)
+    X_dev, n = runtime.shard_rows(X)
     y_dev, _ = runtime.shard_rows(np.asarray(y, np.int32))
-    mu, sigma = _device_stats(X_dev)
+    valid = runtime.valid_rows(n)
+    mesh = runtime.mesh if valid is not None else None
+    mu, sigma = _device_stats(X_dev, n, valid, mesh)
     solver = resolve_solver(solver, num_classes, X.shape[1])
     if solver == "newton":
         params = _fit_newton(X_dev, y_dev, mu, sigma,
                              num_classes=num_classes, iters=min(iters, 20),
-                             l2=l2)
+                             l2=l2, valid=valid, mesh=mesh)
     else:
         if W0 is None:
             W0 = _draw_W0(seed, X.shape[1], num_classes, X_dev.device)
         params = _fit(X_dev, y_dev, mu, sigma, num_classes=num_classes,
                       iters=iters, lr=lr, l2=l2,
-                      W0=runtime.replicate(W0))
+                      W0=runtime.replicate(W0), valid=valid, mesh=mesh)
     return TrainedModel(kind="lr", params=params,
                         predict_proba_fn=_predict_proba,
                         num_classes=num_classes,
@@ -196,23 +224,26 @@ def _adam_init(W0, num_classes):
             "count": 0}
 
 
-def _lr_grads(Xs, Y1, mask, msum, W, b, l2):
+def _lr_grads(Xs, Y1, mask, msum, W, b, l2, mesh=None):
     """Gradients of the masked mean cross-entropy plus l2·ΣW² at (W, b):
     the logits' cotangent is (softmax − onehot)·mask/Σmask; through the
     bf16 product, the weights' gradient contracts the bf16-rounded
     cotangent with the bf16 design (f32 sums), as the JAX package's
-    autodiff of its bf16 product does."""
+    autodiff of its bf16 product does. On a pod the row sums add over
+    ``mesh``'s data axis before the l2 term."""
     logits = Xs @ _bf16(W) + b
     dlog = (torch.softmax(logits, dim=-1) - Y1) * (mask / msum)[:, None]
-    return {"W": Xs.T @ _bf16(dlog) + (2.0 * W) * l2, "b": dlog.sum(dim=0)}
+    return {"W": _dsum(Xs.T @ _bf16(dlog), mesh) + (2.0 * W) * l2,
+            "b": _dsum(dlog.sum(dim=0), mesh)}
 
 
 def _fit_pop_adam(states, Xs, y, masks, lrs, l2s, iters_vec, alive, t0, *,
-                  iters):
+                  iters, mesh=None):
     """One segment of ``iters`` Adam steps, global steps t0 … t0+iters-1,
     for a population of lr configs. ``states``: per member, the dict of
     ``_adam_init`` (updated and returned); Xs: ``_standardized`` design;
-    masks (G, n) row weights; lrs, l2s, iters_vec, alive: per member."""
+    masks (G, n) row weights; lrs, l2s, iters_vec, alive: per member;
+    ``mesh``: sums over its data axis (a pod's row shards)."""
     Y1 = torch.nn.functional.one_hot(y.long(), states[0]["b"].shape[0]
                                      ).float()
     for m, st in enumerate(states):
@@ -220,25 +251,26 @@ def _fit_pop_adam(states, Xs, y, masks, lrs, l2s, iters_vec, alive, t0, *,
         if alive[m] <= 0 or steps <= 0:
             continue
         mask = masks[m]
-        msum = mask.sum()
+        msum = _dsum(mask.sum(), mesh)
         params = {"W": st["W"], "b": st["b"]}
         for _ in range(steps):
             grads = _lr_grads(Xs, Y1, mask, msum, params["W"], params["b"],
-                              float(l2s[m]))
+                              float(l2s[m]), mesh)
             adam_update(params, grads, st, float(lrs[m]))
         st["W"], st["b"] = params["W"], params["b"]
     return states
 
 
 def _fit_pop_newton(X, y, masks, mu, sigma, l2s, iters_vec, alive, Wz,
-                    t0, *, num_classes, iters):
+                    t0, *, num_classes, iters, mesh=None):
     """One segment of ``iters`` Newton/IRLS steps for a population of lr
     configs: per member its row weights (G, n), l2 (traced into the
     ridge) and step budget. Z = [standardized X | 1] in bf16 is built
     once; per step, row blocks accumulate g = Z'(P−Y) and the exact
     Hessian H[(c,i),(c',j)] = Σ_n z_i z_j p_c (δ_cc' − p_c') over the
     member's weighted rows, then a dense solve updates its (d+1, C)
-    augmented weights. ``Wz``: per member, updated and returned."""
+    augmented weights. ``Wz``: per member, updated and returned. On a
+    pod the row count, g and H sum over ``mesh``'s data axis."""
     C = num_classes
     n, d = X.shape
     d1 = d + 1
@@ -256,13 +288,13 @@ def _fit_pop_newton(X, y, masks, mu, sigma, l2s, iters_vec, alive, Wz,
         # noise floor.
         ridge = torch.cat([torch.full((d,), 2.0 * float(l2s[m]), device=dev),
                            torch.zeros((1,), device=dev)]).repeat(C) + 1e-4
-        nf = torch.clamp(mask.sum(), min=1.0)
+        nf = torch.clamp(_dsum(mask.sum(), mesh), min=1.0)
         for _ in range(steps):
-            Wz[m] = _newton_step(Z, y, mask, nf, ridge, Wz[m], C)
+            Wz[m] = _newton_step(Z, y, mask, nf, ridge, Wz[m], C, mesh)
     return Wz
 
 
-def _newton_step(Z, y, mask, nf, ridge, Wz, C):
+def _newton_step(Z, y, mask, nf, ridge, Wz, C, mesh=None):
     """One Newton step of one member (see ``_fit_pop_newton``)."""
     n, d1 = Z.shape
     dev = Z.device
@@ -283,6 +315,8 @@ def _newton_step(Z, y, mask, nf, ridge, Wz, C):
         T2 += A.T @ A
         T1 += torch.stack([Zb.T @ _bf16(Zb * Pb[:, c:c + 1])
                            for c in range(C)])
+    for t in (g, T1, T2):
+        _dsum(t, mesh)
     gflat = g.T.reshape(C * d1) / nf + ridge * Wz.T.reshape(C * d1)
     H = torch.block_diag(*[T1[c] for c in range(C)]) - T2
     H = H / nf + torch.diag(ridge)

@@ -21,6 +21,11 @@ as the JAX package's does — is optax's, written by hand in its order
 corrections into the step in another order and differs in the last
 bits. The predict function sums in a fixed order (models/base.py), so a
 row's probabilities do not depend on its batch.
+
+On a pod (rows sharded over the data axis) each rank takes its rows'
+gradient sums and the sums are all-reduced before the bf16 rounding and
+the l2 term, with the mask total — the all-reduce XLA makes of the JAX
+package's row sums over its sharded design.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ from learningorchestra_tpu_torch import jobs
 from learningorchestra_tpu_torch.models.base import (
     TrainedModel, as_design, ordered_matmul, ordered_softmax)
 from learningorchestra_tpu_torch.models.logistic import (
-    _bf16, _device_stats, adam_update, pop_scores)
+    _bf16, _device_stats, _dsum, adam_update, pop_scores)
 from learningorchestra_tpu_torch.parallel.runtime import DeviceRuntime
 from learningorchestra_tpu_torch.utils import fitckpt
 
@@ -84,13 +89,14 @@ def forward(params, X):
     return _bf16(h) @ _bf16(params["W2"]) + params["b2"]
 
 
-def loss_and_grads(params, X, Y1, mask, l2):
+def loss_and_grads(params, X, Y1, mask, l2, mesh=None):
     """The masked mean cross-entropy plus l2·(ΣW1² + ΣW2²) at ``params``,
     and its gradients with respect to every entry of ``PARAMS``. Y1 (n,
     C) one-hot labels, mask (n,) row weights.
     A bf16 product's cotangent is rounded to bf16 before it contracts
     with the product's other bf16 operand (float32 sums); relu's
-    derivative at 0 is 0, as ``jax.nn.relu``'s."""
+    derivative at 0 is 0, as ``jax.nn.relu``'s. ``mesh``: the row sums
+    (and the loss) add over its data axis (a pod's row shards)."""
     W1b, W2b = _bf16(params["W1"]), _bf16(params["W2"])
     u = X - params["mu"]
     Xs = _bf16(u / params["sigma"])
@@ -98,10 +104,10 @@ def loss_and_grads(params, X, Y1, mask, l2):
     hb = _bf16(torch.relu(z))
     logits = hb @ W2b + params["b2"]
     logp = torch.log_softmax(logits, dim=-1)
-    msum = mask.sum()
+    msum = _dsum(mask.sum(), mesh)
     nll = -(logp * Y1).sum(dim=1)
     reg = l2 * ((params["W1"] ** 2).sum() + (params["W2"] ** 2).sum())
-    loss = (nll * mask).sum() / msum + reg
+    loss = _dsum((nll * mask).sum(), mesh) / msum + reg
     dlog = (torch.exp(logp) - Y1) * (mask / msum)[:, None]
     dlog_b = _bf16(dlog)
     dz = (dlog_b @ W2b.T) * (z > 0)
@@ -110,14 +116,16 @@ def loss_and_grads(params, X, Y1, mask, l2):
     # through the first product (float32, as the compiled JAX program
     # keeps it) and the division.
     dXs = dz_b @ W1b.T
-    grads = {"W1": _bf16(Xs.T @ dz_b) + (2.0 * params["W1"]) * l2,
-             "b1": dz.sum(dim=0),
-             "W2": _bf16(hb.T @ dlog_b) + (2.0 * params["W2"]) * l2,
-             "b2": dlog.sum(dim=0),
-             "mu": (-(dXs / params["sigma"])).sum(dim=0),
-             "sigma": ((-dXs * u)
-                       * (1.0 / (params["sigma"] * params["sigma"])))
-             .sum(dim=0)}
+    grads = {"W1": _bf16(_dsum(Xs.T @ dz_b, mesh))
+             + (2.0 * params["W1"]) * l2,
+             "b1": _dsum(dz.sum(dim=0), mesh),
+             "W2": _bf16(_dsum(hb.T @ dlog_b, mesh))
+             + (2.0 * params["W2"]) * l2,
+             "b2": _dsum(dlog.sum(dim=0), mesh),
+             "mu": _dsum((-(dXs / params["sigma"])).sum(dim=0), mesh),
+             "sigma": _dsum(((-dXs * u)
+                             * (1.0 / (params["sigma"] * params["sigma"])))
+                            .sum(dim=0), mesh)}
     return loss, grads
 
 
@@ -127,12 +135,12 @@ def _adam_state(params) -> dict:
             "count": 0}
 
 
-def _run(params, state, X, Y1, mask, *, lr, l2, steps):
+def _run(params, state, X, Y1, mask, *, lr, l2, steps, mesh=None):
     """``steps`` Adam steps of one member, in place of ``params`` and
     ``state``: the one step every fit — serial, segmented, population —
     takes."""
     for _ in range(steps):
-        _, grads = loss_and_grads(params, X, Y1, mask, l2)
+        _, grads = loss_and_grads(params, X, Y1, mask, l2, mesh)
         adam_update(params, grads, state, lr)
 
 
@@ -165,13 +173,17 @@ def _host_stats(X: np.ndarray):
 
 
 def design_stats(runtime: DeviceRuntime, X, X_dev):
-    """(mu, sigma) on the device: host numpy stats for a resident design,
-    the logistic module's two-pass device stats for a lazy one (its full
-    matrix never exists on the host)."""
+    """(mu, sigma) on the device: host numpy stats for a resident design
+    (every rank of a pod holds the whole host array), the logistic
+    module's two-pass device stats for a lazy one (its full matrix never
+    exists on the host; on a pod they sum over the data axis)."""
     if isinstance(X, np.ndarray):
         mu, sigma = _host_stats(X)
         return runtime.replicate(mu), runtime.replicate(sigma)
-    return _device_stats(X_dev)
+    n = int(X.shape[0])
+    valid = runtime.valid_rows(n)
+    return _device_stats(X_dev, n, valid,
+                         runtime.mesh if valid is not None else None)
 
 
 def init_params(seed: int, d: int, hidden: int, num_classes: int,
@@ -210,9 +222,11 @@ def fit(runtime: DeviceRuntime, X, y, num_classes: int, seed: int = 0, *,
         hidden = int(params["W1"].shape[1])
     y_dev, _ = runtime.shard_rows(np.asarray(y, np.int32))
     Y1 = torch.nn.functional.one_hot(y_dev.long(), num_classes).float()
-    mask = torch.ones((n,), dtype=torch.float32, device=dev)
+    valid = runtime.valid_rows(n)
+    mask = (torch.ones((n,), dtype=torch.float32, device=dev)
+            if valid is None else valid)
     state = _adam_state(params)
-    kw = dict(lr=lr, l2=l2)
+    kw = dict(lr=lr, l2=l2, mesh=None if valid is None else runtime.mesh)
     if ckpt is not None and ckpt.enabled and iters > ckpt.every:
         done = 0
         loaded = ckpt.load()

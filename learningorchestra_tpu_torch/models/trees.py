@@ -23,6 +23,16 @@ them is a few small tensor ops per level. Node ids, the fixed per-level
 width and the split arithmetic follow the JAX package exactly, so a fit
 on the same bins and stats gives the same trees.
 
+On a pod (rows sharded over the data axis, parallel/runtime.py) each rank
+runs the kernels on its own rows, and the JAX package's psums become
+all-reduces: once per level for the histogram, once per tree for the
+leaf stats. The histogram kernel sums in fixed point at a scale taken
+from the stats' max |value|, so the ranks first agree on one scale (the
+max over the data axis), then add their int64 totals and convert once:
+dt and gb trees are bit-identical to one rank's, whatever the number of
+ranks. Routing and descent need no collective; rf draws its bootstrap
+per rank, as the JAX package folds the shard index into its key.
+
 Defaults match Spark 2.4's: maxDepth=5, maxBins=32, numTrees=20 (rf),
 maxIter=20 + stepSize=0.1 (gb).
 """
@@ -39,6 +49,8 @@ from learningorchestra_tpu_torch import jobs
 from learningorchestra_tpu_torch.models.base import (
     TrainedModel, as_design, ordered_sigmoid, ordered_sum)
 from learningorchestra_tpu_torch.ops import tree_kernels
+from learningorchestra_tpu_torch.parallel.mesh import (
+    DATA_AXIS, all_gather, all_reduce_)
 from learningorchestra_tpu_torch.parallel.runtime import DeviceRuntime
 from learningorchestra_tpu_torch.utils import fitckpt
 
@@ -98,7 +110,8 @@ def bin_features(X: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
 
 def _build_trees(B, code_idx, stats_T, feat_gain_mask, *, max_depth,
                  n_bins, gain_fn, weight_fn, min_child_weight, min_gain,
-                 codes_T=None, bin_gain_mask=None, level_allow=None):
+                 codes_T=None, bin_gain_mask=None, level_allow=None,
+                 mesh=None):
     """Grow G trees at once, one a slice of the kernels' slice launches.
 
     B: (P, n, d) uint8 bin matrices; code_idx: G ints, tree g's matrix;
@@ -119,7 +132,13 @@ def _build_trees(B, code_idx, stats_T, feat_gain_mask, *, max_depth,
 
     Each tree's arithmetic is the same whatever G is: every kernel
     slice is bit-identical to a one-slice launch, and the torch ops
-    between levels act on each tree's rows alone. Returns (feat (G, M),
+    between levels act on each tree's rows alone.
+
+    mesh: the process mesh when B holds this rank's rows of a
+    row-sharded design. With a data-axis group, the histogram and leaf
+    sums are the kernels' fixed-point totals at a scale shared by every
+    rank, all-reduced as integers and converted once — the same floats
+    one rank's launch over all the rows gives. Returns (feat (G, M),
     thr (G, M), is_internal (G, M), leaf_stats (G, M, S)) with M =
     2^(max_depth+1) - 1 nodes; children of i at 2i+1 / 2i+2.
     """
@@ -138,17 +157,27 @@ def _build_trees(B, code_idx, stats_T, feat_gain_mask, *, max_depth,
     assign = torch.zeros((G, n), dtype=torch.int32, device=dev)
     slots = torch.arange(NL, device=dev)
     # The histogram kernel's fixed-point scales: one pass over the stats,
-    # which every level of the tree shares.
+    # which every level of the tree shares. Across ranks: the largest.
     max_abs = tree_kernels.stat_max_abs(stats_T)
+    pod = mesh is not None and mesh.groups[DATA_AXIS] is not None
+    if pod:
+        max_abs = all_gather(max_abs[None], mesh, DATA_AXIS, 0).amax(0)
     for level in range(max_depth):
         offset = (1 << level) - 1
         rel = assign - offset
         active = (rel >= 0) & (rel < offset + 1)
         rel = torch.where(active, rel, torch.zeros_like(rel))
 
-        hist = tree_kernels.tree_histogram_slices(
-            B, code_idx, stats_T, rel, active, n_nodes=NL, n_bins=n_bins,
-            max_abs=max_abs)                                 # (G,NL,d,nb,S)
+        if pod:
+            totals = tree_kernels.tree_histogram_fixed(
+                B, code_idx, stats_T, rel, active, n_nodes=NL,
+                n_bins=n_bins, max_abs=max_abs)
+            all_reduce_(totals, mesh, DATA_AXIS)
+            hist = tree_kernels.fixed_to_float(totals, max_abs)
+        else:
+            hist = tree_kernels.tree_histogram_slices(
+                B, code_idx, stats_T, rel, active, n_nodes=NL,
+                n_bins=n_bins, max_abs=max_abs)              # (G,NL,d,nb,S)
         left = torch.cumsum(hist, dim=3)                         # ≤ bin t
         total = left[:, :, :, -1:, :]                        # (G,NL,d,1,S)
         gain = gain_fn(left, total)                          # (G,NL,d,nb)
@@ -181,6 +210,13 @@ def _build_trees(B, code_idx, stats_T, feat_gain_mask, *, max_depth,
             codes_T=codes_T)
 
     # Leaf sufficient statistics over ALL nodes (every row sits at a leaf).
+    if pod:
+        totals = tree_kernels.tree_leaf_stats_fixed(assign, stats_T,
+                                                    n_nodes=M,
+                                                    max_abs=max_abs)
+        all_reduce_(totals, mesh, DATA_AXIS)
+        return feat, thr, is_internal, tree_kernels.fixed_to_float(
+            totals, max_abs)
     leaf = tree_kernels.tree_leaf_stats_slices(assign, stats_T, n_nodes=M,
                                                max_abs=max_abs)
     return feat, thr, is_internal, leaf.transpose(1, 2).contiguous()
@@ -289,15 +325,35 @@ def _resume(ckpt, unit: str, of: int, ok) -> Optional[tuple]:
     return progress, arrays
 
 
-def _tree_draw(n, d, mtry, generator, device):
-    """One tree's Poisson(1) bootstrap weights (n,) and feature subset
-    (d,) bool, drawn on ``device`` from ``generator``."""
-    w = torch.poisson(torch.ones((n,), dtype=torch.float32, device=device),
-                      generator=generator)
+def _poisson_rows(n, generator, device):
+    """Poisson(1) bootstrap weights of n rows."""
+    return torch.poisson(torch.ones((n,), dtype=torch.float32,
+                                    device=device), generator=generator)
+
+
+def _feature_draw(d, mtry, generator, device):
+    """A tree's feature subset: mtry of the d features, (d,) bool."""
     perm = torch.randperm(d, generator=generator, device=device)
     allowed = torch.zeros((d,), dtype=torch.bool, device=device)
     allowed[perm[:mtry]] = True
-    return w, allowed
+    return allowed
+
+
+def _tree_draw(n, d, mtry, generator, device):
+    """One tree's Poisson(1) bootstrap weights (n,) and feature subset
+    (d,) bool, drawn on ``device`` from ``generator``."""
+    w = _poisson_rows(n, generator, device)
+    return w, _feature_draw(d, mtry, generator, device)
+
+
+def _shard_generator(runtime: DeviceRuntime, seed: int) -> torch.Generator:
+    """The bootstrap generator of this rank's rows on a pod: seeded from
+    the fit's seed and the rank's index on the data axis."""
+    _, k = runtime.data_shards()
+    gen = torch.Generator(device=runtime.device)
+    gen.manual_seed(int(np.random.SeedSequence(
+        [int(seed), int(k)]).generate_state(1)[0]))
+    return gen
 
 
 def _fit_cls_trees(kind, runtime, X, y, num_classes, seed, *, n_trees,
@@ -315,21 +371,34 @@ def _fit_cls_trees(kind, runtime, X, y, num_classes, seed, *, n_trees,
     y_dev, _ = runtime.shard_rows(np.asarray(y, np.int32))
     d = X.shape[1]
     dev = B.device
+    n_local = B.shape[0]
+    mesh = runtime.mesh
     classes = torch.arange(num_classes, dtype=torch.int32, device=dev)
     base_stats = (y_dev[None, :] == classes[:, None]).float()    # (C, n)
+    valid = runtime.valid_rows(n)
+    if valid is not None:
+        base_stats = base_stats * valid[None, :]         # padding rows: 0
     mtry = mtry or max(1, int(np.sqrt(d)))
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
+    # On a pod the bootstrap draws depend on the shard (the JAX package
+    # folds the shard index into its key); the feature subsets stay the
+    # ones every rank draws from ``gen``.
+    row_gen = _shard_generator(runtime, seed) if valid is not None else None
 
     def one_tree(t):
         if n_trees == 1:
             stats = base_stats
             fmask = torch.zeros((d,), dtype=torch.float32, device=dev)
         else:
-            w, allowed = _tree_draw(n, d, mtry, gen, dev)
+            if row_gen is None:
+                w, allowed = _tree_draw(n_local, d, mtry, gen, dev)
+            else:
+                w = _poisson_rows(n_local, row_gen, dev)
+                allowed = _feature_draw(d, mtry, gen, dev)
             if weights is not None:
-                w = torch.as_tensor(weights[t], dtype=torch.float32,
-                                    device=dev)
+                w, _ = runtime.shard_rows(
+                    np.asarray(weights[t], np.float32))
             if feature_allowed is not None:
                 allowed = torch.as_tensor(feature_allowed[t], device=dev)
             stats = base_stats * w[None, :]
@@ -338,7 +407,7 @@ def _fit_cls_trees(kind, runtime, X, y, num_classes, seed, *, n_trees,
             B, stats.contiguous(), fmask, max_depth=max_depth,
             n_bins=n_bins, gain_fn=_gini_gain,
             weight_fn=lambda s: s.sum(-1), min_child_weight=1.0,
-            min_gain=1e-9, codes_T=B_T)
+            min_gain=1e-9, codes_T=B_T, mesh=mesh)
 
     if (ckpt is not None and ckpt.enabled
             and _forest_batch_shape(n_trees)[1] > 1):
@@ -422,9 +491,11 @@ def fit_rf(runtime: DeviceRuntime, X, y, num_classes, seed=0, *,
            edges=None, weights=None, feature_allowed=None,
            ckpt=None) -> TrainedModel:
     """Random forest. Bootstrap weights and feature subsets come from a
-    ``torch.Generator`` seeded with ``seed``, unless given: ``weights``
-    (n_trees, n) and ``feature_allowed`` (n_trees, d) bool replace the
-    draws (the parity tests feed the JAX package's own draws). An
+    ``torch.Generator`` seeded with ``seed`` (on a pod the bootstrap from
+    one seeded with ``seed`` and the rank's data-axis index), unless
+    given: ``weights`` (n_trees, n) over all rows and ``feature_allowed``
+    (n_trees, d) bool replace the draws (the parity tests feed the JAX
+    package's own draws). An
     enabled ``ckpt`` (utils/fitckpt.py) checkpoints at the tree-batch
     boundaries of ``_forest_batch_shape``."""
     return _fit_cls_trees("rf", runtime, X, y, num_classes, seed,
@@ -443,13 +514,15 @@ fit_rf.host_prep = _edge_prep
 # ---------------------------------------------------------------------------
 
 def _fit_gbt(B, yf, *, max_depth, n_bins, n_rounds, step_size=0.1,
-             lam=1.0, codes_T=None, margin=None):
+             lam=1.0, codes_T=None, margin=None, valid=None, mesh=None):
     """Binary boosting: per round, a Newton tree on the logistic loss's
     gradient/hessian, then the margin moves by the new tree's leaf values
     (``tree_descend`` finds every row's leaf). codes_T as for
     ``_build_tree``; ``margin`` the carry of earlier rounds (zeros when
-    None). Returns stacked per-round (feat, thr, internal, leaf_val) and
-    the margin after the last round."""
+    None). On a pod B holds this rank's rows: ``valid`` masks its padding
+    rows out of the stats and ``mesh`` sums the trees' stats over the
+    data axis. Returns stacked per-round (feat, thr, internal, leaf_val)
+    and the margin after the last round."""
     gain_fn = _make_newton_gain(lam)
     n, d = B.shape
     if margin is None:
@@ -457,14 +530,19 @@ def _fit_gbt(B, yf, *, max_depth, n_bins, n_rounds, step_size=0.1,
     zero_mask = torch.zeros((d,), dtype=torch.float32, device=B.device)
     rounds = []
     for _ in range(n_rounds):
-        p = torch.sigmoid(margin)
+        # Element by element (row-invariant, models/base.py): a row's
+        # gradient must not depend on where its shard starts.
+        p = ordered_sigmoid(margin)
         g = p - yf                                  # d loss / d margin
         h = torch.clamp(p * (1 - p), min=1e-6)
+        if valid is not None:
+            g, h = g * valid, h * valid
         stats = torch.stack([g, h], dim=0)          # (2, n)
         feat, thr, internal, leaf = _build_tree(
             B, stats, zero_mask, max_depth=max_depth, n_bins=n_bins,
             gain_fn=gain_fn, weight_fn=lambda s: s[..., 1],
-            min_child_weight=1e-3, min_gain=1e-9, codes_T=codes_T)
+            min_child_weight=1e-3, min_gain=1e-9, codes_T=codes_T,
+            mesh=mesh)
         leaf_val = -leaf[:, 0] / (leaf[:, 1] + lam)       # (M,)
         assign = tree_kernels.tree_descend(B, feat, thr, internal,
                                            max_depth=max_depth)
@@ -584,7 +662,8 @@ def fit_gb(runtime: DeviceRuntime, X, y, num_classes, seed=0, *,
     hparams = {"n_rounds": n_rounds, "max_depth": max_depth,
                "n_bins": n_bins, "step_size": step_size}
     kw = dict(max_depth=max_depth, n_bins=n_bins, step_size=step_size,
-              codes_T=_route_codes(B))
+              codes_T=_route_codes(B), valid=runtime.valid_rows(n),
+              mesh=runtime.mesh)
     step = torch.tensor(step_size, dtype=torch.float32, device=B.device)
     if num_classes == 2:
         if ckpt is not None and ckpt.enabled and n_rounds > 1:
@@ -744,7 +823,7 @@ def _fit_gbt_pop_seg(B, code_idx, y, w_pop, margin, step_sizes,
         if not live:
             continue
         rows = torch.tensor(live, device=dev)
-        p = torch.sigmoid(margin[rows])
+        p = ordered_sigmoid(margin[rows])
         w = w_pop[rows]
         g = (p - yf) * w
         h = torch.clamp(p * (1 - p), min=1e-6) * w

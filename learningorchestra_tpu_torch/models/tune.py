@@ -642,7 +642,17 @@ def sweep(runtime, X, y, num_classes: int, family: str,
     IDENTICAL survivors and scores (each family's segments are bit-stable
     under segmentation, and the alive set / rung history ride in the
     checkpoint meta). ``draws`` replaces rf's bootstrap and feature
-    draws per config (``_ForestDriver``)."""
+    draws per config (``_ForestDriver``).
+
+    One rank only: the populations' programs hold the whole design on
+    one device (the JAX package never dispatches a sweep to a pod
+    either), so a runtime whose mesh has more than one rank is
+    refused."""
+    if math.prod(runtime.mesh.shape.values()) > 1:
+        raise ValueError(
+            "tune sweeps run on one rank; this runtime's mesh spans "
+            f"{dict(runtime.mesh.shape)} ranks — run the sweep on a "
+            "single-process deployment")
     validate_population(family, configs, num_classes)
     configs = [dict(c) for c in configs]
     folds = int(cfg.tune_folds if folds is None else folds)

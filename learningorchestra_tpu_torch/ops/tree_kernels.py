@@ -44,6 +44,7 @@ import ctypes
 import functools
 from typing import Dict, NamedTuple, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from learningorchestra_tpu_torch.ops._cuda_build import (  # noqa: F401
@@ -109,7 +110,9 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _LIB = CudaLibrary("tree_kernels", {
     "lo_tree_hist_u8": [_P] * 8 + [_I] * 10 + [_P],
+    "lo_tree_hist_u8_fixed": [_P] * 8 + [_I] * 10 + [_P],
     "lo_tree_leaf_i32": [_P] * 5 + [_I] * 7 + [_P],
+    "lo_tree_leaf_i32_fixed": [_P] * 5 + [_I] * 7 + [_P],
     "lo_tree_route": [_P] * 9 + [_I] * 5 + [_P],
     "lo_feature_major": [_P] * 2 + [_I] * 2 + [_P],
     "lo_tree_descend": [_P] * 2 + [_L] + [_P] * 4 + [_I] * 11 + [_P],
@@ -197,6 +200,42 @@ def stat_max_abs(stats_T: torch.Tensor) -> torch.Tensor:
     return stats_T.abs().amax(dim=-1).float().contiguous()
 
 
+def stat_exponent(max_abs: torch.Tensor) -> torch.Tensor:
+    """k of each stat row's fixed point, from its max |value| (the
+    kernel's ``stat_exponent``): x = rint(v · 2^k) has |x| ≤
+    2^HIST_VALUE_BITS; 0 where max_abs is not > 0; capped at 126 so that
+    2^k is a normal float. int32, the shape of ``max_abs``."""
+    m, e = torch.frexp(max_abs.float())
+    e = torch.where(m == 0.5, e - 1, e)
+    k = torch.clamp(HIST_VALUE_BITS - e, max=126)
+    return torch.where(max_abs > 0, k, torch.zeros_like(k)).int()
+
+
+def fixed_to_float(totals: torch.Tensor,
+                   max_abs: torch.Tensor) -> torch.Tensor:
+    """Fixed-point totals (int64, the stat last) → float32 sums, rounded
+    once from the float64 value ``total · 2^-k``: the kernel's own
+    conversion, so the float histogram of integer totals equals the
+    float launch's bit for bit. ``max_abs`` (..., S) broadcasts against
+    the totals' leading slice axes."""
+    k = stat_exponent(max_abs).cpu().numpy()
+    scale = torch.from_numpy(np.ldexp(1.0, -k.astype(np.int64))).to(
+        totals.device)
+    shape = scale.shape[:-1] + (1,) * (totals.dim() - scale.dim()) \
+        + scale.shape[-1:]
+    return (totals.double() * scale.reshape(shape)).float()
+
+
+def _fixed_rows(stats_T: torch.Tensor, max_abs: torch.Tensor):
+    """The kernel's per-row fixed-point values of (S, n) stats at the
+    scale of ``max_abs`` (S,): rint(v · 2^k) as int64 (the product is
+    exact in float32 and rounds half to even, as ``__float2int_rn``)."""
+    k = stat_exponent(max_abs).cpu().numpy().astype(np.int64)
+    scale = torch.from_numpy(np.ldexp(np.float32(1), k).astype(np.float32))
+    return torch.round(stats_T * scale.to(stats_T.device)[:, None]).to(
+        torch.int64)
+
+
 def _max_abs_arg(stats_T, max_abs):
     if max_abs is None:
         return stat_max_abs(stats_T)
@@ -269,11 +308,63 @@ def tree_histogram_slices(codes, code_idx, stats_T, rel, active, *,
     stats_T (G, S, n) float32; rel (G, n) int32; active (G, n) bool;
     max_abs (G, S) or None. Returns (G, n_nodes, d, n_bins, S), each
     slice bit-identical to its own one-slice launch."""
-    G = len(code_idx)
     if not _on_cuda(codes, stats_T, rel, active):
         return tree_histogram_slices_ref(codes, code_idx, stats_T, rel,
                                          active, n_nodes=n_nodes,
                                          n_bins=n_bins)
+    return _hist_launch(codes, code_idx, stats_T, rel, active, n_nodes,
+                        n_bins, max_abs, fixed=False)
+
+
+def tree_histogram_fixed_ref(codes, code_idx, stats_T, rel, active, *,
+                             n_nodes: int, n_bins: int,
+                             max_abs) -> torch.Tensor:
+    """Plain version of ``tree_histogram_fixed``: each active row's
+    fixed-point stats ``index_add_``-ed as int64 into its (node, feature,
+    bin) slots — the same integers the kernel sums."""
+    G = len(code_idx)
+    _, n, d = codes.shape
+    S = stats_T.shape[1]
+    out = torch.zeros((G, n_nodes * d * n_bins, S), dtype=torch.int64,
+                      device=codes.device)
+    fcol = torch.arange(d, device=codes.device) * n_bins
+    for g, c in enumerate(code_idx):
+        x = _fixed_rows(stats_T[g], max_abs[g])
+        for i in range(0, n, _REF_BLOCK):
+            a = active[g, i:i + _REF_BLOCK]
+            cd = codes[int(c), i:i + _REF_BLOCK][a].long()
+            r = rel[g, i:i + _REF_BLOCK][a].long()
+            v = x[:, i:i + _REF_BLOCK][:, a].T
+            key = r[:, None] * (d * n_bins) + fcol[None, :] + cd
+            out[g].index_add_(0, key.reshape(-1),
+                              v[:, None, :].expand(-1, d, S).reshape(-1, S))
+    return out.reshape(G, n_nodes, d, n_bins, S)
+
+
+def tree_histogram_fixed(codes, code_idx, stats_T, rel, active, *,
+                         n_nodes: int, n_bins: int,
+                         max_abs) -> torch.Tensor:
+    """``tree_histogram_slices`` stopped before its conversion: the
+    (G, n_nodes, d, n_bins, S) int64 fixed-point totals at the scale of
+    ``max_abs`` (G, S), which the caller gives. Totals of the same scale
+    add exactly across row shards, and ``fixed_to_float`` of their sum
+    is the float launch over all the rows, bit for bit. The plain
+    version (CPU tensors) gives the same integers."""
+    _need(max_abs, "max_abs", torch.float32, (len(code_idx),
+                                              stats_T.shape[1]))
+    if not _on_cuda(codes, stats_T, rel, active, max_abs):
+        return tree_histogram_fixed_ref(codes, code_idx, stats_T, rel,
+                                        active, n_nodes=n_nodes,
+                                        n_bins=n_bins, max_abs=max_abs)
+    return _hist_launch(codes, code_idx, stats_T, rel, active, n_nodes,
+                        n_bins, max_abs, fixed=True)
+
+
+def _hist_launch(codes, code_idx, stats_T, rel, active, n_nodes, n_bins,
+                 max_abs, *, fixed: bool) -> torch.Tensor:
+    """One launch of the histogram kernel: float sums, or with ``fixed``
+    the int64 totals."""
+    G = len(code_idx)
     P, n, d = codes.shape
     S = stats_T.shape[1]
     _need(codes, "codes", torch.uint8, (P, n, d))
@@ -284,10 +375,13 @@ def tree_histogram_slices(codes, code_idx, stats_T, rel, active, *,
     dev = codes.device
     idx = slice_index(code_idx, P, dev)
     NG, CG, R, rows = hist_plan(n, d, n_bins, S, n_nodes, _num_sms(dev), G)
-    out = torch.empty((G, n_nodes, d, n_bins, S), dtype=torch.float32,
+    out = torch.empty((G, n_nodes, d, n_bins, S),
+                      dtype=torch.int64 if fixed else torch.float32,
                       device=dev)
     partial = torch.empty((R, out.numel()), dtype=torch.int64, device=dev)
-    _check(_library().lo_tree_hist_u8(
+    entry = (_library().lo_tree_hist_u8_fixed if fixed
+             else _library().lo_tree_hist_u8)
+    _check(entry(
         codes.data_ptr(), idx.data_ptr(), stats_T.data_ptr(),
         max_abs.data_ptr(), rel.data_ptr(), active.data_ptr(),
         out.data_ptr(), partial.data_ptr(), n, d, n_bins, S, n_nodes, NG, CG,
@@ -335,6 +429,41 @@ def tree_leaf_stats_slices(assign, stats_T, *, n_nodes: int,
     to its own one-slice launch."""
     if not _on_cuda(assign, stats_T):
         return tree_leaf_stats_slices_ref(assign, stats_T, n_nodes=n_nodes)
+    return _leaf_launch(assign, stats_T, n_nodes, max_abs,
+                        fixed=False).transpose(1, 2)
+
+
+def tree_leaf_stats_fixed_ref(assign, stats_T, *, n_nodes: int,
+                              max_abs) -> torch.Tensor:
+    """Plain version of ``tree_leaf_stats_fixed``."""
+    G, n = assign.shape
+    S = stats_T.shape[1]
+    out = torch.zeros((G, n_nodes, S), dtype=torch.int64,
+                      device=assign.device)
+    for g in range(G):
+        out[g].index_add_(0, assign[g].long(),
+                          _fixed_rows(stats_T[g], max_abs[g]).T)
+    return out
+
+
+def tree_leaf_stats_fixed(assign, stats_T, *, n_nodes: int,
+                          max_abs) -> torch.Tensor:
+    """``tree_leaf_stats_slices`` stopped before its conversion: the
+    (G, n_nodes, S) int64 fixed-point totals at the scale of ``max_abs``
+    (G, S), for the caller to add across row shards and convert with
+    ``fixed_to_float``. The plain version gives the same integers."""
+    _need(max_abs, "max_abs", torch.float32, (assign.shape[0],
+                                              stats_T.shape[1]))
+    if not _on_cuda(assign, stats_T, max_abs):
+        return tree_leaf_stats_fixed_ref(assign, stats_T, n_nodes=n_nodes,
+                                         max_abs=max_abs)
+    return _leaf_launch(assign, stats_T, n_nodes, max_abs, fixed=True)
+
+
+def _leaf_launch(assign, stats_T, n_nodes, max_abs, *,
+                 fixed: bool) -> torch.Tensor:
+    """One launch of the leaf form: (G, n_nodes, S) float sums, or with
+    ``fixed`` int64 totals."""
     G, n = assign.shape
     S = stats_T.shape[1]
     if G > 65535:
@@ -344,14 +473,18 @@ def tree_leaf_stats_slices(assign, stats_T, *, n_nodes: int,
     max_abs = _max_abs_arg(stats_T, max_abs)
     dev = assign.device
     _, CG, R, rows = hist_plan(n, 1, n_nodes, S, 1, _num_sms(dev), G)
-    out = torch.empty((G, n_nodes, S), dtype=torch.float32, device=dev)
+    out = torch.empty((G, n_nodes, S),
+                      dtype=torch.int64 if fixed else torch.float32,
+                      device=dev)
     partial = torch.empty((R, out.numel()), dtype=torch.int64, device=dev)
-    _check(_library().lo_tree_leaf_i32(
+    entry = (_library().lo_tree_leaf_i32_fixed if fixed
+             else _library().lo_tree_leaf_i32)
+    _check(entry(
         assign.data_ptr(), stats_T.data_ptr(), max_abs.data_ptr(),
         out.data_ptr(), partial.data_ptr(), n, n_nodes, S, CG, R, rows, G,
         _stream(dev)), "tree_leaf_stats")
     _count("tree_leaf_stats", G)
-    return out.transpose(1, 2)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,8 @@ gives the whole embedding's Z.
 
 The wrapper takes the plain version only for tensors on the CPU; for
 CUDA tensors it launches its kernel or raises. Each launch adds one to
-``launch_counts()["tsne_repulsion"]``. Unlike the Pallas kernel, neither
+``launch_counts()["tsne_repulsion"]``, or for the row form to
+``launch_counts()["tsne_repulsion_rows"]``. Unlike the Pallas kernel, neither
 form needs n or nq to be a multiple of a tile. The two forms group their
 float sums differently, so a row range agrees with the whole call to
 rounding, not bit for bit.
@@ -38,7 +39,7 @@ import torch
 from learningorchestra_tpu_torch.ops._cuda_build import (
     CudaLibrary, LaunchCounter, check_launch, need, on_cuda, stream)
 
-KERNELS = ("tsne_repulsion",)
+KERNELS = ("tsne_repulsion", "tsne_repulsion_rows")
 #: Pair elements per row block of the plain version (one (blk, n) f32
 #: temporary is 256 MiB at this size).
 _REF_ELEMS = 1 << 26
@@ -123,8 +124,8 @@ def tsne_repulsion_rows(Yq: torch.Tensor, validq: torch.Tensor,
     check_launch(lib.lo_tsne_repulsion(
         Yq.data_ptr(), validq.data_ptr(), Y.data_ptr(), valid.data_ptr(),
         nq, n, int(offset), fpart.data_ptr(), zpart.data_ptr(),
-        F.data_ptr(), Z.data_ptr(), stream(dev)), "tsne_repulsion")
-    _counter.add("tsne_repulsion")
+        F.data_ptr(), Z.data_ptr(), stream(dev)), "tsne_repulsion_rows")
+    _counter.add("tsne_repulsion_rows")
     return Z, F
 
 

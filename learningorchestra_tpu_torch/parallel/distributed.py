@@ -13,6 +13,13 @@ A single process needs no initialization: with nothing set this module
 does nothing, and the mesh (parallel/mesh.py) is 1×1×1 with no process
 group. A bad device or an unreachable coordinator raises; it never turns
 into a one-process run.
+
+The backend follows the device unless the caller names one: NCCL for
+CUDA, gloo for the CPU. ``backend="gloo"`` with ``device="cuda"`` joins
+ranks that share one card (NCCL refuses two ranks of a communicator on
+one device): each rank computes on the card and gloo stages the
+collectives' tensors through the host. Nothing picks a backend by
+itself: two NCCL ranks on one device still raise.
 """
 
 from __future__ import annotations
@@ -34,14 +41,15 @@ TIMEOUT_S = 300.0
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None, *,
-               device: str = "cuda",
+               device: str = "cuda", backend: Optional[str] = None,
                timeout_s: float = TIMEOUT_S) -> None:
     """Join (or start, as process 0) the process group.
 
     Arguments default from the env vars above. ``device="cuda"`` (the
-    default) joins with NCCL and makes device ``process_id`` modulo the
-    local device count current; ``device="cpu"`` joins with gloo. No-op
-    when nothing is set, or when this process already joined."""
+    default) makes device ``process_id`` modulo the local device count
+    current. ``backend`` None joins with NCCL for ``cuda`` and gloo for
+    ``cpu``; ``"gloo"`` or ``"nccl"`` is taken as given. No-op when
+    nothing is set, or when this process already joined."""
     if dist.is_initialized():
         return
     coordinator_address = coordinator_address or config.coordinator_address()
@@ -58,31 +66,39 @@ def initialize(coordinator_address: Optional[str] = None,
             "processes and this process's id; got "
             f"{coordinator_address!r}, {num_processes!r}, {process_id!r}")
     dev = resolve_device(device)
+    if backend not in (None, "nccl", "gloo"):
+        raise ValueError(f"unsupported backend {backend!r}")
     if dev.type == "cuda":
-        backend = "nccl"
         torch.cuda.set_device(int(process_id) % torch.cuda.device_count())
-    else:
-        backend = "gloo"
+    if backend is None:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+    elif backend == "nccl" and dev.type != "cuda":
+        raise ValueError("the nccl backend needs device='cuda'")
     dist.init_process_group(
         backend=backend, init_method=f"tcp://{coordinator_address}",
         world_size=int(num_processes), rank=int(process_id),
         timeout=timedelta(seconds=timeout_s))
 
 
-def process_info() -> dict:
+def process_info(device: Optional[str] = None) -> dict:
     """Topology snapshot for the /cluster observability route (the JAX
-    package's keys): one device a process, so the global device count is
-    the world size; ``devices`` names this process's device."""
+    package's keys, and ``backend``): one device a process, so the
+    global device count is the world size; ``devices`` names this
+    process's device (``device``, the runtime's, when the caller has
+    one). ``backend`` is the process group's, None without one."""
     joined = dist.is_initialized()
-    cuda = (dist.get_backend() == "nccl" if joined
-            else torch.cuda.is_available())
-    dev = f"cuda:{torch.cuda.current_device()}" if cuda else "cpu"
+    backend = dist.get_backend() if joined else None
+    if device is None:
+        cuda = (backend == "nccl" if joined
+                else torch.cuda.is_available())
+        device = f"cuda:{torch.cuda.current_device()}" if cuda else "cpu"
     count = dist.get_world_size() if joined else 1
     return {
         "process_index": dist.get_rank() if joined else 0,
         "process_count": count,
         "local_device_count": 1,
         "global_device_count": count,
-        "devices": [dev],
-        "platform": "gpu" if cuda else "cpu",
+        "devices": [str(device)],
+        "platform": "gpu" if str(device).startswith("cuda") else "cpu",
+        "backend": backend,
     }

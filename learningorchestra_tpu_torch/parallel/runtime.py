@@ -1,14 +1,22 @@
 """Device runtime — one CUDA device holding the framework's tensors.
 
 The JAX package row-shards every array over a device mesh
-(``learningorchestra_tpu/parallel/mesh.py``). This package's process
-runs on one device, so ``shard_rows`` is a host→device copy of the whole
-array and ``replicate`` a copy of a small one; a program sharded over
-several processes (the tx train step) reads its rank's place from
-``mesh`` (parallel/mesh.py). What carries over is the transfer
-cache: a five-classifier build hands the same design matrix to five
-trainers, and each would otherwise copy gigabytes over PCIe again —
-one copy of X serves every family.
+(``learningorchestra_tpu/parallel/mesh.py``). Here each process owns one
+device and one place on the (data, model, seq) mesh of its process group
+(``mesh``, parallel/mesh.py). With one rank on the data axis,
+``shard_rows`` is a host→device copy of the whole array. With D > 1
+ranks on it (a pod, parallel/spmd.py), rows are padded with zeros to a
+multiple of D and each rank holds its block of ``ceil(n / D)`` rows:
+rank k of the data axis rows [k·L, (k+1)·L). The trainers mask the
+padding (``valid_rows``) and sum over the data axis; ``host_rows``
+all-gathers a row-sharded result and drops the padding. ``replicate``
+is a copy of a small value on every rank. On a pod both entry points
+refuse to run outside a dispatched job (``spmd.check_mesh_entry``): the
+collectives that follow them would run on one rank alone. What carries
+over from the one-device runtime is the transfer cache: a five-classifier
+build hands the same design matrix to five trainers, and each would
+otherwise copy gigabytes over PCIe again — one copy of X serves every
+family.
 
 A lazy design matrix (``ops/preprocess.ChunkedDesign``: ``.shape``,
 ``.dtype``, ``.rows(start, stop)``) never exists whole on the host: the
@@ -17,6 +25,7 @@ device tensor is allocated once and filled block by block
 card each block lands in one of two pinned host buffers and is copied
 on a side stream while the read pipeline's pool reads the next, so host
 memory holds the two pinned blocks and the reads in flight, never O(n).
+On a pod each rank reads only its own block's rows.
 
 The runtime never moves to another device by itself: ``device="cuda"``
 (the default) raises when no CUDA device is present, and only an explicit
@@ -36,14 +45,45 @@ import torch
 from learningorchestra_tpu_torch.catalog import readpipe
 from learningorchestra_tpu_torch.config import (
     Settings, settings as global_settings)
-from learningorchestra_tpu_torch.parallel.mesh import ProcessMesh, local_mesh
+from learningorchestra_tpu_torch.parallel.mesh import (
+    DATA_AXIS, ProcessMesh, all_gather, local_mesh)
 
 
 def host_rows(x) -> np.ndarray:
-    """Device tensor → host numpy (a plain copy on one device)."""
+    """Device tensor → host numpy (a plain copy of this rank's tensor;
+    ``DeviceRuntime.host_rows`` gathers a row-sharded one)."""
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def _plan_placement(start: int, stop: int, shard_map) -> None:
+    """Classify this rank's row range of a streamed design against the
+    dataset's ingest shard map (owner host → contiguous row range,
+    recorded by the range-partitioned ingest, catalog/ingest.py): rows
+    whose owner is this host (``spmd.local_host_id``) count local, the
+    rest remote — readpipe's ``lo_shard_local_reads_total`` /
+    ``_remote_reads_total``, whose local fraction is the placement
+    health signal."""
+    if not shard_map or stop <= start:
+        return
+    parts = shard_map.get("partitions") or []
+    if not parts:
+        return
+    from learningorchestra_tpu_torch.parallel import spmd
+
+    reader = spmd.local_host_id()
+    local = 0
+    for p in parts:
+        if int(p.get("host", -1)) != reader:
+            continue
+        r0 = int(p.get("row_start", 0))
+        r1 = r0 + int(p.get("rows", 0))
+        local += max(0, min(stop, r1) - max(start, r0))
+    if local:
+        readpipe.bump_shard("local_reads", local)
+    if (stop - start) - local:
+        readpipe.bump_shard("remote_reads", (stop - start) - local)
 
 
 #: Every tensor a ``DeviceRuntime`` placed, held weakly by id: the CPU
@@ -143,6 +183,51 @@ class DeviceRuntime:
                 self._mesh = local_mesh(self.cfg)
         return self._mesh
 
+    def data_shards(self) -> Tuple[int, int]:
+        """(D, k): the ranks on the data axis and this rank's index on
+        it."""
+        mesh = self.mesh
+        return mesh.size(DATA_AXIS), mesh.index(DATA_AXIS)
+
+    def row_block(self, n: int) -> Tuple[int, int]:
+        """(start, rows) of this rank's block of ``n`` rows: rows [start,
+        start + rows) of the zero-padded array, ``rows = ceil(n / D)``."""
+        D, k = self.data_shards()
+        rows = -(-int(n) // D) if D > 1 else int(n)
+        return k * rows, rows
+
+    def valid_rows(self, n: int) -> Optional[torch.Tensor]:
+        """This rank's (rows,) float32 mask of real (1) and padding (0)
+        rows of a row-sharded array of ``n`` rows; None with one rank on
+        the data axis, where no row is padding."""
+        if self.data_shards()[0] == 1:
+            return None
+        start, rows = self.row_block(n)
+        idx = torch.arange(start, start + rows, device=self.device)
+        return (idx < int(n)).float()
+
+    def host_rows(self, x, n: Optional[int] = None) -> np.ndarray:
+        """A row-sharded device result → the host array of all its rows:
+        all-gathered over the data axis (a collective every rank of the
+        job reaches) and cut to the ``n`` real rows. One rank on the data
+        axis: a plain copy."""
+        if isinstance(x, torch.Tensor) and self.data_shards()[0] > 1:
+            x = all_gather(x.contiguous(), self.mesh, DATA_AXIS, dim=0)
+        out = host_rows(x)
+        return out if n is None else out[:n]
+
+    def _block(self, arr: np.ndarray) -> np.ndarray:
+        """This rank's zero-padded block of a host array (the whole array
+        with one rank on the data axis)."""
+        if self.data_shards()[0] == 1:
+            return arr
+        start, rows = self.row_block(arr.shape[0])
+        block = arr[start:start + rows]
+        if block.shape[0] < rows:
+            block = np.concatenate([block, np.zeros(
+                (rows - block.shape[0],) + arr.shape[1:], arr.dtype)])
+        return block
+
     def _put(self, arr: np.ndarray) -> torch.Tensor:
         with warnings.catch_warnings():
             # Cached host arrays are frozen read-only; the zero-copy view
@@ -156,24 +241,31 @@ class DeviceRuntime:
         return _track(t.clone())
 
     def shard_rows(self, arr) -> Tuple[torch.Tensor, int]:
-        """Host array or lazy design → device tensor (all rows, one
-        device). Returns the tensor and its row count, the JAX runtime's
+        """Host array or lazy design → this rank's device tensor (all
+        rows with one rank on the data axis, else its zero-padded block).
+        Returns the tensor and the global row count, the JAX runtime's
         contract."""
+        from learningorchestra_tpu_torch.parallel import spmd
+
+        # Structural SPMD guard: on a pod, host→device entry is only
+        # legal inside a dispatched job scope — nothing can "forget" to
+        # dispatch and wedge the pod in a collective.
+        spmd.check_mesh_entry("shard_rows")
         if hasattr(arr, "rows") and not isinstance(arr, np.ndarray):
             return self._cached(("design", id(arr)), arr,
                                 lambda: self._feed_lazy(arr))
         if not isinstance(arr, np.ndarray):
             arr = np.asarray(arr)
-            return self._put(arr), int(arr.shape[0])
+            return self._put(self._block(arr)), int(arr.shape[0])
         # Views never enter the cache — freezing a view leaves its base
         # writable, so mutation through the base would still serve stale
         # device data silently.
         if arr.base is not None or not arr.flags.owndata:
-            return self._put(arr), int(arr.shape[0])
+            return self._put(self._block(arr)), int(arr.shape[0])
 
         def put():
             arr.flags.writeable = False
-            return self._put(arr), int(arr.shape[0])
+            return self._put(self._block(arr)), int(arr.shape[0])
 
         return self._cached((id(arr), arr.shape, str(arr.dtype)), arr, put)
 
@@ -198,8 +290,9 @@ class DeviceRuntime:
         return out
 
     def _feed_lazy(self, design) -> Tuple[torch.Tensor, int]:
-        """Fill one (n, ...) device tensor from ``design.rows`` in blocks
-        of ``FEED_BLOCK_ROWS``.
+        """Fill this rank's device tensor — all n rows, or on a pod its
+        zero-padded block (``row_block``) — from ``design.rows`` in
+        blocks of ``FEED_BLOCK_ROWS``; a rank reads no other rank's rows.
 
         While block i is copied, the read pipeline's pool reads block
         i+1 (``prefetch_chunks`` > 0). On a card the read lands in one of
@@ -214,18 +307,27 @@ class DeviceRuntime:
         n = int(design.shape[0])
         tail = tuple(int(s) for s in design.shape[1:])
         dtype = np.dtype(getattr(design, "dtype", np.float32))
+        start, rows = self.row_block(n)
+        stop = min(start + rows, n)
         out = _track(torch.empty(
-            (n,) + tail, dtype=torch.from_numpy(np.empty(0, dtype)).dtype,
+            (rows,) + tail, dtype=torch.from_numpy(np.empty(0, dtype)).dtype,
             device=self.device))
+        if stop - start < rows:
+            out[max(0, stop - start):].zero_()          # padding rows
+        if self.data_shards()[0] > 1:
+            _plan_placement(start, stop,
+                            getattr(design, "shard_map", None))
         blk = max(1, int(self.FEED_BLOCK_ROWS))
-        ranges = [(a, min(a + blk, n)) for a in range(0, n, blk)]
+        # (a, b) are global rows; they land at out[a - start : b - start].
+        ranges = [(a, min(a + blk, stop)) for a in range(start, stop, blk)]
         if not ranges:
             return out, n
         cuda = self.device.type == "cuda"
         if cuda:
             nbuf = min(2, len(ranges))
-            bufs = [torch.empty((min(blk, n),) + tail, dtype=out.dtype,
-                                pin_memory=True) for _ in range(nbuf)]
+            bufs = [torch.empty((min(blk, stop - start),) + tail,
+                                dtype=out.dtype, pin_memory=True)
+                    for _ in range(nbuf)]
             freed = [torch.cuda.Event() for _ in range(nbuf)]
             stream = torch.cuda.Stream(self.device)
             # ``out`` may reuse memory that work queued on the caller's
@@ -269,10 +371,11 @@ class DeviceRuntime:
                         raise
                 if cuda:
                     with torch.cuda.stream(stream):
-                        out[a:b].copy_(host, non_blocking=True)
+                        out[a - start:b - start].copy_(host,
+                                                       non_blocking=True)
                         freed[i % nbuf].record(stream)
                 else:
-                    out[a:b].copy_(host)
+                    out[a - start:b - start].copy_(host)
         finally:
             if ahead is not None:
                 ahead.cancel()
@@ -293,7 +396,11 @@ class DeviceRuntime:
         return out, n
 
     def replicate(self, x) -> torch.Tensor:
-        """A small host value (edges, scalars, params) on the device."""
+        """A small host value (edges, scalars, params) on the device: a
+        local copy on every rank (each holds the same host value)."""
+        from learningorchestra_tpu_torch.parallel import spmd
+
+        spmd.check_mesh_entry("replicate")
         if isinstance(x, torch.Tensor):
             return _track(x.to(self.device))
         return self._put(np.asarray(x))

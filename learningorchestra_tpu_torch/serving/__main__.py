@@ -6,6 +6,12 @@ CUDA device (``--device``, ``cuda`` by default; ``cpu`` runs every
 kernel's plain PyTorch version on the host) and serves HTTP itself, or,
 with ``LO_TPU_HTTP_WORKERS=N`` (N > 1), behind N front-end worker
 processes (serving/frontend.py).
+
+A pod runs this same module in every process;
+``parallel.distributed.initialize`` joins them into one process group
+(env: ``LO_TPU_COORDINATOR`` / ``NUM_PROCESSES`` / ``PROCESS_ID``;
+``--dist-backend gloo`` for ranks that share one card). Process 0 serves;
+every other process runs the SPMD worker loop (parallel/spmd.py).
 """
 
 import argparse
@@ -14,6 +20,7 @@ import signal
 import threading
 
 from learningorchestra_tpu_torch.config import settings
+from learningorchestra_tpu_torch.parallel import distributed, spmd
 from learningorchestra_tpu_torch.serving.app import App
 from learningorchestra_tpu_torch.utils import structlog
 
@@ -76,6 +83,11 @@ def main() -> None:
     parser.add_argument("--store-root", default=settings.store_root)
     parser.add_argument("--device", default="cuda",
                         help="torch device to serve on (cuda, or cpu)")
+    parser.add_argument("--dist-backend", default=None,
+                        choices=("nccl", "gloo"),
+                        help="process-group backend of a pod (default: "
+                             "nccl on cuda, gloo on cpu; gloo for ranks "
+                             "that share one card)")
     parser.add_argument("--no-recover", action="store_true",
                         help="skip loading persisted datasets at startup")
     args = parser.parse_args()
@@ -84,13 +96,50 @@ def main() -> None:
     settings.port = args.port
     settings.store_root = args.store_root
 
+    distributed.initialize(device=args.device, backend=args.dist_backend)
+    if spmd.is_multiprocess() and distributed.process_info()[
+            "process_index"] != 0:
+        # Pod topology: process 0 owns the catalog and the REST surface;
+        # every other process runs the SPMD worker loop, executing the
+        # same device work and collectives process 0 dispatches
+        # (parallel/spmd.py). The store points at the shared store_root —
+        # the data plane the reference's Spark executors got from Mongo.
+        from learningorchestra_tpu_torch.catalog.store import DatasetStore
+        from learningorchestra_tpu_torch.parallel.runtime import (
+            DeviceRuntime)
+
+        runtime = DeviceRuntime(settings, device=args.device)
+        runtime.mesh    # collective: every rank builds the mesh at boot
+        info = distributed.process_info(str(runtime.device))
+        log.info("learningorchestra_tpu_torch worker %d/%d (device %s, "
+                 "%s, mesh epoch %d)", info["process_index"],
+                 info["process_count"], info["devices"][0],
+                 info["backend"], spmd.mesh_epoch())
+        reason = spmd.worker_loop(DatasetStore(settings), runtime)
+        if reason != "shutdown":
+            # Controller lost or this worker's epoch went stale: this
+            # incarnation cannot continue, but the POD should — exit
+            # with the restartable code so the host's supervisor
+            # (supervisor.py) restarts the process into the pod's next
+            # incarnation instead of counting a local failure.
+            from learningorchestra_tpu_torch.supervisor import (
+                RESTARTABLE_EXIT)
+
+            raise SystemExit(RESTARTABLE_EXIT)
+        return
+
+    spmd.ensure_channel()  # workers connect at boot; listener must exist
     app = App(settings, recover=not args.no_recover, device=args.device)
+    app.runtime.mesh    # collective: every rank builds the mesh at boot
     server = app.serve(background=True)
     log.info("learningorchestra_tpu_torch serving on %s:%d (device: %s, "
              "http workers: %d)", args.host, server.port,
              app.runtime.device, max(1, settings.http_workers))
     stopped = install_graceful_shutdown(app, server)
-    stopped.wait()
+    try:
+        stopped.wait()
+    finally:
+        spmd.shutdown_workers()
 
 
 if __name__ == "__main__":

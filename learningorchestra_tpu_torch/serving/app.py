@@ -21,9 +21,10 @@ planes (``/status``, ``/metrics/history``, ``/resources``, ``/alerts``,
 ``/debug/flightrec``, ``/debug/profile``, ``/metrics?format=prometheus``)
 the multi-process front end (``http_workers > 1``,
 serving/frontend.py) and the device-resident hyperparameter search
-(``POST /tune``, models/tune.py). Not ported yet, and so not routed:
-``/cluster`` and ``/replication`` (the pod planes); the replication
-receive server (``replica_port``).
+(``POST /tune``, models/tune.py) and the pod planes: ``/cluster``,
+``/replication``, the replica receive server (``replica_port``), the
+``PodDegraded`` 503 and the pod-health gates of the dispatching routes
+(parallel/spmd.py).
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ from learningorchestra_tpu_torch.models.registry import validate_hparams
 from learningorchestra_tpu_torch.ops.dtypes import convert_fields
 from learningorchestra_tpu_torch.ops.histogram import create_histogram
 from learningorchestra_tpu_torch.ops.projection import create_projection
+from learningorchestra_tpu_torch.parallel import distributed, spmd
 from learningorchestra_tpu_torch.parallel.runtime import DeviceRuntime
 from learningorchestra_tpu_torch.serving.batcher import (
     BatcherStopped, DeadlineExceeded, DispatcherCrashed, ModelQuarantined,
@@ -137,6 +139,11 @@ class App:
         #: in-flight predicts and queued jobs run to completion —
         #: a planned restart loses zero accepted requests.
         self._draining = threading.Event()
+        #: This host's ReplicaServer (catalog/replicate.py) when
+        #: ``LO_TPU_REPLICA_PORT`` is set, started by :meth:`serve` —
+        #: its push/fetch counters ride the ``replication`` metrics
+        #: section.
+        self._replica_server = None
         #: The multi-worker front end when ``http_workers > 1``
         #: (serving/frontend.py FrontendServer), set by :meth:`serve` —
         #: its worker/channel counters feed ``/metrics`` (``frontend``
@@ -145,11 +152,11 @@ class App:
         self.router = Router()
         self._register()
         if recover and self.cfg.persist:
-            # Jobs killed by infrastructure (a process restart mid-job)
-            # re-run automatically from their recorded specs — the Spark
-            # lost-task re-execution analogue. Must run after _register:
-            # the retry runners reuse the same builder / op entry points
-            # the routes do.
+            # Jobs killed by infrastructure (a pod worker death, a process
+            # restart mid-job) re-run automatically from their recorded
+            # specs — the Spark lost-task re-execution analogue. Must run
+            # after _register: the retry runners reuse the same builder /
+            # op entry points the routes do.
             self._rescan_failed_jobs()
 
     # -- helpers -------------------------------------------------------------
@@ -215,6 +222,18 @@ class App:
             # or shutdown): transient — the retry gets the terminal
             # answer (404 if deleted, a fresh dispatcher otherwise).
             return HttpError(503, str(se), headers={"Retry-After": "1"})
+        except spmd.PodDegraded as pe:
+            # A degraded pod is mid-recovery (its supervisor restarts
+            # it under a new mesh epoch): answer 503 + Retry-After
+            # COMPUTED from the recovery machinery's own knobs — the
+            # supervisor needs a health-poll interval to notice plus
+            # its first restart backoff — instead of a hard-coded
+            # constant.
+            return HttpError(
+                503, str(pe),
+                headers={"Retry-After": str(max(1, math.ceil(
+                    self.cfg.health_interval_s
+                    + self.cfg.restart_backoff_s)))})
         except resources.ProfilerBusy as pb:
             # One profiler trace at a time per process: the operator's
             # second capture conflicts with the running one.
@@ -376,6 +395,7 @@ class App:
         # ---- histogram (reference histogram_image/server.py)
         @self._route("POST", "/histograms/{parent}")
         def histogram(req):
+            spmd.require_pod_health()
             parent = req.params["parent"]
             name, fields = req.require("histogram_filename", "fields")
             if not app.store.exists(parent):
@@ -390,7 +410,8 @@ class App:
             app.jobs.submit(
                 "histogram", name,
                 lambda: create_histogram(app.store, parent, name, fields,
-                                         existing=True))
+                                         existing=True,
+                                         runtime=app.runtime))
             return 201, {"result": f"histogram {name} created"}
 
         # ---- data_type_handler (reference data_type_handler server.py:46-76)
@@ -402,6 +423,7 @@ class App:
         # ---- model_builder (reference model_builder_image/server.py:52-115)
         @self._route("POST", "/models")
         def models(req):
+            spmd.require_pod_health()
             (train, test, pred_name, classifiers, label) = req.require(
                 "training_filename", "test_filename", "prediction_filename",
                 "classificators_list", "label")
@@ -466,6 +488,7 @@ class App:
         # trained-model registry.
         @self._route("POST", "/tune")
         def tune_sweep(req):
+            spmd.require_pod_health()
             (train, out, classifier, configs, label) = req.require(
                 "training_filename", "tune_filename", "classificator",
                 "configs", "label")
@@ -528,6 +551,7 @@ class App:
         @self._route("POST", "/trained-models/{name}/predict",
                      replay_posts=False)
         def model_predict_online(req):
+            spmd.require_pod_health()
             (rows,) = req.require("rows")
             # End-to-end deadline: the client's remaining budget rides
             # the X-Deadline-Ms header (clamped; absent → the server
@@ -543,6 +567,7 @@ class App:
 
         @self._route("POST", "/trained-models/{name}/predictions")
         def model_predict(req):
+            spmd.require_pod_health()
             name = req.params["name"]
             dataset, out = req.require("dataset_name", "prediction_filename")
             if app.store.exists(out):
@@ -597,6 +622,30 @@ class App:
         def jobs(_req):
             return 200, app.jobs.records()
 
+        @self._route("GET", "/cluster")
+        def cluster(_req):
+            # The supervisor polls this: ``pod_error`` non-null means the
+            # pod is degraded and should be restarted under a new epoch.
+            info = distributed.process_info(str(app.runtime.device))
+            info["mesh"] = dict(app.runtime.mesh.shape)
+            info["mesh_epoch"] = spmd.mesh_epoch()
+            info["pod_error"] = spmd.pod_error()
+            info["healthy"] = info["pod_error"] is None
+            info["restarts"] = config.restart_count()
+            # Per-process resource snapshots: this process sampled live,
+            # workers from their last job-channel shipment — so a
+            # multi-process pod's host RSS / device memory is comparable
+            # at a glance (lite form: no per-dataset disk walk). Each
+            # carries its process's kernel launches by wrapper.
+            info["resources"] = {
+                str(info["process_index"]): dict(
+                    resources.process_snapshot(app.cfg, lite=True),
+                    launches=spmd.kernel_launches()),
+                **{str(k): v
+                   for k, v in resources.remote_snapshots().items()},
+            }
+            return 200, info
+
         @self._route("GET", "/status")
         def status_page(_req):
             # HTML operator view of the same data /jobs and /files
@@ -606,7 +655,9 @@ class App:
                 render_status)
 
             dev = app.runtime.device
-            info = {"process_index": 0, "process_count": 1,
+            proc = distributed.process_info(str(dev))
+            info = {"process_index": proc["process_index"],
+                    "process_count": proc["process_count"],
                     "device": str(dev), "platform": dev.type,
                     "mesh_epoch": config.mesh_epoch(),
                     "state": "draining" if app.draining else "serving"}
@@ -676,9 +727,25 @@ class App:
         # ---- resource & capacity plane (utils/resources.py, /alerts.py)
         @self._route("GET", "/resources")
         def resources_view(_req):
-            # Device memory + host + disk + compile accounting for this
-            # process.
-            return 200, resources.process_snapshot(app.cfg)
+            # Device memory + host + disk + compile accounting for THIS
+            # process, plus last-known worker snapshots on a pod.
+            doc = resources.process_snapshot(app.cfg)
+            workers = resources.remote_snapshots()
+            if workers:
+                doc["workers"] = {str(k): v for k, v in workers.items()}
+            return 200, doc
+
+        @self._route("GET", "/replication")
+        def replication_view(_req):
+            # The replication section of /metrics, standalone (the
+            # client SDK's Observability.replication() passthrough):
+            # per-dataset lag against each peer's acked watermark, the
+            # under-replicated list, push/fetch/repair counters. Reading
+            # it ticks the push committer's retry check like a scrape.
+            doc = app.store.replication_snapshot()
+            if app._replica_server is not None:
+                doc["server"] = app._replica_server.snapshot()
+            return 200, doc
 
         @self._route("GET", "/alerts")
         def alerts_view(_req):
@@ -776,6 +843,7 @@ class App:
         from learningorchestra_tpu_torch.utils import fitckpt
         from learningorchestra_tpu_torch.utils.profiling import op_timer
 
+        pod_error = spmd.pod_error()
         by_status: dict = {}
         for r in self.jobs.records():
             by_status[r["status"]] = by_status.get(r["status"], 0) + 1
@@ -802,6 +870,8 @@ class App:
                # per-route handling — "where did the p99 go" without
                # grepping /traces.
                "latency_attribution": tracing.attribution_snapshot(),
+               "pod": {"error": pod_error,
+                       "degraded": pod_error is not None},
                "profile_dir": self.cfg.profile_dir or None,
                "resources": resources.process_snapshot(self.cfg),
                "compile": resources.compile_snapshot(),
@@ -810,6 +880,8 @@ class App:
                # counters, the under-replicated list. Snapshotting
                # doubles as the read-driven retry tick.
                "replication": self.store.replication_snapshot()}
+        if self._replica_server is not None:
+            doc["replication"]["server"] = self._replica_server.snapshot()
         if self._frontend is not None:
             # Multi-worker topology only: accept-process liveness,
             # respawn accounting and row-channel frame counters
@@ -832,7 +904,7 @@ class App:
         return doc
 
     def _health_doc(self) -> dict:
-        """The deep ``GET /healthz`` rollup: disk headroom,
+        """The deep ``GET /healthz`` rollup: pod health, disk headroom,
         predict-dispatcher liveness, lifecycle state, the alert summary,
         the front end's workers and (with peers) replication — 200 when
         every check passes and no critical alert fires, 503 (with this
@@ -848,7 +920,9 @@ class App:
         firing = self.alerts.firing()
         critical = self.alerts.firing(severity="critical")
         draining = self._draining.is_set()
+        pod_error = (mdoc.get("pod") or {}).get("error")
         checks = {
+            "pod": {"ok": pod_error is None, "error": pod_error},
             "disk": {"ok": disk_ok, "free_bytes": free,
                      "watermark_bytes": watermark},
             "dispatchers": self.predictor.health(),
@@ -884,7 +958,7 @@ class App:
         return {"healthy": all(c["ok"] for c in checks.values()),
                 "state": "draining" if draining else "serving",
                 "checks": checks,
-                "mesh_epoch": config.mesh_epoch(),
+                "mesh_epoch": spmd.mesh_epoch(),
                 # The freshest evidence bundle, if any: a degraded
                 # verdict points at its black box (the client SDK
                 # quotes this id in the error it raises).
@@ -896,6 +970,7 @@ class App:
 
         @self._route("POST", f"/{method}/images/{{parent}}")
         def create_image(req, method=method, svc=svc):
+            spmd.require_pod_health()
             name = req.body.get("image_name") or req.body.get(
                 f"{method}_filename")
             if not name:
@@ -972,7 +1047,7 @@ class App:
         if kind == "histogram":
             return lambda: create_histogram(
                 self.store, spec["parent"], spec["name"], spec["fields"],
-                existing=True)
+                existing=True, runtime=self.runtime)
         if kind == "projection":
             return lambda: create_projection(
                 self.store, spec["parent"], spec["name"], spec["fields"],
@@ -995,10 +1070,12 @@ class App:
     def _rescan_failed_jobs(self) -> None:
         """Re-run jobs the previous incarnation lost to infrastructure.
 
-        A process restart mid-job marks unfinished outputs
-        ``interrupted:`` (catalog load_all): the JOB was sound but the
-        process wasn't — so re-run each such job from the spec recorded
-        in its outputs' metadata, up to ``Settings.job_retries`` attempts
+        The watchdog fails a dispatched job's outputs with ``pod
+        failure:`` when a worker dies; a process restart mid-job marks
+        unfinished outputs ``interrupted:`` (catalog load_all). Both mean
+        the JOB was sound but the pod wasn't — so after the supervisor
+        restarts the pod, re-run each such job from the spec recorded in
+        its outputs' metadata, up to ``Settings.job_retries`` attempts
         per output (tracked in its ``retries`` counter). Outputs are
         reset via ``DatasetStore.reopen`` first, so pollers see them go
         back in flight and a partial write never duplicates rows.
@@ -1092,6 +1169,23 @@ class App:
         # server so a drain never strands a half-pushed journal suffix
         # silently — the watermark keeps it resumable on restart.
         server.on_stop(self.store.stop_replication)
+        if int(self.cfg.replica_port) > 0:
+            # This host's receive side of the replication plane: peers
+            # push journal prefixes here and fetch chunks back out for
+            # remote repair. Writes land under replica_root (or
+            # <store_root>/_replicas), the same layout the local-mirror
+            # restore path already reads; fetches also consult the
+            # primary store_root so peers can heal from datasets this
+            # host natively owns.
+            from learningorchestra_tpu_torch.catalog import replicate
+
+            self._replica_server = replicate.ReplicaServer(
+                root=(self.cfg.replica_root
+                      or os.path.join(self.cfg.store_root, "_replicas")),
+                host=self.cfg.host, port=int(self.cfg.replica_port),
+                extra_roots=(self.cfg.store_root,),
+                timeout_s=self.cfg.replica_timeout_s)
+            server.on_stop(self._replica_server.stop)
         # The telemetry sampler lives exactly as long as the server:
         # started here (bare App construction spawns no threads — tests
         # drive history via reads), stopped with it — and the stop

@@ -39,8 +39,8 @@ Semantics preserved across the process hop:
   is parsed/clamped by the same ``App._deadline_ms``; expiry is the
   same terminal 504.
 - **backpressure / drain** — QueueFull's computed Retry-After, the
-  draining 503 + ``Connection: close`` and the quarantine mapping all
-  come from the shared ``App.map_exception``.
+  draining 503 + ``Connection: close``, quarantine and pod-degraded
+  mappings all come from the shared ``App.map_exception``.
 - **self-healing** — a worker process death is survived twice over: the
   kernel stops routing new connections to the dead listener (the
   client's stock connection-error retry lands on a live sibling), and
@@ -762,6 +762,9 @@ class _FrontendBackend:
             with tracing.attach(ctx):
                 if app.draining:
                     raise app.drain_error()
+                from learningorchestra_tpu_torch.parallel import spmd
+
+                spmd.require_pod_health()
                 deadline_ms = app._deadline_ms(header.get("deadline"))
                 if binary:
                     # ValueError → the same 406 a malformed JSON row

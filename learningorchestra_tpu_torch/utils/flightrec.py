@@ -291,3 +291,16 @@ def incident(reason: str, detail: Any = None) -> Optional[str]:
         return None
     return rec.dump(reason, detail=detail)
 
+
+
+def dump_minimal(store_root: str, reason: str,
+                 detail: Any = None, keep: int = 8) -> Optional[str]:
+    """A manifest-only bundle for processes without a recorder (the
+    supervisor observing a child death): reason + detail + versions,
+    same bundle layout and retention, no in-process telemetry to
+    capture."""
+    cfg = Settings()
+    cfg.store_root = store_root
+    cfg.flightrec_keep = keep
+    cfg.flightrec_min_interval_s = 0.0
+    return FlightRecorder(cfg).dump(reason, detail=detail, force=True)

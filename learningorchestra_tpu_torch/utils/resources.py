@@ -250,16 +250,48 @@ def disk_snapshot(cfg: Optional[Settings] = None,
 
 # -- full snapshots -----------------------------------------------------------
 
-def process_snapshot(cfg: Optional[Settings] = None) -> Dict[str, Any]:
-    """Everything ``GET /resources`` serves for this process. ``process``
-    is 0: this package runs one device-owning process."""
-    return {
-        "process": 0,
+def process_snapshot(cfg: Optional[Settings] = None,
+                     lite: bool = False) -> Dict[str, Any]:
+    """Everything ``GET /resources`` serves for this process. ``lite``
+    drops the per-dataset disk walk — the form workers ship over the
+    SPMD job channel and ``/cluster`` displays per process."""
+    from learningorchestra_tpu_torch import config
+
+    doc: Dict[str, Any] = {
+        "process": config.process_id() or 0,
         "host": host_snapshot(),
         "devices": device_snapshot(),
         "compile": compile_snapshot(),
-        "disk": disk_snapshot(cfg),
     }
+    if not lite:
+        doc["disk"] = disk_snapshot(cfg)
+    return doc
+
+
+#: Last-known snapshots of OTHER pod processes, keyed by pod rank —
+#: shipped over the SPMD job channel (hello handshake + per-job span
+#: shipments) so ``GET /cluster`` compares the whole pod at a glance.
+_remote: Dict[int, Dict[str, Any]] = {}
+
+
+def note_remote(process: Any, doc: Any) -> None:
+    """Record a worker process's shipped resource snapshot (coordinator
+    side of the job channel). Malformed shipments are dropped — the
+    channel peer is trusted code, but a half-dead worker must never
+    corrupt the pod view."""
+    if not isinstance(doc, dict):
+        return
+    try:
+        idx = int(process)
+    except (TypeError, ValueError):
+        return
+    with _lock:
+        _remote[idx] = {"at": time.time(), **doc}
+
+
+def remote_snapshots() -> Dict[int, Dict[str, Any]]:
+    with _lock:
+        return {k: dict(v) for k, v in _remote.items()}
 
 
 # -- phase sampling (the seam jobs/builder/profiling hook into) ---------------

@@ -37,6 +37,7 @@ class ImageNotFound(KeyError):
 
 def embed_dataset(store: DatasetStore, runtime: DeviceRuntime, method: str,
                   parent: str, label: Optional[str] = None,
+                  marker: Optional[str] = None,
                   **embed_kwargs) -> Tuple[np.ndarray,
                                            Optional[np.ndarray]]:
     """Embed ``parent``'s numeric matrix with tsne|pca. Returns the (n, 2)
@@ -44,17 +45,35 @@ def embed_dataset(store: DatasetStore, runtime: DeviceRuntime, method: str,
 
     Label-encoding of string columns before embedding matches the
     reference's LabelEncoder pass (tsne.py:82-86); the label column
-    itself is not a feature."""
+    itself is not a feature.
+
+    Multi-process pods dispatch the embed to every worker first — the
+    reference ran tsne/pca's data load through the shared Spark tier
+    (reference tsne.py:74-80), so a pod deployment must serve them too.
+    The spec pins the row count and fitted preprocessing state so workers
+    rebuild bit-identical design matrices from the shared store;
+    ``marker`` names the output dataset the REST layer created, failed
+    if a worker dies mid-embed."""
+    from learningorchestra_tpu_torch.parallel import spmd
+
     parent_ds = store.get(parent)
     if label is not None and label not in parent_ds.metadata.fields:
         raise ValueError(f"label field not in dataset: {label}")
     if method not in ("pca", "tsne"):
         raise ValueError(f"unknown embedding method: {method}")
-    X, _, _, _ = design_matrix(parent_ds, label or "__none__")
-    if method == "pca":
-        emb = pca_embed(runtime, X)
-    else:
-        emb = tsne_embed(runtime, X, **embed_kwargs)
+    X, _, feature_fields, state = design_matrix(parent_ds,
+                                                label or "__none__")
+    with spmd.dispatch_job(store, (parent,), {
+            "op": "embed", "method": method, "parent": parent,
+            "label": label, "n_rows": int(len(X)),
+            "state": spmd.jsonable_state(state),
+            "feature_fields": list(feature_fields),
+            "embed_kwargs": embed_kwargs},
+            outputs=(marker,) if marker else ()):
+        if method == "pca":
+            emb = pca_embed(runtime, X)
+        else:
+            emb = tsne_embed(runtime, X, **embed_kwargs)
     labels = parent_ds.columns[label] if label is not None else None
     return emb, labels
 
@@ -69,12 +88,11 @@ def create_embedding_image(store: DatasetStore, runtime: DeviceRuntime,
 
     Synchronous core (the reference's POST also returns before the PNG
     exists and clients GET until 200). ``marker`` names the output the
-    REST layer created first; it only matters where the embed is
-    dispatched to other processes, which this single-process package
-    does not do."""
+    REST layer created first (``embed_dataset``); PNG rendering stays
+    process-0 business."""
     cfg_root = image_root or global_settings.image_root
     emb, labels = embed_dataset(store, runtime, method, parent, label,
-                                **embed_kwargs)
+                                marker=marker, **embed_kwargs)
     path = os.path.join(cfg_root, method, f"{image_name}.png")
     return save_scatter(emb, path, labels=labels,
                         title=f"{method} of {parent}")

@@ -15,14 +15,21 @@ row to one Spark node, and runs single-core sklearn ``TSNE().fit_transform``
   hubs past the table's cap go to a small dst-sorted ``index_add_``.
 - **Exact repulsion**: the full n² q-sum through the hand-written CUDA
   kernel ``ops.tsne_kernels.tsne_repulsion`` (its plain version for CPU
-  tensors).
+  tensors). On a pod whose data axis has D > 1 ranks, and when each
+  rank gets at least one tile of rows, the repulsion is row-sharded as
+  in the JAX package: rank k takes rows [k·n/D, (k+1)·n/D) against the
+  whole (n, 2) embedding through the row form
+  ``tsne_kernels.tsne_repulsion_rows``, Z is all-reduced and the force
+  rows all-gathered over the data axis, so every rank steps the same
+  embedding.
 - Standard Kullback-Leibler descent schedule: early exaggeration ×12, then
   momentum 0.8 with per-coordinate gains, as in van der Maaten's reference
   implementation.
 
 The descent loop stays on the device: no step reads a value back to the
-host. The JAX package's row-sharded multi-device repulsion has no
-counterpart yet; this module runs on one device.
+host. kNN and calibration run whole on every rank of a pod (the JAX
+package runs them per process): they are deterministic, so every rank
+builds the same edge table.
 
 Matrix products run in full float32: the kNN distance form
 ``|a|² + |b|² − 2ab`` cancels at 50 dimensions, so TF32 must stay off
@@ -38,6 +45,8 @@ import numpy as np
 import torch
 
 from learningorchestra_tpu_torch.ops import tsne_kernels
+from learningorchestra_tpu_torch.parallel.mesh import (
+    DATA_AXIS, all_gather, all_reduce_)
 from learningorchestra_tpu_torch.parallel.runtime import (
     DeviceRuntime, host_rows)
 from learningorchestra_tpu_torch.utils.profiling import device_span
@@ -157,16 +166,51 @@ def _edge_table(idx: np.ndarray, P: np.ndarray, n_pad: int,
             dst[ov].astype(np.int32), w[ov])
 
 
+def _repulsion(Y, valid, mesh=None):
+    """(Z, F) over all pairs. ``mesh``: row-shard over its data axis —
+    each rank computes its row range against the whole embedding
+    (``tsne_repulsion_rows``), the Z partials are all-reduced and the
+    force rows all-gathered back to every rank. Y's rows must divide by
+    the data axis."""
+    if mesh is None:
+        return tsne_kernels.tsne_repulsion(Y, valid)
+    nloc = Y.shape[0] // mesh.size(DATA_AXIS)
+    off = mesh.index(DATA_AXIS) * nloc
+    Zp, Fp = tsne_kernels.tsne_repulsion_rows(
+        Y[off:off + nloc], valid[off:off + nloc], Y, valid, off)
+    Zp = Zp.reshape(1)
+    all_reduce_(Zp, mesh, DATA_AXIS)
+    return Zp[0], all_gather(Fp, mesh, DATA_AXIS, 0)
+
+
+def _overflow_segments(ov_dst: np.ndarray):
+    """(rows, starts, ends) of the dst-sorted overflow edges: each
+    destination row once, and the [start, end) range of its edges."""
+    rows, counts = np.unique(ov_dst, return_counts=True)
+    ends = np.cumsum(counts)
+    return rows, ends - counts, ends
+
+
 def _step(Y, vel, gains, sym_idx, sym_w, ov_src, ov_dst, ov_w,
-          n_valid: int, exaggeration: float, eta: float, momentum: float):
+          n_valid: int, exaggeration: float, eta: float, momentum: float,
+          mesh=None, ov_seg=None):
     """One descent step; returns new (Y, vel, gains). Index tensors are
-    int64 (PyTorch's gather and ``index_add_`` index type)."""
+    int64 (PyTorch's gather and ``index_add_`` index type). ``mesh``
+    row-shards the repulsion (``_repulsion``).
+
+    ``ov_seg`` (``_overflow_segments`` on the device) sums the overflow
+    edges deterministically: each destination's edges in order, through
+    a float64 running sum, then one add a row. A pod needs it: its ranks
+    step their own copies of the embedding, and the atomic adds of
+    ``index_add`` round differently from run to run, so the copies would
+    drift apart (the descent amplifies any difference) while each rank
+    computes the other's rows' forces from its own copy."""
     n = Y.shape[0]
     valid = (torch.arange(n, device=Y.device) < n_valid).float()
 
     # --- exact repulsion over the 2-D embedding: the CUDA kernel for CUDA
     # tensors, its plain version for CPU ones -------------------------------
-    Z, Frep = tsne_kernels.tsne_repulsion(Y, valid)
+    Z, Frep = _repulsion(Y, valid, mesh)
     Z = torch.clamp(Z, min=1e-12)
 
     # --- sparse symmetric attraction over the precomputed edge table -------
@@ -181,7 +225,18 @@ def _step(Y, vel, gains, sym_idx, sym_w, ov_src, ov_dst, ov_w,
         dov = Y[ov_dst] - Y[ov_src]
         qov = 1.0 / (1.0 + (dov * dov).sum(dim=-1))
         fov = (ov_w * exaggeration * qov)[:, None] * dov
-        Fattr = Fattr.index_add(0, ov_dst, fov)
+        if ov_seg is None:
+            Fattr = Fattr.index_add(0, ov_dst, fov)
+        else:
+            rows, starts, ends = ov_seg
+            # One 1-D scan a coordinate: a scan down the rows of an
+            # (m, 2) tensor runs a thread a column on the card.
+            seg = []
+            for c in range(2):
+                run = torch.cumsum(fov[:, c].double(), dim=0)
+                run = torch.cat([run.new_zeros(1), run])
+                seg.append((run[ends] - run[starts]).float())
+            Fattr = Fattr.index_add(0, rows, torch.stack(seg, dim=1))
 
     grad = 4.0 * (Fattr - Frep / Z)
     # van der Maaten gains + momentum
@@ -211,7 +266,12 @@ def tsne_embed(runtime: DeviceRuntime, X: np.ndarray, *,
         X, _ = device_span(lambda: pca_embed(runtime, X, k=pca_dims),
                            "viz.pca50", dev)
     tile = min(tile, 1 << max(3, (n - 1).bit_length() - 1))
-    Xp, n_valid = _pad_rows(X, tile)
+    # Row-shard the O(n²) repulsion across the data axis when each rank
+    # still gets at least one full tile of rows; smaller problems run
+    # whole on every rank (they are sub-second anyway).
+    P_data = runtime.data_shards()[0]
+    shard = P_data > 1 and n >= P_data * tile
+    Xp, n_valid = _pad_rows(X, tile * P_data if shard else tile)
     k = min(int(3 * perplexity), n - 1)
 
     (d2k, idx), _ = device_span(
@@ -224,6 +284,9 @@ def tsne_embed(runtime: DeviceRuntime, X: np.ndarray, *,
     sym_idx, ov_src, ov_dst = (runtime.replicate(a.astype(np.int64))
                                for a in (table[0], table[2], table[3]))
     sym_w, ov_w = runtime.replicate(table[1]), runtime.replicate(table[4])
+    ov_seg = (tuple(runtime.replicate(a.astype(np.int64))
+                    for a in _overflow_segments(table[3]))
+              if shard and len(table[3]) else None)
 
     rng = np.random.default_rng(seed)
     Y0 = runtime.replicate(
@@ -237,7 +300,8 @@ def tsne_embed(runtime: DeviceRuntime, X: np.ndarray, *,
             early = it < exaggeration_iters
             state = _step(*state, sym_idx, sym_w, ov_src, ov_dst, ov_w,
                           n_valid, 12.0 if early else 1.0, eta,
-                          0.5 if early else 0.8)
+                          0.5 if early else 0.8,
+                          runtime.mesh if shard else None, ov_seg)
         return state[0]
 
     Y, _ = device_span(descend, "viz.descent", dev)

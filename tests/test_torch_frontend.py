@@ -399,11 +399,9 @@ def test_metrics_and_health_carry_the_frontend(fronts):
     assert fr["predict_binary_total"] >= 1
     h = requests.get(f"{base}/healthz", timeout=30).json()
     assert h["checks"]["frontend"]["ok"]
-    # The JAX rollup's ``pod`` check belongs to the pod planes, which
-    # the port does not have.
     assert set(h["checks"]) == set(requests.get(
         f"{fronts['jax']['base']}/healthz",
-        timeout=30).json()["checks"]) - {"pod"}
+        timeout=30).json()["checks"])
 
 
 def test_client_sends_columnar_for_numeric_rows(fronts):

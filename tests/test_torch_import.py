@@ -26,7 +26,8 @@ def test_import_leaves_jax_unloaded():
     for m in ("models.builder", "ops.exec_jail", "utils.fitckpt",
               "models.flops", "serving.frontend", "serving.status_page",
               "utils.alerts", "utils.flightrec", "utils.prometheus",
-              "utils.resources", "utils.timeseries"):
+              "utils.resources", "utils.timeseries", "parallel.spmd",
+              "supervisor"):
         assert f"learningorchestra_tpu_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -44,6 +44,7 @@ from learningorchestra_tpu_torch.config import Settings
 from learningorchestra_tpu_torch.jobs import JobManager
 from learningorchestra_tpu_torch.catalog.store import DatasetStore
 from learningorchestra_tpu_torch.models import flops
+from learningorchestra_tpu_torch.parallel import spmd
 from learningorchestra_tpu_torch.serving import status_page
 from learningorchestra_tpu_torch.serving.app import App
 from learningorchestra_tpu_torch.utils import (
@@ -368,9 +369,13 @@ def test_watchdog_expiry_dumps_an_incident(tmp_path):
         (bundle,) = rec_dir.list()
         assert bundle["reason"] == "job:watchdog"
         assert bundle["detail"]["job_id"] == rec.job_id
+        # The expiry also poisons the pod, as the JAX package's watchdog
+        # does (the supervisor restarts it under the next mesh epoch).
+        assert "watchdog" in (spmd.pod_error() or "")
     finally:
         release.set()
         flightrec.set_recorder(None)
+        spmd._pod_error = None
 
 
 # -- resources ----------------------------------------------------------------

@@ -308,11 +308,12 @@ def test_error_paths(served):
     db.create_file("badfile", "file:///does/not/exist.csv")
     with pytest.raises(JobFailed):
         db.waiter.wait("badfile")
-    # Not ported routes are absent, not stubbed; /tune is routed (a
-    # family without a population path is refused as in the JAX
-    # package); the observability planes answer.
+    # The pod planes answer (one process: a healthy one-rank pod); /tune
+    # is routed (a family without a population path is refused as in
+    # the JAX package); the observability planes answer.
     for path in ("/cluster", "/replication"):
-        assert requests.get(ctx.url(path)).status_code == 404
+        assert requests.get(ctx.url(path)).status_code == 200
+    assert requests.get(ctx.url("/cluster")).json()["healthy"] is True
     r = requests.post(ctx.url("/tune"), json={
         "training_filename": "dup1", "tune_filename": "dup1t",
         "classificator": "nb", "configs": [{}], "label": "Survived"})

@@ -117,7 +117,8 @@ def test_wrapper_refuses_other_devices():
     v = torch.zeros((4,), device="meta")
     with pytest.raises(ValueError):
         tsk.tsne_repulsion(Y, v)
-    assert tsk.launch_counts() == {"tsne_repulsion": 0}
+    assert tsk.launch_counts() == {"tsne_repulsion": 0,
+                                   "tsne_repulsion_rows": 0}
 
 
 # ---------------------------------------------------------------------------

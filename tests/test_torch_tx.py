@@ -601,8 +601,10 @@ def test_process_info_has_the_jax_keys():
     from learningorchestra_tpu.parallel import distributed as jax_dist
 
     info = distributed.process_info()
-    assert set(info) == set(jax_dist.process_info())
+    # The JAX package's keys, and the process group's backend.
+    assert set(info) == set(jax_dist.process_info()) | {"backend"}
     assert info["process_count"] == 1 and info["process_index"] == 0
+    assert info["backend"] is None
 
 
 def test_unreachable_coordinator_raises():
