@@ -10,7 +10,8 @@ Phases, one JSON line each (any failure exits non-zero):
    and ``csrc/tsne_kernels.cu`` with nvcc for sm_90a, one nvcc per
    source, all started together; each timed, ``fresh`` per source; per
    kernel its registers and spill bytes (ptxas -v) and its shared-atomic,
-   special-function, shuffle and float-to-int instructions (cuobjdump);
+   special-function, shuffle, float-to-int, float FMA/add/multiply and
+   shared-load instructions (cuobjdump);
 3. one line per tree kernel at the HIGGS-sweep shapes (n train rows,
    d=28, 32 bins, depth 5): the kernel against its plain PyTorch version
    on the same inputs (bit-identical for node ids and integer-valued
@@ -40,7 +41,12 @@ Phases, one JSON line each (any failure exits non-zero):
    version (Z rtol 1e-4, max|F − F_ref| ≤ 1e-4·max|F_ref|); two calls
    bit-identical; its row form over two halves (Z partials sum to the
    whole Z within rtol 1e-5; F halves match the whole F within the F
-   tolerance);
+   tolerance); the row form at the pod's shape (each of two ranks' 30,720
+   query rows against 61,440 rows) against its plain version at the same
+   tolerances, two calls bit-identical, both halves timed against the
+   bound of the pairs the kernel takes (the own block once a pair) and
+   the ordered-pair bound, and a query block that is not a view of Y at
+   its offset refused;
 5. small-input references: dt and gb fitted on the card and on the CPU
    (the plain versions) from the same data give the same trees; one
    t-SNE step on 2,048 rows agrees (rtol 1e-4, atol 1e-6) and a
@@ -75,7 +81,9 @@ Phases, one JSON line each (any failure exits non-zero):
    train set against a float64 numpy PCA (|corr| > 0.9999 per
    component), and a t-SNE of a 60,000 × 784 dataset at the service
    defaults (750 iterations, the repulsion kernel launched once per
-   iteration; its 10-NN class agreement above PCA-2's);
+   iteration; its 10-NN class agreement above PCA-2's), run twice with
+   the same seed: the two embeddings bit-identical (with the count of
+   hub-overflow edges, from the descent's span);
 9. serve: the package's REST server (``serving.App`` on the same
    catalog, ``serve(background=True)`` on 127.0.0.1:0) driven over HTTP
    with the standard library: ``POST /models`` (async) of all five
@@ -217,11 +225,17 @@ TSNE_ROWS, TSNE_DIMS, TSNE_PADDED = 60_000, 784, 60_416
 #: two FMAs for the distance, the reciprocal, q², the Z sum and four force
 #: FMAs).
 TSNE_OPS_PER_PAIR = 17
-#: The ordered-pair count of the direct form (14 a pair, the bound the
-#: first port of the kernel was held to), reported beside it.
+#: Float operations per (valid query row, valid foreign row) pair of the
+#: row form: the unordered-pair count less the two force FMAs of the
+#: second row. The column flag is applied only to tiles that touch a
+#: padded row, so, as in the unordered count, no mask is counted.
+TSNE_OPS_PER_FOREIGN_PAIR = 13
+#: The ordered-pair count of the direct form (14 a pair with the mask
+#: multiply, the bound the first port of the kernel was held to),
+#: reported beside it.
 TSNE_OPS_PER_ORDERED_PAIR = 14
 #: SASS opcodes the build line counts per kernel.
-SASS_OPS = ("ATOMS", "MUFU", "SHFL", "F2I")
+SASS_OPS = ("ATOMS", "MUFU", "SHFL", "F2I", "FFMA", "FADD", "FMUL", "LDS")
 ROOT = os.path.dirname(os.path.abspath(__file__))
 #: Held-out rows of the HIGGS-like sweep.
 TEST_ROWS = 100_000
@@ -1047,19 +1061,17 @@ def check_tsne_kernel(dev) -> dict:
     b_ms, b_by = bound(20 * n + 4, TSNE_OPS_PER_PAIR * pairs)
     ordered_ms, _ = bound(20 * n + 4,
                           TSNE_OPS_PER_ORDERED_PAIR * 2 * pairs)
-    # The row form on its own: Yq, Y and valid read once, F and Z written
-    # once; each (valid query row, valid column) pair once.
+    # The row form over every row: all of it is its own block, each
+    # unordered pair once, so its bound is the whole form's.
     Zq, Fq = tsk.tsne_repulsion_rows(Y, valid, Y, valid, 0)
     Zqr, Fqr = tsk.tsne_repulsion_rows_ref(Y, valid, Y, valid, 0)
     check(abs(float(Zq) - float(Zqr)) <= 1e-4 * abs(float(Zqr)),
           f"row form over every row: Z {float(Zq)} vs plain {float(Zqr)}")
-    rows_b_ms, rows_b_by = bound(8 * n + 8 * n + 4 * n + 8 * n + 4,
-                                 TSNE_OPS_PER_ORDERED_PAIR * nv * nv)
     rows_form = {
         "rows_form_max_abs_err": float((Fq - Fqr).abs().max()),
         "rows_form_plain_ms": time_ms(lambda: tsk.tsne_repulsion_rows_ref(
             Y, valid, Y, valid, 0), 3),
-        "rows_form_bound_ms": rows_b_ms, "rows_form_bound_by": rows_b_by}
+        "rows_form_bound_ms": b_ms, "rows_form_bound_by": b_by}
     check(rows_form["rows_form_max_abs_err"] <= f_tol,
           f"row form over every row: F err {rows_form}")
     result = {"max_abs_err": err, "ms": time_ms(
@@ -1146,7 +1158,9 @@ def check_fixed_forms(n: int, dev) -> dict:
 def check_rows_kernel(dev) -> dict:
     """The t-SNE row form at the pod's shapes: the 60,000 rows padded to
     whole tiles on every rank (61,440 = 30 × 1,024 × 2, viz/tsne.py),
-    each rank's half against all of them, against its plain version."""
+    each rank's half against all of them, against its plain version,
+    twice for the same bits, and timed; a query block that is not a view
+    of Y is refused."""
     import torch
 
     from learningorchestra_tpu_torch.ops import tsne_kernels as tsk
@@ -1158,35 +1172,62 @@ def check_rows_kernel(dev) -> dict:
     g.manual_seed(4)
     Y = torch.randn((n, 2), generator=g, device=dev) * 10.0
     valid = (torch.arange(n, device=dev) < nv).float()
-    errs = []
+    halves = []
     for off in range(0, n, h):
-        Zq, Fq = tsk.tsne_repulsion_rows(Y[off:off + h], valid[off:off + h],
-                                         Y, valid, off)
-        Zr, Fr = tsk.tsne_repulsion_rows_ref(
-            Y[off:off + h], valid[off:off + h], Y, valid, off)
+        Yq, vq = Y[off:off + h], valid[off:off + h]
+        Zq, Fq = tsk.tsne_repulsion_rows(Yq, vq, Y, valid, off)
+        Zr, Fr = tsk.tsne_repulsion_rows_ref(Yq, vq, Y, valid, off)
         f_tol = 1e-4 * float(Fr.abs().max())
-        errs.append(float((Fq - Fr).abs().max()))
+        err = float((Fq - Fr).abs().max())
         check(abs(float(Zq) - float(Zr)) <= 1e-4 * abs(float(Zr)),
               f"tsne_repulsion_rows at {off}: Z {float(Zq)} vs "
               f"{float(Zr)}")
-        check(errs[-1] <= f_tol, f"tsne_repulsion_rows at {off}: F err "
-              f"{errs[-1]} > {f_tol}")
-    Z2, F2 = tsk.tsne_repulsion_rows(Y[:h], valid[:h], Y, valid, 0)
-    Z1, F1 = tsk.tsne_repulsion_rows(Y[:h], valid[:h], Y, valid, 0)
-    check(torch.equal(Z1, Z2) and torch.equal(F1, F2),
-          "tsne_repulsion_rows: two calls differ")
-    # Bytes: Yq and its flags, Y and its flags read once, F and Z written
-    # once; operations: each (valid query row, valid row) pair once.
-    q_valid = min(h, nv)
-    b_ms, b_by = bound(12 * h + 12 * n + 8 * h + 4,
-                       TSNE_OPS_PER_ORDERED_PAIR * q_valid * nv)
-    result = {"max_abs_err": max(errs), "ms": time_ms(
-        lambda: tsk.tsne_repulsion_rows(Y[:h], valid[:h], Y, valid, 0), 20),
-        "plain_ms": time_ms(lambda: tsk.tsne_repulsion_rows_ref(
-            Y[:h], valid[:h], Y, valid, 0), 3),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        check(err <= f_tol, f"tsne_repulsion_rows at {off}: F err "
+              f"{err} > {f_tol}")
+        Z2, F2 = tsk.tsne_repulsion_rows(Yq, vq, Y, valid, off)
+        check(torch.equal(Zq, Z2) and torch.equal(Fq, F2),
+              f"tsne_repulsion_rows at {off}: two calls differ")
+        # Bytes: Y and its flags read once (the query rows are Y's), F and
+        # Z written once. Operations: 13 a (valid query row, valid foreign
+        # row) pair, 17 a valid unordered pair of the own block, as the
+        # kernel takes them; beside it the direct form's ordered-pair
+        # count, 14 a (valid query row, valid row) pair.
+        q_valid = int(vq.sum())
+        pairs_own = q_valid * (q_valid - 1) / 2
+        nbytes = 12 * n + 8 * h + 4
+        b_ms, b_by = bound(nbytes, TSNE_OPS_PER_FOREIGN_PAIR * q_valid
+                           * (nv - q_valid) + TSNE_OPS_PER_PAIR * pairs_own)
+        ordered_ms, _ = bound(nbytes,
+                              TSNE_OPS_PER_ORDERED_PAIR * q_valid * nv)
+        halves.append({
+            "offset": off, "valid_query_rows": q_valid, "max_abs_err": err,
+            "f_tol": f_tol,
+            "ms": time_ms(lambda: tsk.tsne_repulsion_rows(
+                Yq, vq, Y, valid, off), 20),
+            "plain_ms": time_ms(lambda: tsk.tsne_repulsion_rows_ref(
+                Yq, vq, Y, valid, off), 3),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "ordered_pair_bound_ms": ordered_ms})
+    before = tsk.launch_counts()["tsne_repulsion_rows"]
+    for what, Yq, vq, off in (
+            ("a copy", Y[:h].clone(), valid[:h], 0),
+            ("a wrong offset", Y[:h], valid[:h], 1),
+            ("a strided block", Y[:2 * h:2], valid[:h], 0)):
+        try:
+            tsk.tsne_repulsion_rows(Yq, vq, Y, valid, off)
+        except ValueError:
+            continue
+        check(False, f"tsne_repulsion_rows took {what} as its query rows")
+    check(tsk.launch_counts()["tsne_repulsion_rows"] == before,
+          "a refused row-form call launched")
+    # The kernel line's time and bound are rank 0's half (every valid
+    # query row); both halves are in "halves".
+    result = {k: halves[0][k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "ordered_pair_bound_ms")}
+    result.update({"max_abs_err": max(x["max_abs_err"] for x in halves),
+                   "library_ms": None, "halves": halves})
     emit({"phase": "kernel", "name": "tsne_repulsion_rows", "rows": h,
-          "against": n, **result})
+          "against": n, "non_views_refused": 3, **result})
     return result
 
 
@@ -1256,9 +1297,14 @@ def check_tsne_small_reference(dev) -> None:
              rng.uniform(0.5, 2.0, size=(n, 2)).astype(np.float32)]
     args = [*state, *(a.astype(np.int64) if a.dtype == np.int32 else a
                       for a in table)]
-    card, host = ([t.cpu().numpy() for t in tt._step(
-        *(rt.replicate(a) for a in args), n, 12.0, 200.0, 0.5)]
-        for rt in (gpu, cpu))
+
+    def one_step(rt):
+        on = [rt.replicate(a) for a in args]
+        seg = tt._overflow_segments(on[6]) if len(table[3]) else None
+        return [t.cpu().numpy() for t in tt._step(
+            *on, n, 12.0, 200.0, 0.5, ov_seg=seg)]
+
+    card, host = one_step(gpu), one_step(cpu)
     step_diff = {}
     for name, a, b in zip(("Y", "vel", "gains"), card, host):
         step_diff[name] = float(np.abs(a - b).max())
@@ -1370,12 +1416,29 @@ def explore_path(store, runtime, dev) -> dict:
                                     label="label")
     doc["embed_s"] = time.time() - t0
     counts = tsk.launch_counts()
+    # The same embed again, same seed and catalog: the same bits.
+    t0 = time.time()
+    emb2, _ = embed_dataset(store, runtime, "tsne", "mnist_like",
+                            label="label")
+    doc["embed_again_s"] = time.time() - t0
     spans = {}
+    overflow = None
     for sp in tracing.spans_for(ctx.trace_id):
         if sp["name"].startswith("viz."):
             spans[sp["name"]] = (spans.get(sp["name"], 0.0)
                                  + sp["duration_ms"] / 1e3)
+        if sp["name"] == "viz.descent":
+            overflow = sp["attrs"]["overflow_edges"]
     doc["embed_spans_s"] = spans
+    repeat = {"equal": bool(np.array_equal(emb, emb2)),
+              "overflow_edges": overflow}
+    if not repeat["equal"]:
+        repeat["max_abs_diff"] = float(np.abs(emb - emb2).max())
+    check(repeat["equal"], "two one-card t-SNE embeds of one dataset and "
+          f"seed differ: {repeat}")
+    again = tsk.launch_counts()
+    check(again["tsne_repulsion"] == 1500,
+          f"repulsion launches {again} != 750 per embed over two")
     check(emb.shape == (TSNE_ROWS, 2) and np.isfinite(emb).all(),
           "t-SNE embedding: finite, (60000, 2)")
     check(counts["tsne_repulsion"] == 750,
@@ -1393,8 +1456,8 @@ def explore_path(store, runtime, dev) -> dict:
     # here through the service's own embed_dataset.
     emit({**doc, "embed_abs_max": float(np.abs(emb).max()),
           "knn10_agreement": agree, "knn10_agreement_pca2": agree_pca,
-          "launches": counts})
-    return counts
+          "tsne_repeat": repeat, "launches": again})
+    return again
 
 
 class JsonHttp:

@@ -57,18 +57,52 @@
 //     when |y_i| is large against the force, as for the outer rows of a
 //     late embedding.
 //
-//   Row range (lo_tsne_repulsion; tsne_repulsion_rows: query rows Yq with
-//   global ids offset + i against every column of Y, for the row-sharded
-//   mesh embed). The direct form: each query row's sum over all columns,
-//   14 float operations per ordered pair. Each thread owns kRowsPerThread
-//   query rows and their sums in registers, a block stages tiles of
-//   (x, y, valid) columns in shared memory where every thread reads the
-//   same column at once (a broadcast), and only the one tile per block
-//   that can hold a row's own column pays for the diagonal test. Blocks
-//   run over (row block, column chunk) and a second kernel sums their F
-//   and Z partials in a fixed order. Its sums are grouped differently
-//   from the whole-embedding kernel's, so a row range agrees with the
-//   whole call to float rounding, not bit for bit.
+//   Row range (lo_tsne_repulsion; tsne_repulsion_rows, the call each step
+//   of the row-sharded mesh embed makes on every rank: query rows Y[offset,
+//   offset + nq) against every row of Y). It replaces the Pallas
+//   _repulsion_kernel as tsne_repulsion_rows launches it. The query rows
+//   must be Y's own rows (the wrapper checks that Yq and validq are views
+//   of Y and valid at offset), which splits the columns in two:
+//   - foreign columns, outside [offset, offset + nq): each ordered pair is
+//     this rank's alone, counted at 14 operations as the direct form was
+//     (two differences, two distance FMAs, the reciprocal, q^2, the Z add,
+//     two force FMAs and the flag multiply, which all-valid items skip);
+//   - the own nq x nq block: each unordered pair once, credited to both
+//     rows, 17 operations, as the whole-embedding kernel takes it.
+//   What bounds it: instruction issue. A foreign pair is 8 FP32-pipe
+//   instructions and one MUFU reciprocal, and the MUFU unit's 16 lanes a
+//   clock against the FP32 pipe's 128 make the two pipes equally busy;
+//   an own-block pair is 10 FP32 instructions and half a reciprocal a
+//   side. At two ranks the own block is half of a rank's pairs, so taking
+//   it once saves a quarter of the launch (1/(2D) at D ranks).
+//   Design (the whole-embedding kernel's parts, one kernel):
+//   - A work list built by the wrapper (ops/tsne_kernels.py
+//     rows_geometry): query tile I (kSymTile rows, 8 a lane in registers,
+//     as above) against a foreign range of kForeignCols columns, against
+//     itself (sym_diag, the self pair masked by index), or against query
+//     tile J > I (sym_offdiag: the column ring, both sides credited).
+//     Foreign items run the direct form with no self-pair test (no
+//     foreign column is a query row) and apply the query rows' flags
+//     once at the end; columns sit in shared memory as float2 plus a
+//     separate flag array, one broadcast load a column for 8 pairs.
+//   - The column-flag multiply only on items whose staged columns (or,
+//     for tile pairs, rows) hold an invalid row, a block-uniform test
+//     (__syncthreads_and); items with no valid row or no valid column
+//     (the padded tail) are skipped and write zeros.
+//   - Persistent blocks, as many as the SMs hold at once (4 a SM at the
+//     128-register budget), walk the list, heaviest items first (tile
+//     pairs, diagonal tiles, then the half-size foreign items), taking
+//     the next item from a global counter: the last wave is no longer a
+//     whole grid row of equal blocks, and its ragged end is one foreign
+//     item long.
+//   - Fixed-order sums: every item writes its row partial to its own slot
+//     of an (nt, slots, kSymTile) scratch (slots in global column order),
+//     a tile pair also its column partial to query tile J's slot, and its
+//     Z to its own slot; the whole form's finish kernel adds them in slot
+//     order. Which block takes an item changes no bit, so two calls give
+//     the same bits and every rank's step is the same. The sums are
+//     grouped differently from the whole-embedding kernel's, so a row
+//     range agrees with the whole call to float rounding, not bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -256,10 +290,11 @@ __device__ void sum_z(const float* __restrict__ zpart, int n_zpart,
   if (threadIdx.x == 0) *Z = red[0];
 }
 
-// F_i = row i's nt slots in slot order.
+// F_i = row i's slots in slot order: part is (tiles, slots, kSymTile)
+// float2, with slots = nt for the whole embedding. Both forms finish here.
 __global__ void __launch_bounds__(kFinishThreads) repulsion_sym_finish_kernel(
     const float2* __restrict__ part, const float* __restrict__ zpart, int n,
-    int nt, int n_zpart, float2* __restrict__ F, float* __restrict__ Z) {
+    int slots, int n_zpart, float2* __restrict__ F, float* __restrict__ Z) {
   if (blockIdx.x == gridDim.x - 1) {
     sum_z(zpart, n_zpart, Z);
     return;
@@ -267,9 +302,9 @@ __global__ void __launch_bounds__(kFinishThreads) repulsion_sym_finish_kernel(
   const int i = blockIdx.x * kFinishThreads + threadIdx.x;
   if (i >= n) return;
   const int t = i / kSymTile, li = i % kSymTile;
-  const float2* p = part + (long long)t * nt * kSymTile + li;
+  const float2* p = part + (long long)t * slots * kSymTile + li;
   float2 acc = make_float2(0.0f, 0.0f);
-  for (int s = 0; s < nt; ++s) {
+  for (int s = 0; s < slots; ++s) {
     const float2 a = p[(long long)s * kSymTile];
     acc.x += a.x;
     acc.y += a.y;
@@ -278,128 +313,155 @@ __global__ void __launch_bounds__(kFinishThreads) repulsion_sym_finish_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// Row range: the direct form over ordered pairs.
+// Row range: foreign columns in the direct form, the own block once a pair.
 // ---------------------------------------------------------------------------
 
-constexpr int kThreads = 128;
-constexpr int kRowsPerThread = 4;
-constexpr int kRowsPerBlock = kThreads * kRowsPerThread;
-// Columns staged in shared memory per pass (8 KiB of float4), and the
-// columns one block sweeps.
-constexpr int kTile = 512;
-constexpr int kColChunk = 8 * kTile;
+// Columns of a foreign item, and the item kinds and record length of the
+// work list (ops/tsne_kernels.py rows_geometry builds it).
+constexpr int kForeignCols = 512;
+constexpr int kForeign = 0, kOwnDiag = 1, kOwnPair = 2;
+constexpr int kItemInts = 6;
+// Blocks a persistent launch keeps on each SM (a register budget of 128).
+constexpr int kRowsMinBlocks = 4;
 
-template <bool kDiagonal>
-__device__ __forceinline__ void sweep_tile(
-    const float4* __restrict__ cols, int width, int col0,
-    const float (&xi)[kRowsPerThread], const float (&yi)[kRowsPerThread],
-    const int (&rid)[kRowsPerThread], float (&fx)[kRowsPerThread],
-    float (&fy)[kRowsPerThread], float (&z)[kRowsPerThread]) {
+// Rows of the item against kForeignCols staged columns, every ordered
+// pair; no column is a query row, so there is no self pair to mask.
+// Query rows' flags are applied once, at the end.
+template <bool kMasked>
+__device__ __forceinline__ void rows_direct(SymRows& r,
+                                            const float2* __restrict__ cxy,
+                                            const float* __restrict__ cv) {
 #pragma unroll 4
-  for (int c = 0; c < width; ++c) {
-    const float4 p = cols[c];  // x, y, valid
+  for (int c = 0; c < kForeignCols; ++c) {
+    const float2 p = cxy[c];
+    const float vc = kMasked ? cv[c] : 1.0f;
 #pragma unroll
-    for (int k = 0; k < kRowsPerThread; ++k) {
-      const float dx = xi[k] - p.x;
-      const float dy = yi[k] - p.y;
-      float q = p.z * __fdividef(1.0f, fmaf(dx, dx, fmaf(dy, dy, 1.0f)));
-      // The self pair adds nothing to F (dx = dy = 0), only to Z.
-      if (kDiagonal && col0 + c == rid[k]) q = 0.0f;
+    for (int k = 0; k < kSymRows; ++k) {
+      const float dx = r.x[k] - p.x;
+      const float dy = r.y[k] - p.y;
+      float q = rcp_approx(fmaf(dx, dx, fmaf(dy, dy, 1.0f)));
+      if (kMasked) q *= vc;
       const float q2 = q * q;
-      z[k] += q;
-      fx[k] = fmaf(q2, dx, fx[k]);
-      fy[k] = fmaf(q2, dy, fy[k]);
+      r.z[k] += q;
+      r.fx[k] = fmaf(q2, dx, r.fx[k]);
+      r.fy[k] = fmaf(q2, dy, r.fy[k]);
     }
   }
 }
 
-__global__ void __launch_bounds__(kThreads) repulsion_partial_kernel(
-    const float* __restrict__ yq, const float* __restrict__ vq,
-    const float* __restrict__ y, const float* __restrict__ v, int nq, int n,
-    int offset, float* __restrict__ fpart, float* __restrict__ zpart) {
-  __shared__ float4 tile[kTile];
-  __shared__ float zwarp[kThreads / 32];
-  const int row0 = blockIdx.x * kRowsPerBlock;
-  const int chunk = blockIdx.y;
-  const int c_begin = chunk * kColChunk;
-  const int c_end = min(n, c_begin + kColChunk);
+// One persistent block walks the work list: item blockIdx.x first, then
+// the next unclaimed one (a global counter). Every item writes its own
+// slots, so which block takes an item changes no bit of the result.
+__global__ void __launch_bounds__(kSymThreads, kRowsMinBlocks)
+repulsion_rows_kernel(const float2* __restrict__ y,
+                      const float* __restrict__ v, int nq, int offset,
+                      const int* __restrict__ items, int n_items, int slots,
+                      int* __restrict__ next, float2* __restrict__ part,
+                      float* __restrict__ zpart) {
+  __shared__ float2 cxy[kSymTile];
+  __shared__ float cv[kSymTile];
+  __shared__ float2 cacc[kSymWarps][kSymTile];
+  __shared__ float zwarp[kSymWarps];
+  __shared__ int s_next;
 
-  float xi[kRowsPerThread], yi[kRowsPerThread], vi[kRowsPerThread];
-  int rid[kRowsPerThread];
-  float fx[kRowsPerThread], fy[kRowsPerThread], z[kRowsPerThread];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = warp * kSymWarpRows + lane;
+  const int q_end = offset + nq;  // query rows are global [offset, q_end)
+  for (int it = blockIdx.x; it < n_items;) {
+    const int* w = items + (long long)kItemInts * it;
+    const int kind = w[0], I = w[1], a = w[2], b = w[3];
+    const int row_slot = w[4], col_slot = w[5];
+
+    // Rows: query tile I, 8 a lane.
+    SymRows r;
+    bool rows_all = true, rows_any = false;
 #pragma unroll
-  for (int k = 0; k < kRowsPerThread; ++k) {
-    // Strided rows: neighbouring threads load neighbouring rows.
-    const int r = row0 + k * kThreads + threadIdx.x;
-    const bool in = r < nq;
-    const float2 p = in ? reinterpret_cast<const float2*>(yq)[r]
-                        : make_float2(0.0f, 0.0f);
-    xi[k] = p.x;
-    yi[k] = p.y;
-    vi[k] = in ? vq[r] : 0.0f;
-    rid[k] = offset + r;
-    fx[k] = fy[k] = z[k] = 0.0f;
-  }
-  // Global rows [g_lo, g_hi) of this block, for the diagonal test.
-  const long long g_lo = (long long)offset + row0;
-  const long long g_hi = g_lo + kRowsPerBlock;
-
-  for (int t0 = c_begin; t0 < c_end; t0 += kTile) {
-    const int width = min(kTile, c_end - t0);
-    __syncthreads();  // the previous tile is consumed
-    for (int c = threadIdx.x; c < width; c += kThreads) {
-      const float2 p = reinterpret_cast<const float2*>(y)[t0 + c];
-      tile[c] = make_float4(p.x, p.y, v[t0 + c], 0.0f);
+    for (int k = 0; k < kSymRows; ++k) {
+      const int g = offset + I * kSymTile + row0 + 32 * k;
+      const bool in = g < q_end;
+      const float2 p = in ? y[g] : make_float2(0.0f, 0.0f);
+      r.x[k] = p.x;
+      r.y[k] = p.y;
+      r.v[k] = in ? v[g] : 0.0f;
+      rows_all = rows_all && r.v[k] == 1.0f;
+      rows_any = rows_any || r.v[k] != 0.0f;
+      r.fx[k] = r.fy[k] = r.z[k] = 0.0f;
     }
+    // Columns: [a, b) for a foreign item, query tile a for the own block;
+    // past the range, invalid zeros.
+    const int c0 = kind == kForeign ? a : offset + a * kSymTile;
+    const int width = kind == kForeign ? b - a : min(kSymTile, q_end - c0);
+    const int cap = kind == kForeign ? kForeignCols : kSymTile;
+    bool cols_all = true, cols_any = false;
+    for (int c = threadIdx.x; c < cap; c += kSymThreads) {
+      const bool in = c < width;
+      cxy[c] = in ? y[c0 + c] : make_float2(0.0f, 0.0f);
+      cv[c] = in ? v[c0 + c] : 0.0f;
+      cols_all = cols_all && cv[c] == 1.0f;
+      cols_any = cols_any || cv[c] != 0.0f;
+    }
+    // Block-uniform flags: skip an item with no valid row or column, and
+    // mask only items that touch an invalid row or column.
+    const bool live_rows = __syncthreads_or(rows_any);
+    const bool live_cols = __syncthreads_or(cols_any);
+    const bool valid_cols = __syncthreads_and(cols_all);
+    const bool valid_all = __syncthreads_and(rows_all) && valid_cols;
+    const bool live = live_rows && live_cols;
+
+    if (live) {
+      if (kind == kForeign) {
+        if (valid_cols) {
+          rows_direct<false>(r, cxy, cv);
+        } else {
+          rows_direct<true>(r, cxy, cv);
+        }
+      } else if (kind == kOwnDiag) {
+        sym_diag(r, cxy, cv, row0);
+      } else if (valid_all) {
+        sym_offdiag<false>(r, cxy, cv, cacc[warp], lane);
+      } else {
+        sym_offdiag<true>(r, cxy, cv, cacc[warp], lane);
+      }
+    }
+    if (kind == kOwnPair) {
+      // Column sums of query tile a, the four warps in order.
+      __syncthreads();
+      float2* out = part + ((long long)a * slots + col_slot) * kSymTile;
+      for (int c = threadIdx.x; c < kSymTile; c += kSymThreads) {
+        float2 s = make_float2(0.0f, 0.0f);
+        if (live) {
+          s = cacc[0][c];
+#pragma unroll
+          for (int w2 = 1; w2 < kSymWarps; ++w2) {
+            s.x += cacc[w2][c].x;
+            s.y += cacc[w2][c].y;
+          }
+        }
+        out[c] = s;
+      }
+    }
+
+    float2* out = part + ((long long)I * slots + row_slot) * kSymTile;
+    float zt = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kSymRows; ++k) {
+      out[row0 + 32 * k] = make_float2(r.v[k] * r.fx[k], r.v[k] * r.fy[k]);
+      zt += r.v[k] * r.z[k];
+    }
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) zt += __shfl_xor_sync(0xffffffffu, zt, s);
+    if (lane == 0) zwarp[warp] = zt;
     __syncthreads();
-    if (g_hi > t0 && g_lo < t0 + width) {
-      sweep_tile<true>(tile, width, t0, xi, yi, rid, fx, fy, z);
-    } else {
-      sweep_tile<false>(tile, width, t0, xi, yi, rid, fx, fy, z);
+    if (threadIdx.x == 0) {
+      float bz = 0.0f;
+      for (int w2 = 0; w2 < kSymWarps; ++w2) bz += zwarp[w2];
+      // An own-block pair stands for both of its ordered pairs.
+      zpart[it] = kind == kOwnPair ? 2.0f * bz : bz;
+      s_next = gridDim.x + atomicAdd(next, 1);
     }
+    __syncthreads();  // shared tiles consumed, s_next visible
+    it = s_next;
   }
-
-  // Invalid query rows are masked here, once, instead of per pair.
-  float zt = 0.0f;
-#pragma unroll
-  for (int k = 0; k < kRowsPerThread; ++k) {
-    const int r = row0 + k * kThreads + threadIdx.x;
-    if (r < nq) {
-      float2 f;
-      f.x = vi[k] * fx[k];
-      f.y = vi[k] * fy[k];
-      reinterpret_cast<float2*>(fpart)[(long long)chunk * nq + r] = f;
-    }
-    zt += vi[k] * z[k];
-  }
-  // Fixed-order block sum: a shuffle tree per warp, then warps in order.
-#pragma unroll
-  for (int w = 16; w > 0; w >>= 1) zt += __shfl_xor_sync(0xffffffffu, zt, w);
-  if ((threadIdx.x & 31) == 0) zwarp[threadIdx.x >> 5] = zt;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float b = 0.0f;
-    for (int w = 0; w < kThreads / 32; ++w) b += zwarp[w];
-    zpart[(long long)chunk * gridDim.x + blockIdx.x] = b;
-  }
-}
-
-// F = sum over column chunks of the F partials (chunk order); the last
-// block sums the Z partials in a fixed tree.
-__global__ void __launch_bounds__(kFinishThreads) repulsion_finish_kernel(
-    const float* __restrict__ fpart, const float* __restrict__ zpart,
-    int nq, int n_chunks, int n_zpart, float* __restrict__ F,
-    float* __restrict__ Z) {
-  if (blockIdx.x == gridDim.x - 1) {
-    sum_z(zpart, n_zpart, Z);
-    return;
-  }
-  const long long total = 2LL * nq;
-  const long long i = (long long)blockIdx.x * kFinishThreads + threadIdx.x;
-  if (i >= total) return;
-  float acc = 0.0f;
-  for (int c = 0; c < n_chunks; ++c) acc += fpart[(long long)c * total + i];
-  F[i] = acc;
 }
 
 }  // namespace
@@ -429,31 +491,38 @@ int lo_tsne_repulsion_sym(const void* y, const void* v, int n, void* part,
   return (int)cudaGetLastError();
 }
 
-// Row blocks and column chunks of a row-range call, for the wrapper's
-// scratch.
-int lo_tsne_rows_per_block() { return kRowsPerBlock; }
-int lo_tsne_cols_per_chunk() { return kColChunk; }
+// Geometry of the row form, for the wrapper: columns of a foreign item,
+// and the blocks of repulsion_rows_kernel one SM holds at once.
+int lo_tsne_foreign_cols() { return kForeignCols; }
+int lo_tsne_rows_blocks_per_sm() {
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, repulsion_rows_kernel, kSymThreads, 0))
+    return 0;
+  return blocks;
+}
 
-// K4, row range: Yq (nq, 2), validq (nq,), Y (n, 2), valid (n,) f32;
-// global id of query row i is offset + i -> F (nq, 2) f32, Z (1,) f32.
-// fpart: (ceil(n / kColChunk), nq, 2) f32 scratch; zpart:
-// (ceil(n / kColChunk) * ceil(nq / kRowsPerBlock),) f32 scratch.
-int lo_tsne_repulsion(const void* yq, const void* vq, const void* y,
-                      const void* v, int nq, int n, int offset, void* fpart,
-                      void* zpart, void* F, void* Z, void* stream) {
-  const int row_blocks = (nq + kRowsPerBlock - 1) / kRowsPerBlock;
-  const int n_chunks = (n + kColChunk - 1) / kColChunk;
+// K4, row range: Y (n, 2), valid (n,) f32, the query rows being Y's rows
+// [offset, offset + nq) -> F (nq, 2) f32, Z (1,) f32. items: (n_items,
+// kItemInts) int32 work list; next: one zeroed int32; part: (ceil(nq /
+// kSymTile), slots, kSymTile, 2) f32 scratch, every slot written;
+// zpart: (n_items,) f32 scratch. grid: persistent blocks (at most
+// n_items).
+int lo_tsne_repulsion(const void* y, const void* v, int nq, int offset,
+                      const void* items, int n_items, int slots, int grid,
+                      void* next, void* part, void* zpart, void* F, void* Z,
+                      void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  repulsion_partial_kernel<<<dim3(row_blocks, n_chunks), kThreads, 0, st>>>(
-      (const float*)yq, (const float*)vq, (const float*)y, (const float*)v,
-      nq, n, offset, (float*)fpart, (float*)zpart);
+  repulsion_rows_kernel<<<grid, kSymThreads, 0, st>>>(
+      (const float2*)y, (const float*)v, nq, offset, (const int*)items,
+      n_items, slots, (int*)next, (float2*)part, (float*)zpart);
   int e = (int)cudaGetLastError();
   if (e) return e;
-  const long long total = 2LL * nq;
-  const int f_blocks = (int)((total + kFinishThreads - 1) / kFinishThreads);
-  repulsion_finish_kernel<<<f_blocks + 1, kFinishThreads, 0, st>>>(
-      (const float*)fpart, (const float*)zpart, nq, n_chunks,
-      row_blocks * n_chunks, (float*)F, (float*)Z);
+  // Row i's slots in slot order (global column order), Z's in item order.
+  const int f_blocks = (nq + kFinishThreads - 1) / kFinishThreads;
+  repulsion_sym_finish_kernel<<<f_blocks + 1, kFinishThreads, 0, st>>>(
+      (const float2*)part, (const float*)zpart, nq, slots, n_items,
+      (float2*)F, (float*)Z);
   return (int)cudaGetLastError();
 }
 

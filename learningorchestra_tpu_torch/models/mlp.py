@@ -2,8 +2,10 @@
 
 No reference analogue (the reference's zoo stops at the pyspark.ml
 families, model_builder.py:152-158). The JAX package shards the hidden
-dimension over a mesh's model axis; on one card the model axis is 1, so
-the hidden width rounds to itself and the network is one ``nn.Module``.
+dimension over a mesh's model axis, so ``fit`` rounds the hidden width
+up to a multiple of the model axis's size, as the JAX package does; the
+network is one ``nn.Module`` on every rank (its tensor-parallel layout
+is not ported).
 
 The arithmetic keeps the JAX package's casts (its ``mlp.forward``):
 standardize, round to bf16, ``@ W1`` in bf16, ``+ b1`` and relu in
@@ -40,6 +42,7 @@ from learningorchestra_tpu_torch.models.base import (
     TrainedModel, as_design, ordered_matmul, ordered_softmax)
 from learningorchestra_tpu_torch.models.logistic import (
     _bf16, _device_stats, _dsum, adam_update, pop_scores)
+from learningorchestra_tpu_torch.parallel.mesh import MODEL_AXIS
 from learningorchestra_tpu_torch.parallel.runtime import DeviceRuntime
 from learningorchestra_tpu_torch.utils import fitckpt
 
@@ -214,6 +217,9 @@ def fit(runtime: DeviceRuntime, X, y, num_classes: int, seed: int = 0, *,
     mu, sigma = design_stats(runtime, X, X_dev)
     d = X.shape[1]
     if params0 is None:
+        # The hidden width must divide the model axis; round up.
+        m = runtime.mesh.size(MODEL_AXIS)
+        hidden = -(-hidden // m) * m
         params = init_params(seed, d, hidden, num_classes, mu, sigma, dev)
     else:
         params = {k: runtime.replicate(np.asarray(params0[k], np.float32))

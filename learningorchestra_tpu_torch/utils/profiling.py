@@ -137,7 +137,8 @@ def timed(name: str, timer: Optional[OpTimer] = None):
         tracing.record_span(name, dur)
 
 
-def device_span(fn, name: Optional[str] = None, device=None):
+def device_span(fn, name: Optional[str] = None, device=None,
+                attrs: Optional[dict] = None):
     """Run ``fn`` and return ``(result, seconds)`` where the span covers
     the work's launch *through completion on the device*: CUDA launches
     are asynchronous, so an unsynchronised wall clock around them
@@ -163,7 +164,7 @@ def device_span(fn, name: Optional[str] = None, device=None):
     ``name`` additionally records a trace span (ambient context) with
     the exact same measured duration — the builder passes
     ``fit.<family>.device`` so a job's trace and its ``fit_device_s``
-    profile figure agree to the digit.
+    profile figure agree to the digit. ``attrs`` go on that span.
     """
     import torch
 
@@ -179,7 +180,7 @@ def device_span(fn, name: Optional[str] = None, device=None):
             torch.cuda.synchronize(device)
         dur = time.time() - t0
     if name is not None:
-        tracing.record_span(name, dur)
+        tracing.record_span(name, dur, attrs=attrs)
     return out, dur
 
 

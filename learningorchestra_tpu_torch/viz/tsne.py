@@ -12,7 +12,8 @@ row to one Spark node, and runs single-core sklearn ``TSNE().fit_transform``
 - **Symmetrized sparse attraction**: the directed kNN edge set is flipped
   once on the host into a padded incoming-edge table (``_edge_table``),
   so each step's attraction is one gather and a dense reduction; edges of
-  hubs past the table's cap go to a small dst-sorted ``index_add_``.
+  hubs past the table's cap are summed per destination row in a fixed
+  order (a float64 running sum), so two embeds give the same bits.
 - **Exact repulsion**: the full n² q-sum through the hand-written CUDA
   kernel ``ops.tsne_kernels.tsne_repulsion`` (its plain version for CPU
   tensors). On a pod whose data axis has D > 1 ranks, and when each
@@ -183,11 +184,12 @@ def _repulsion(Y, valid, mesh=None):
     return Zp[0], all_gather(Fp, mesh, DATA_AXIS, 0)
 
 
-def _overflow_segments(ov_dst: np.ndarray):
-    """(rows, starts, ends) of the dst-sorted overflow edges: each
-    destination row once, and the [start, end) range of its edges."""
-    rows, counts = np.unique(ov_dst, return_counts=True)
-    ends = np.cumsum(counts)
+def _overflow_segments(ov_dst: torch.Tensor):
+    """(rows, starts, ends) of the dst-sorted overflow edges, on their
+    device: each destination row once, and the [start, end) range of its
+    edges."""
+    rows, counts = torch.unique_consecutive(ov_dst, return_counts=True)
+    ends = torch.cumsum(counts, 0)
     return rows, ends - counts, ends
 
 
@@ -198,13 +200,14 @@ def _step(Y, vel, gains, sym_idx, sym_w, ov_src, ov_dst, ov_w,
     int64 (PyTorch's gather and ``index_add_`` index type). ``mesh``
     row-shards the repulsion (``_repulsion``).
 
-    ``ov_seg`` (``_overflow_segments`` on the device) sums the overflow
+    ``ov_seg`` (``_overflow_segments(ov_dst)``, which the descent makes
+    once; required when there are overflow edges) sums the overflow
     edges deterministically: each destination's edges in order, through
-    a float64 running sum, then one add a row. A pod needs it: its ranks
-    step their own copies of the embedding, and the atomic adds of
-    ``index_add`` round differently from run to run, so the copies would
-    drift apart (the descent amplifies any difference) while each rank
-    computes the other's rows' forces from its own copy."""
+    a float64 running sum, then one add a row, each row once. Atomic adds
+    of the edges would round differently from run to run, so two embeds
+    of one dataset and seed would differ (the descent amplifies any
+    difference), and a pod's ranks, each stepping its own copy of the
+    embedding, would drift apart."""
     n = Y.shape[0]
     valid = (torch.arange(n, device=Y.device) < n_valid).float()
 
@@ -225,18 +228,15 @@ def _step(Y, vel, gains, sym_idx, sym_w, ov_src, ov_dst, ov_w,
         dov = Y[ov_dst] - Y[ov_src]
         qov = 1.0 / (1.0 + (dov * dov).sum(dim=-1))
         fov = (ov_w * exaggeration * qov)[:, None] * dov
-        if ov_seg is None:
-            Fattr = Fattr.index_add(0, ov_dst, fov)
-        else:
-            rows, starts, ends = ov_seg
-            # One 1-D scan a coordinate: a scan down the rows of an
-            # (m, 2) tensor runs a thread a column on the card.
-            seg = []
-            for c in range(2):
-                run = torch.cumsum(fov[:, c].double(), dim=0)
-                run = torch.cat([run.new_zeros(1), run])
-                seg.append((run[ends] - run[starts]).float())
-            Fattr = Fattr.index_add(0, rows, torch.stack(seg, dim=1))
+        rows, starts, ends = ov_seg
+        # One 1-D scan a coordinate: a scan down the rows of an (m, 2)
+        # tensor runs a thread a column on the card.
+        seg = []
+        for c in range(2):
+            run = torch.cumsum(fov[:, c].double(), dim=0)
+            run = torch.cat([run.new_zeros(1), run])
+            seg.append((run[ends] - run[starts]).to(fov.dtype))
+        Fattr = Fattr.index_add(0, rows, torch.stack(seg, dim=1))
 
     grad = 4.0 * (Fattr - Frep / Z)
     # van der Maaten gains + momentum
@@ -257,7 +257,9 @@ def tsne_embed(runtime: DeviceRuntime, X: np.ndarray, *,
 
     Each stage records a span (``viz.pca50``, ``viz.knn``,
     ``viz.calibrate``, ``viz.edge_table``, ``viz.descent``) under the
-    ambient trace; a stage's span ends when the device has finished it."""
+    ambient trace; a stage's span ends when the device has finished it.
+    ``viz.descent`` carries the count of hub-overflow edges
+    (``overflow_edges``)."""
     X = np.asarray(X, np.float32)
     n, d = X.shape
     dev = runtime.device
@@ -284,9 +286,7 @@ def tsne_embed(runtime: DeviceRuntime, X: np.ndarray, *,
     sym_idx, ov_src, ov_dst = (runtime.replicate(a.astype(np.int64))
                                for a in (table[0], table[2], table[3]))
     sym_w, ov_w = runtime.replicate(table[1]), runtime.replicate(table[4])
-    ov_seg = (tuple(runtime.replicate(a.astype(np.int64))
-                    for a in _overflow_segments(table[3]))
-              if shard and len(table[3]) else None)
+    ov_seg = _overflow_segments(ov_dst) if len(table[3]) else None
 
     rng = np.random.default_rng(seed)
     Y0 = runtime.replicate(
@@ -304,5 +304,6 @@ def tsne_embed(runtime: DeviceRuntime, X: np.ndarray, *,
                           runtime.mesh if shard else None, ov_seg)
         return state[0]
 
-    Y, _ = device_span(descend, "viz.descent", dev)
+    Y, _ = device_span(descend, "viz.descent", dev,
+                       attrs={"overflow_edges": int(len(table[3]))})
     return host_rows(Y)[:n_valid]

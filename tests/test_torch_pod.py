@@ -454,10 +454,40 @@ def test_tune_refuses_a_multi_rank_mesh():
         tune.sweep(rt, X, y, 2, "dt", [{"max_depth": 2}], cfg=Settings())
 
 
+def _numpy_step(Y, vel, gains, table, n_valid, exaggeration, eta,
+                momentum):
+    """One descent step in float64 numpy, straight from the definition:
+    the repulsion over all valid pairs, the table's attraction, and each
+    overflow edge added on its own (``np.add.at``)."""
+    sym_idx, sym_w, ov_src, ov_dst, ov_w = table
+    Y, vel, gains = (a.astype(np.float64) for a in (Y, vel, gains))
+    n = len(Y)
+    valid = (np.arange(n) < n_valid).astype(np.float64)
+    d = Y[:, None, :] - Y[None, :, :]
+    q = 1.0 / (1.0 + (d * d).sum(-1)) * valid[:, None] * valid[None, :]
+    np.fill_diagonal(q, 0.0)
+    Z, Frep = q.sum(), ((q * q)[..., None] * d).sum(1)
+    diff = Y[:, None, :] - Y[sym_idx]
+    w = sym_w * exaggeration / (1.0 + (diff * diff).sum(-1))
+    Fattr = (w[..., None] * diff).sum(1)
+    dov = Y[ov_dst] - Y[ov_src]
+    fov = (ov_w * exaggeration / (1.0 + (dov * dov).sum(-1)))[:, None] * dov
+    np.add.at(Fattr, ov_dst, fov)
+    grad = 4.0 * (Fattr - Frep / Z)
+    gains = np.where(np.sign(grad) == np.sign(vel), gains * 0.8, gains + 0.2)
+    gains = np.maximum(gains, 0.01)
+    vel = momentum * vel - eta * gains * grad
+    return (Y + vel) * valid[:, None], vel, gains
+
+
 def test_overflow_segment_sums_match_the_atomic_adds():
-    """The pod's deterministic sum of the hub-overflow edges (one float64
-    running sum a destination) gives the one-rank ``index_add`` step's
-    embedding within float32 rounding (rtol 1e-5, atol 1e-7)."""
+    """The deterministic sum of the hub-overflow edges (one float64
+    running sum a destination, then one add a row), which every descent
+    takes on one card and on a pod, gives the step of a float64 numpy
+    evaluation that adds each edge on its own (``np.add.at``) within
+    rtol 1e-5, atol 1e-7. The step runs in float64 here, as the
+    reference does, so what differs is the order of the sums, not float32
+    rounding."""
     rng = np.random.default_rng(7)
     n, k = 300, 4
     idx = rng.integers(0, n, (n, k))
@@ -469,13 +499,15 @@ def test_overflow_segment_sums_match_the_atomic_adds():
     t = lambda a, dt=None: torch.from_numpy(np.asarray(a, dt))
     sym_idx, ov_src, ov_dst = (t(a, np.int64) for a in
                                (table[0], table[2], table[3]))
-    seg = tuple(t(a, np.int64) for a in tsne._overflow_segments(table[3]))
-    Y = t(rng.normal(size=(n, 2)), np.float32)
-    state = (Y, torch.zeros_like(Y), torch.ones_like(Y))
-    args = (sym_idx, t(table[1]), ov_src, ov_dst, t(table[4]), n, 12.0,
-            50.0, 0.5)
-    a = tsne._step(*state, *args)
-    b = tsne._step(*state, *args, None, seg)
-    for x, y in zip(a, b):
-        np.testing.assert_allclose(y.numpy(), x.numpy(), rtol=1e-5,
-                                   atol=1e-7)
+    seg = tsne._overflow_segments(ov_dst)
+    assert torch.equal(seg[0], torch.unique(ov_dst))
+    Y = rng.normal(size=(n, 2))
+    state = (t(Y), torch.zeros((n, 2), dtype=torch.float64),
+             torch.ones((n, 2), dtype=torch.float64))
+    args = (sym_idx, t(table[1], np.float64), ov_src, ov_dst,
+            t(table[4], np.float64), n, 12.0, 50.0, 0.5)
+    want = _numpy_step(Y, np.zeros((n, 2)), np.ones((n, 2)), table, n,
+                       12.0, 50.0, 0.5)
+    got = tsne._step(*state, *args, None, seg)
+    for x, y in zip(want, got):
+        np.testing.assert_allclose(y.numpy(), x, rtol=1e-5, atol=1e-7)

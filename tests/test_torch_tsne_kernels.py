@@ -206,3 +206,154 @@ def test_symmetric_repulsion_matches_the_plain_version():
     assert np.isclose(float(Z), float(Z_ref), rtol=1e-5)
     np.testing.assert_allclose(F.numpy(), F_ref.numpy(), rtol=1e-4,
                                atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The card's row form: its work list, modelled in PyTorch, and its view
+# check
+# ---------------------------------------------------------------------------
+
+#: (nq, n, offset, tile, cols): query ranges at, below and above one tile,
+#: at the start, middle and end of Y, ragged against the tile and the
+#: foreign ranges; the last three at the card's tiles.
+ROW_SHAPES = [(16, 40, 0, 16, 8), (16, 40, 24, 16, 8), (5, 37, 13, 16, 8),
+              (37, 100, 31, 16, 8), (37, 37, 0, 16, 8), (48, 97, 49, 16, 8),
+              (1024, 3000, 1000, None, None), (700, 2100, 1400, None, None),
+              (2500, 2600, 0, None, None)]
+
+
+def _geometry(nq, n, offset, tile, cols):
+    tile, cols = tile or tsk.ROW_TILE, cols or tsk.FOREIGN_COLS
+    items, slots = tsk.rows_geometry(nq, n, offset, tile, cols)
+    return items, slots, tile, cols
+
+
+def _tile_rows(i, nq, tile):
+    return np.arange(i * tile, min(nq, (i + 1) * tile))
+
+
+@pytest.mark.parametrize("nq,n,offset,tile,cols", ROW_SHAPES)
+def test_row_work_list_covers_every_pair_once(nq, n, offset, tile, cols):
+    """Every ordered (query row, column) pair in exactly one item (an own
+    tile pair counts for both of its orders), foreign items only outside
+    the query rows and at most one range wide, and every (query tile,
+    slot) written exactly once, slots in global column order."""
+    items, slots, tile, cols = _geometry(nq, n, offset, tile, cols)
+    nt = -(-nq // tile)
+    count = np.zeros((nq, n), np.int32)
+    writes = {}
+    for kind, i, a, b, rs, cs in items.tolist():
+        rows = _tile_rows(i, nq, tile)
+        writes.setdefault((i, rs), []).append(
+            a if kind == tsk.FOREIGN else offset + a * tile)
+        if kind == tsk.FOREIGN:
+            assert 0 < b - a <= cols
+            assert b <= offset or a >= offset + nq
+            count[rows[:, None], np.arange(a, b)[None, :]] += 1
+        elif kind == tsk.OWN_DIAG:
+            assert a == b == i and cs == -1
+            count[rows[:, None], offset + rows[None, :]] += 1
+        else:
+            assert kind == tsk.OWN_PAIR and a == b > i
+            cols_j = _tile_rows(a, nq, tile)
+            count[rows[:, None], offset + cols_j[None, :]] += 1
+            count[cols_j[:, None], offset + rows[None, :]] += 1
+            writes.setdefault((a, cs), []).append(offset + i * tile)
+    assert (count == 1).all()
+    assert sorted(writes) == [(i, s) for i in range(nt)
+                              for s in range(slots)]
+    assert all(len(w) == 1 for w in writes.values())
+    for i in range(nt):
+        starts = [writes[(i, s)][0] for s in range(slots)]
+        assert starts == sorted(starts)
+    kinds = items[:, 0].tolist()
+    heavy_first = [tsk.OWN_PAIR, tsk.OWN_DIAG, tsk.FOREIGN]
+    assert kinds == sorted(kinds, key=heavy_first.index)
+
+
+def _run_work_list(Y, valid, nq, offset, tile, cols):
+    """What csrc/tsne_kernels.cu's row form computes, item by item in
+    float32: foreign items in the direct form (column flags multiplied
+    only where a staged column is invalid, query flags at the end),
+    diagonal tiles with the self pair masked, tile pairs once a pair and
+    credited to both tiles, items with no valid row or column skipped;
+    each tile's slots then summed in slot order, Z in item order."""
+    n = Y.shape[0]
+    items, slots = tsk.rows_geometry(nq, n, offset, tile, cols)
+    nt = -(-nq // tile)
+    part = torch.full((nt, slots, tile, 2), float("nan"))
+    zpart = []
+    pad = lambda t, m: torch.cat([t, t.new_zeros((m - len(t),) + t.shape[1:])])
+    for kind, i, a, b, rs, cs in items.tolist():
+        r0 = offset + i * tile
+        yr = pad(Y[r0:min(r0 + tile, offset + nq)], tile)
+        vr = pad(valid[r0:min(r0 + tile, offset + nq)], tile)
+        c0 = a if kind == tsk.FOREIGN else offset + a * tile
+        c1 = b if kind == tsk.FOREIGN else min(c0 + tile, offset + nq)
+        width = cols if kind == tsk.FOREIGN else tile
+        yc, vc = pad(Y[c0:c1], width), pad(valid[c0:c1], width)
+        dx = yr[:, 0:1] - yc[None, :, 0]
+        dy = yr[:, 1:2] - yc[None, :, 1]
+        q = 1.0 / (1.0 + dx * dx + dy * dy)
+        live = bool(vr.any()) and bool(vc.any())
+        if kind == tsk.FOREIGN:
+            if not bool((vc == 1).all()):
+                q = q * vc[None, :]
+        elif kind == tsk.OWN_DIAG or not (bool((vr == 1).all())
+                                           and bool((vc == 1).all())):
+            q = q * (vr[:, None] * vc[None, :])
+        if kind == tsk.OWN_DIAG:
+            q.fill_diagonal_(0.0)
+        if not live:
+            q = torch.zeros_like(q)
+        q2 = q * q
+        part[i, rs, :, 0] = vr * (q2 * dx).sum(1)
+        part[i, rs, :, 1] = vr * (q2 * dy).sum(1)
+        zb = (vr * q.sum(1)).sum()
+        if kind == tsk.OWN_PAIR:
+            part[a, cs, :, 0] = -(q2 * dx).sum(0)
+            part[a, cs, :, 1] = -(q2 * dy).sum(0)
+            zb = 2.0 * zb
+        zpart.append(zb)
+    assert not part.isnan().any()
+    F = part.sum(dim=1).reshape(nt * tile, 2)[:nq]
+    return torch.stack(zpart).sum(), F
+
+
+@pytest.mark.parametrize("nq,n,offset,tile,cols", ROW_SHAPES[:6])
+def test_row_work_list_model_matches_float64(nq, n, offset, tile, cols):
+    """The work list, run as the kernel runs it, against a float64 numpy
+    evaluation, with invalid rows scattered at 0 and a trailing invalid
+    tail (this file's tolerances: Z rtol 1e-5; F rtol 1e-4, atol
+    1e-5)."""
+    Y, valid = _scattered_invalid(n, seed=8)
+    Yt, vt = _torch(Y, valid)
+    Z, F = _run_work_list(Yt, vt, nq, offset, tile, cols)
+    Z_ref, F_ref = _numpy_repulsion(Y[offset:offset + nq],
+                                    valid[offset:offset + nq], Y, valid,
+                                    offset)
+    assert np.isclose(float(Z), Z_ref, rtol=1e-5)
+    np.testing.assert_allclose(F.numpy(), F_ref, rtol=1e-4, atol=1e-5)
+
+
+def test_row_form_refuses_query_rows_that_are_not_views():
+    """On the card the query rows must be Y's own rows at ``offset``:
+    views pass; a copy, a wrong offset, a strided Yq and rows past Y's
+    end are refused."""
+    Y, valid = _torch(*_inputs(300, 280, seed=9))
+    off, nq = 100, 64
+    tsk.check_row_views(Y[off:off + nq], valid[off:off + nq], Y, valid, off)
+    tsk.check_row_views(Y, valid, Y, valid, 0)
+    bad = [(Y[off:off + nq].clone(), valid[off:off + nq]),
+           (Y[off:off + nq], valid[off:off + nq].clone())]
+    for Yq, vq in bad:
+        with pytest.raises(ValueError, match="view"):
+            tsk.check_row_views(Yq, vq, Y, valid, off)
+    with pytest.raises(ValueError, match="view"):
+        tsk.check_row_views(Y[off:off + nq], valid[off:off + nq], Y, valid,
+                            off + 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        tsk.check_row_views(Y[off:off + 2 * nq:2], valid[off:off + nq], Y,
+                            valid, off)
+    with pytest.raises(ValueError, match="not rows of Y"):
+        tsk.check_row_views(Y[250:], valid[250:], Y, valid, 260)

@@ -165,7 +165,8 @@ def test_step_matches_jax(exaggeration, momentum):
                                 else a) for a in table]
     out = tt._step(torch.from_numpy(Y), torch.from_numpy(vel),
                    torch.from_numpy(gains), *t_table, n_valid, exaggeration,
-                   eta, momentum)
+                   eta, momentum,
+                   ov_seg=tt._overflow_segments(t_table[3]))
     for name, a, b in zip(("Y", "vel", "gains"), out, ref):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4,
                                    atol=1e-6, err_msg=name)
