@@ -149,7 +149,10 @@ Phases, one JSON line each (any failure exits non-zero):
    ``python -m learningorchestra_tpu_torch.serving --device cuda
    --dist-backend gloo`` (NCCL refuses two ranks on one device) under
    ``python -m learningorchestra_tpu_torch.supervisor``, whose pod
-   command starts both, on the sweep's store: through rank 0's REST API
+   command ``python -m learningorchestra_tpu_torch.launch --ranks 2``
+   starts both (each through a small wrapper, written at run time, that
+   arms rank 1's failpoint at epoch 0), on the sweep's store: through
+   rank 0's REST API
    ``POST /models`` of the five families (dt and gb accuracies the
    sweep's exactly, lr and nb within 1e-4, rf above its floor and lr), a
    batch predict of the pod's gb model (every probability the sweep's
@@ -160,11 +163,30 @@ Phases, one JSON line each (any failure exits non-zero):
    (the ``spmd.worker.pre_device`` failpoint): ``/cluster`` reports the
    pod error, a gated route answers 503 with ``Retry-After``, the
    supervisor restarts the pod under epoch 1, the rescan re-runs the
-   build, and it ends with the first build's accuracies. The ``pod``
+   build, and it ends with the first build's accuracies (the rank's
+   death read from the launcher's ``rank_exit`` log line). The ``pod``
    line has the times, spans, each rank's allocator peak and the
    launches by kernel and rank (read from ``/cluster``). Before the
    paths, the row form and the histogram kernel's fixed-point forms are
-   checked at the pod's per-rank shapes against their plain versions.
+   checked at the pod's per-rank shapes against their plain versions;
+16. pod_tp, the model axis: two ranks the same way with
+   ``LO_TPU_MESH_SHAPE=1,2,1`` (mlp's hidden layer split over the model
+   axis, models/mlp.py); ``POST /models`` of mlp at the JAX package's
+   width (hidden 256, 300 iterations, lr 1e-2) on the tune phase's
+   1M-row set (cut from 11M: two ranks' activations must share the
+   card), tested on the 100k test rows, and the same fit stopped at 60
+   iterations: ``/cluster``'s mesh ``{"data": 1, "model": 2, "seq":
+   1}`` over gloo, the saved W1 (28, 256) and W2 (256, 2), each rank's
+   model-axis all-reduces exactly two a step and one all-gather a fit
+   (``/cluster``'s per-process collective counts), and against one-card
+   fits of the same rows in this process: the accuracy within 0.01 and
+   above lr's floor at both lengths, and at 60 iterations the test
+   probabilities within atol 2e-2 with argmax agreement ≥ 0.99 (past
+   about 150 iterations this fit amplifies any last-bit difference,
+   ``POD_TP_SHORT_ITERS``, so at 300 those two are reported, not
+   held). Its line has the fits' times, each rank's allocator peak and
+   the all-reduces a step, with the card's name and power limit. This
+   path reaches no kernel of the port.
 
 Each ``fit`` line of the sweep carries ``mfu`` and ``bw_util``: the
 port's FLOP and byte models (``models/flops.py``) over the fit's window,
@@ -2552,53 +2574,20 @@ POD_CRASH_JOB = 5
 #: Start-up, and each job's, time limit (seconds).
 POD_START_S, POD_JOB_S = 300.0, 600.0
 
-#: The pod's launcher, run by the supervisor as its one pod command: it
-#: starts every rank of the pod on this host, forwards SIGTERM to them,
-#: and exits once they all have (with the first failing rank's code). It
-#: logs each rank's exit (rank, code, time, epoch) as a JSON line.
-POD_LAUNCHER = r'''
-import json, os, signal, subprocess, sys, time
-work, ranks = sys.argv[1], int(sys.argv[2])
-cmd = sys.argv[3:]
-epoch = os.environ.get("LO_TPU_MESH_EPOCH", "0")
-procs = []
-for r in range(ranks):
-    env = dict(os.environ, LO_TPU_PROCESS_ID=str(r),
-               LO_TPU_NUM_PROCESSES=str(ranks))
-    if r == 1 and epoch == "0":
-        env["LO_TPU_FAILPOINTS"] = "spmd.worker.pre_device=crash:%s" % (
-            os.environ["POD_CRASH_JOB"])
-    log = open(os.path.join(work, "rank%d_epoch%s.log" % (r, epoch)), "w")
-    procs.append(subprocess.Popen(cmd, env=env, stdout=log,
-                                  stderr=subprocess.STDOUT))
-with open(os.path.join(work, "pids"), "a") as f:
-    f.write(" ".join(str(p.pid) for p in procs) + "\n")
-
-def stop(signum, frame):
-    for p in procs:
-        if p.poll() is None:
-            p.terminate()
-    deadline = time.time() + 4.0
-    for p in procs:
-        while p.poll() is None and time.time() < deadline:
-            time.sleep(0.05)
-        if p.poll() is None:
-            p.kill()
-            p.wait()
-    sys.exit(143)
-
-signal.signal(signal.SIGTERM, stop)
-codes = [None] * ranks
-while any(c is None for c in codes):
-    for r, p in enumerate(procs):
-        if codes[r] is None and p.poll() is not None:
-            codes[r] = p.returncode
-            with open(os.path.join(work, "exits.jsonl"), "a") as f:
-                f.write(json.dumps({"rank": r, "code": codes[r],
-                                    "t": time.time(), "epoch": epoch})
-                        + "\n")
-    time.sleep(0.05)
-sys.exit(next((c for c in codes if c), 0))
+#: The command each rank of a pod runs under ``python -m
+#: learningorchestra_tpu_torch.launch``, written to the phase's work
+#: directory: rank 1 of epoch 0 arms the ``spmd.worker.pre_device``
+#: failpoint at the job ``POD_CRASH_JOB`` names (when the environment sets
+#: it), then every rank runs the serving module with its arguments.
+POD_RANK = r'''
+import os, runpy, sys
+crash = os.environ.get("POD_CRASH_JOB")
+if (crash and os.environ.get("LO_TPU_PROCESS_ID") == "1"
+        and os.environ.get("LO_TPU_MESH_EPOCH", "0") == "0"):
+    os.environ["LO_TPU_FAILPOINTS"] = "spmd.worker.pre_device=crash:" + crash
+sys.argv[0] = "learningorchestra_tpu_torch.serving"
+runpy.run_module("learningorchestra_tpu_torch.serving", run_name="__main__",
+                 alter_sys=True)
 '''
 
 #: Stand-ins for matplotlib and seaborn, first on the pod's path: the
@@ -2726,14 +2715,87 @@ def _pod_wait(port: int, name: str, timeout_s: float = POD_JOB_S,
         time.sleep(0.25)
 
 
+def _pod_start(cfg, work: str, extra_env: dict, path=()):
+    """One supervisor whose pod command is ``python -m
+    learningorchestra_tpu_torch.launch --ranks POD_RANKS``, each rank the
+    ``POD_RANK`` wrapper around ``python -m
+    learningorchestra_tpu_torch.serving --device cuda --dist-backend
+    gloo`` on the catalog's store; ``path`` goes first on the ranks'
+    ``PYTHONPATH``. Logs land in ``work`` (the supervisor's, with the
+    launcher's JSON lines, and one a rank and epoch). Returns (the
+    supervisor, its log file, the HTTP port)."""
+    os.makedirs(work, exist_ok=True)
+    wrapper = os.path.join(work, "rank.py")
+    with open(wrapper, "w") as f:
+        f.write(POD_RANK)
+    http_port, coord, job_port = _free_port(), _free_port(), _free_port()
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("LO_TPU_")}
+    env.update({
+        "PYTHONPATH": os.pathsep.join(
+            list(path) + [ROOT] + [p for p in [os.environ.get("PYTHONPATH")]
+                                   if p]),
+        "LO_TPU_STORE_ROOT": cfg.store_root,
+        "LO_TPU_COORDINATOR": f"127.0.0.1:{coord}",
+        "LO_TPU_JOB_PORT": str(job_port), "LO_TPU_LOG_FORMAT": "json",
+        "LO_TPU_HEALTH_INTERVAL_S": "3", "LO_TPU_RESTART_BACKOFF_S": "1",
+        "LO_TPU_JOB_RETRIES": "1", "LO_TPU_DRAIN_TIMEOUT_S": "2",
+        **extra_env})
+    rank_cmd = [sys.executable, wrapper, "--device", "cuda",
+                "--dist-backend", "gloo", "--host", "127.0.0.1", "--port",
+                str(http_port), "--store-root", cfg.store_root]
+    sup_log = open(os.path.join(work, "supervisor.log"), "w")
+    sup = subprocess.Popen(
+        [sys.executable, "-m", "learningorchestra_tpu_torch.supervisor",
+         "--health-url", f"http://127.0.0.1:{http_port}/cluster", "--",
+         sys.executable, "-m", "learningorchestra_tpu_torch.launch",
+         "--ranks", str(POD_RANKS), "--log-dir", work, "--"] + rank_cmd,
+        env=env, cwd=ROOT, stdout=sup_log, stderr=subprocess.STDOUT,
+        start_new_session=True)
+    return sup, sup_log, http_port
+
+
+def _pod_stop(sup, sup_log) -> None:
+    """SIGTERM the supervisor (it stops the launcher, which forwards the
+    signal to the ranks) and wait; then SIGKILL whatever is left of its
+    process group. A rank dies with its launcher (the launcher's parent
+    death signal)."""
+    import signal as _signal
+
+    sup.send_signal(_signal.SIGTERM)
+    try:
+        sup.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        sup.kill()
+        sup.wait()
+    try:
+        os.killpg(sup.pid, _signal.SIGKILL)
+    except OSError:
+        pass
+    sup_log.close()
+
+
+def _launch_exits(work: str) -> list:
+    """The launcher's ``rank_exit`` log lines in the supervisor's log."""
+    exits = []
+    with open(os.path.join(work, "supervisor.log")) as f:
+        for line in f:
+            try:
+                doc = json.loads(line)
+            except ValueError:
+                continue
+            if (isinstance(doc, dict) and doc.get("logger") == "lo_tpu.launch"
+                    and doc.get("event") == "rank_exit"):
+                exits.append(doc)
+    return exits
+
+
 def pod_path(cfg, store, runtime, dev, acc_sweep: dict) -> dict:
     """Phase 15 of the module docstring: two ranks of the serving module
     on the card over gloo under the supervisor, driven through rank 0's
     REST API on the sweep's catalog; then rank 1 dies during a second
     build and the pod recovers. Returns the kernel launches of both
     ranks over both incarnations."""
-    import signal as _signal
-
     import torch
 
     from learningorchestra_tpu_torch.catalog.store import DatasetStore
@@ -2751,35 +2813,11 @@ def pod_path(cfg, store, runtime, dev, acc_sweep: dict) -> dict:
         os.makedirs(os.path.dirname(os.path.join(stubs, rel)), exist_ok=True)
         with open(os.path.join(stubs, rel), "w") as f:
             f.write(text)
-    launcher = os.path.join(work, "launch.py")
-    with open(launcher, "w") as f:
-        f.write(POD_LAUNCHER)
     image_root = os.path.join(work, "images")
-    http_port, coord, job_port = _free_port(), _free_port(), _free_port()
-    env = {k: v for k, v in os.environ.items()
-           if not k.startswith("LO_TPU_")}
-    env.update({
-        "PYTHONPATH": os.pathsep.join(
-            [stubs, ROOT] + [p for p in [os.environ.get("PYTHONPATH")]
-                             if p]),
-        "LO_TPU_STORE_ROOT": cfg.store_root,
-        "LO_TPU_IMAGE_ROOT": image_root,
-        "LO_TPU_COORDINATOR": f"127.0.0.1:{coord}",
-        "LO_TPU_JOB_PORT": str(job_port),
-        "LO_TPU_HEALTH_INTERVAL_S": "3", "LO_TPU_RESTART_BACKOFF_S": "1",
-        "LO_TPU_JOB_RETRIES": "1", "LO_TPU_DRAIN_TIMEOUT_S": "2",
-        "POD_CRASH_JOB": str(POD_CRASH_JOB)})
-    rank_cmd = [sys.executable, "-m", "learningorchestra_tpu_torch.serving",
-                "--device", "cuda", "--dist-backend", "gloo",
-                "--host", "127.0.0.1", "--port", str(http_port),
-                "--store-root", cfg.store_root]
-    sup_log = open(os.path.join(work, "supervisor.log"), "w")
     t_start = time.time()
-    sup = subprocess.Popen(
-        [sys.executable, "-m", "learningorchestra_tpu_torch.supervisor",
-         "--health-url", f"http://127.0.0.1:{http_port}/cluster", "--",
-         sys.executable, launcher, work, str(POD_RANKS)] + rank_cmd,
-        env=env, cwd=ROOT, stdout=sup_log, stderr=subprocess.STDOUT)
+    sup, sup_log, http_port = _pod_start(
+        cfg, work, {"LO_TPU_IMAGE_ROOT": image_root,
+                    "POD_CRASH_JOB": str(POD_CRASH_JOB)}, path=[stubs])
     doc = {"phase": "pod", "ranks": POD_RANKS, "backend": "gloo"}
     launches = {}
     try:
@@ -2906,9 +2944,8 @@ def pod_path(cfg, store, runtime, dev, acc_sweep: dict) -> dict:
         check(status == 503 and int(headers.get("Retry-After", 0)) >= 1,
               f"gated route on a degraded pod: {status} {headers} {body}")
         doc["gated_503_retry_after"] = headers["Retry-After"]
-        with open(os.path.join(work, "exits.jsonl")) as f:
-            exits = [json.loads(line) for line in f]
-        killed = [e for e in exits if e["rank"] == 1 and e["epoch"] == "0"]
+        exits = _launch_exits(work)
+        killed = [e for e in exits if e["rank"] == 1 and e["epoch"] == 0]
         check(killed and killed[0]["code"] == 41,
               f"rank 1 did not die at its failpoint: {exits}")
         t_kill = killed[0]["t"]
@@ -2932,24 +2969,7 @@ def pod_path(cfg, store, runtime, dev, acc_sweep: dict) -> dict:
             r: snap["devices"]["peak_bytes_in_use"]
             for r, snap in final["resources"].items()}
     finally:
-        sup.send_signal(_signal.SIGTERM)
-        try:
-            sup.wait(timeout=60)
-        except subprocess.TimeoutExpired:
-            sup.kill()
-            sup.wait()
-        # Any rank the launcher left behind goes with the phase.
-        try:
-            with open(os.path.join(work, "pids")) as f:
-                pids = [int(p) for line in f for p in line.split()]
-        except OSError:
-            pids = []
-        for pid in pids:
-            try:
-                os.kill(pid, _signal.SIGKILL)
-            except OSError:
-                pass
-        sup_log.close()
+        _pod_stop(sup, sup_log)
     doc["supervisor_rc"] = sup.returncode
     by_rank = {}
     for incarnation in launches.values():
@@ -2969,6 +2989,167 @@ def pod_path(cfg, store, runtime, dev, acc_sweep: dict) -> dict:
     doc["seconds"] = time.time() - t_start
     emit(doc)
     return total
+
+
+#: The model-axis pod: the ranks on a (1, 2) mesh, and mlp at the JAX
+#: package's width and defaults on the tune phase's 1M-row set.
+POD_TP_MESH = "1,2,1"
+POD_TP_HPARAMS = {"hidden": 256, "iters": 300, "lr": 1e-2}
+#: The same fit stopped at 60 iterations, where two orders of the same
+#: float32 sums still give the same model row by row. Past about 150
+#: iterations this fit amplifies any last-bit difference
+#: (tests/mlp_divergence_probe.py, 50,000 rows on the CPU): the one-card
+#: fit at 1 and 4 threads disagrees on 5.0% of the rows at 300
+#: iterations (max |dp| 0.85), the JAX package's (1, 1) and (1, 2) fits
+#: on 2.7% (0.50); at 60 iterations on 0.03% and 0.02% (7.8e-3, 7.9e-3).
+POD_TP_SHORT_ITERS = 60
+#: Model-axis all-reduces of one mlp step (models/mlp.py): the partial
+#: logits and the packed standardization sums.
+MLP_MODEL_REDUCES_PER_STEP = 2
+
+
+def _agreement(p_a: np.ndarray, p_b: np.ndarray, y: np.ndarray) -> dict:
+    """Two models' test probabilities side by side: the largest
+    difference, the share of rows with the same argmax, both
+    accuracies."""
+    acc = lambda p: float((np.argmax(p, 1) == y).mean())
+    return {"max_abs_proba_diff": float(np.abs(p_a - p_b).max()),
+            "argmax_agreement": float(
+                (np.argmax(p_a, 1) == np.argmax(p_b, 1)).mean()),
+            "accuracy": [acc(p_a), acc(p_b)]}
+
+
+def pod_tp_path(cfg, store, runtime, dev) -> None:
+    """Phase 16 of the module docstring: mlp trained tensor-parallel by
+    two ranks on a (1, 2) mesh, through rank 0's REST API, against
+    one-card fits of the same rows in this process: at 300 iterations
+    (accuracy within 0.01) and at 60 (every row: probabilities within
+    atol 2e-2, argmax agreement ≥ 0.99, accuracy within 0.01 — the
+    tolerances of ``test_torch_mlp.py::test_fit_matches_jax``)."""
+    import torch
+
+    from learningorchestra_tpu_torch.catalog.store import DatasetStore
+    from learningorchestra_tpu_torch.models.builder import ModelBuilder
+    from learningorchestra_tpu_torch.models.persistence import ModelRegistry
+
+    fits = {"podtp": POD_TP_HPARAMS,
+            "podtp_short": dict(POD_TP_HPARAMS, iters=POD_TP_SHORT_ITERS)}
+    doc = {"phase": "pod_tp", "ranks": POD_RANKS, "backend": "gloo",
+           "mesh_shape": POD_TP_MESH, "hparams": fits,
+           "train_rows": TUNE_SMALL_ROWS, "test_rows": TEST_ROWS,
+           "reduced": {"train_rows": "11,000,000 -> 1,000,000: one (rows, "
+                       "256) float32 activation is 11.3 GB at 11M rows, a "
+                       "fit holds about four and both ranks share the "
+                       "card"},
+           "card": card_line()}
+    # The one-card fits first, alone on the card.
+    mb = ModelBuilder(store, runtime, cfg)
+    one, p_one = {}, {}
+    for name, hp in fits.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        (rep,) = mb.build("tune_small", "test", f"one_{name}", ["mlp"],
+                          "label", hparams={"mlp": hp})
+        check("error" not in rep.metrics, f"one-card mlp: {rep.metrics}")
+        one[name] = {"fit_time": rep.fit_time,
+                     "accuracy": rep.metrics["accuracy"],
+                     "peak_device_bytes":
+                         torch.cuda.max_memory_allocated(dev)}
+        p_one[name] = np.array(list(
+            store.get(f"one_{name}_mlp").columns["probability"]), np.float64)
+    doc["one_card"] = one
+    for name in ("tune_small", "test"):
+        store.save(name)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    work = os.path.join(os.path.dirname(cfg.store_root), "pod_tp")
+    shutil.rmtree(work, ignore_errors=True)
+    t_start = time.time()
+    sup, sup_log, http_port = _pod_start(
+        cfg, work, {"LO_TPU_MESH_SHAPE": POD_TP_MESH})
+    pod = {}
+    try:
+        info = _pod_cluster(
+            http_port, lambda d: (d["process_count"] == POD_RANKS and
+                                  str(POD_RANKS - 1) in d["resources"]),
+            POD_START_S)
+        doc["start_s"] = time.time() - t_start
+        check(info["mesh"] == {"data": 1, "model": 2, "seq": 1}
+              and info["backend"] == "gloo" and info["healthy"],
+              f"pod_tp /cluster: {info}")
+        doc["mesh"] = info["mesh"]
+        for name, hp in fits.items():
+            before = {r: dict(snap.get("collectives") or {})
+                      for r, snap in _pod_get(http_port, "/cluster")[1][
+                          "resources"].items()}
+            t0 = time.time()
+            status, body, _ = _pod_post(http_port, "/models", {
+                "training_filename": "tune_small", "test_filename": "test",
+                "prediction_filename": name, "classificators_list": ["mlp"],
+                "label": "label", "hparams": {"mlp": hp}, "sync": False})
+            check(status == 201, f"pod_tp POST /models: {status} {body}")
+            meta = _pod_wait(http_port, f"{name}_mlp")
+            want = MLP_MODEL_REDUCES_PER_STEP * hp["iters"]
+
+            # Rank 1 ships its counts after the job's round: wait for
+            # them.
+            def moved(d, before=before, want=want):
+                return all(
+                    (snap.get("collectives") or {}).get(
+                        "all_reduce.model", 0)
+                    - before.get(r, {}).get("all_reduce.model", 0) >= want
+                    for r, snap in d["resources"].items())
+
+            final = _pod_cluster(http_port, moved, 60.0)
+            delta = {r: {k: (snap.get("collectives") or {}).get(k, 0)
+                         - before[r].get(k, 0)
+                         for k in ("all_reduce.model", "all_gather.model")}
+                     for r, snap in final["resources"].items()}
+            pod[name] = {
+                "build_s": time.time() - t0, "fit_time": meta["fit_time"],
+                "accuracy": meta["accuracy"],
+                "model_collectives": delta,
+                "model_all_reduces_per_step": {
+                    r: v["all_reduce.model"] / hp["iters"]
+                    for r, v in delta.items()},
+                "peak_device_bytes": {
+                    r: snap["devices"]["peak_bytes_in_use"]
+                    for r, snap in final["resources"].items()}}
+            check(len(delta) == POD_RANKS and all(
+                v == {"all_reduce.model": want, "all_gather.model": 1}
+                for v in delta.values()),
+                f"pod_tp {name}: model-axis collectives {delta}, want "
+                f"{want} all-reduces ({MLP_MODEL_REDUCES_PER_STEP} a "
+                "step) and 1 all-gather a rank")
+    finally:
+        _pod_stop(sup, sup_log)
+    doc["supervisor_rc"] = sup.returncode
+    doc["pod"] = pod
+    _, model = ModelRegistry(cfg).load("podtp_mlp")
+    shapes = {k: tuple(model.params[k].shape) for k in ("W1", "W2")}
+    doc["saved_shapes"] = shapes
+    check(shapes == {"W1": (28, 256), "W2": (256, 2)},
+          f"pod_tp saved model shapes {shapes}")
+    y = np.asarray(store.get("test").columns["label"])
+    reader = DatasetStore(cfg)
+    for name in fits:
+        p_pod = np.array([_stored(p) for p in _pod_column(
+            reader, f"{name}_mlp", "probability")], np.float64)
+        check(p_pod.shape == p_one[name].shape == (TEST_ROWS, 2)
+              and np.isfinite(p_pod).all(),
+              f"pod_tp {name} probabilities {p_pod.shape}, one-card "
+              f"{p_one[name].shape}")
+        doc[f"{name}_vs_one_card"] = cmp = _agreement(p_pod, p_one[name], y)
+        a_pod, a_one = cmp["accuracy"]
+        check(a_pod > ACC_FLOOR["lr"] and abs(a_pod - a_one) <= 0.01,
+              f"pod_tp {name} against the one-card fit: {cmp}")
+    short = doc["podtp_short_vs_one_card"]
+    check(short["max_abs_proba_diff"] <= 2e-2
+          and short["argmax_agreement"] >= 0.99,
+          f"pod_tp at {POD_TP_SHORT_ITERS} iterations against the "
+          f"one-card fit: {short}")
+    doc["seconds"] = time.time() - t_start
+    emit(doc)
 
 
 def utilization(kind: str, n_train: int, fit_time: float,
@@ -3086,6 +3267,7 @@ def main_path(n_train: int, n_test: int, dev) -> dict:
                    tune_path(cfg, store, dev)]
         tx_path(cfg, dev)
         phases.append(pod_path(cfg, store, runtime, dev, acc))
+        pod_tp_path(cfg, store, runtime, dev)
         return {k: sum(p.get(k, 0) for p in phases) for k in KERNELS}
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -1,11 +1,7 @@
 """MLP classifier trainer ("mlp") — the JAX package's two-layer perceptron.
 
 No reference analogue (the reference's zoo stops at the pyspark.ml
-families, model_builder.py:152-158). The JAX package shards the hidden
-dimension over a mesh's model axis, so ``fit`` rounds the hidden width
-up to a multiple of the model axis's size, as the JAX package does; the
-network is one ``nn.Module`` on every rank (its tensor-parallel layout
-is not ported).
+families, model_builder.py:152-158).
 
 The arithmetic keeps the JAX package's casts (its ``mlp.forward``):
 standardize, round to bf16, ``@ W1`` in bf16, ``+ b1`` and relu in
@@ -24,10 +20,50 @@ corrections into the step in another order and differs in the last
 bits. The predict function sums in a fixed order (models/base.py), so a
 row's probabilities do not depend on its batch.
 
-On a pod (rows sharded over the data axis) each rank takes its rows'
+On a pod, rows shard over the data axis: each rank takes its rows'
 gradient sums and the sums are all-reduced before the bf16 rounding and
 the l2 term, with the mask total — the all-reduce XLA makes of the JAX
 package's row sums over its sharded design.
+
+**The model axis.** The JAX package splits the hidden dimension over
+the mesh's model axis (its ``param_specs``: W1 and b1 by column, W2 by
+row; b2, mu and sigma whole), and so does ``fit`` here: with M ranks on
+the axis, rank k holds ``W1[:, kh:(k+1)h]``, ``b1[kh:(k+1)h]`` and
+``W2[kh:(k+1)h, :]`` (h = hidden / M; ``fit`` rounds hidden up to a
+multiple of M, as the JAX package does) and Adam moments of the same
+shapes. The hidden layer's work is split; the model-axis sums of a step
+are exactly two all-reduces (``loss_and_grads``):
+
+- the partial logits ``hb_k @ W2b_k``, (rows, C), summed in float32,
+  then rounded to bf16 before ``+ b2``. That is what XLA's SPMD program
+  of the JAX train step does on a (1, 2) CPU mesh (read from its
+  compiled HLO): the partial dot in f32 feeds an f32 all-reduce (the
+  product's bf16 sum, promoted), and the sum is converted to bf16 and
+  back before the bias. On one device XLA folds that cast into the
+  product, so a model-axis fit rounds its logits where a one-device fit
+  does not, in both packages;
+- one packed (2d + 2,) vector: each rank's row sums of its part of the
+  standardization's gradients (the mu and sigma cotangents take ``dXs =
+  dz_b @ W1b.T``, a sum over the hidden columns), and its ΣW1_k² and
+  ΣW2_k² for the returned loss. XLA all-reduces the whole (rows, d)
+  partial ``dXs`` in f32 with the two squared sums and rounds the sum to
+  bf16, element by element, before the division by sigma. The row sums
+  are linear in ``dXs``, so here each rank reduces its (d,) sums first
+  and only those cross the axis (a (rows, d) all-reduce is 112 MB a step
+  at 2^20 rows); the element-wise bf16 rounding of the sum is the one
+  cast the port does not reproduce, so the mu and sigma gradients differ
+  from the JAX package's in the last bits of bf16.
+
+W1, b1 and W2's gradients are local to the rank (their l2 term too);
+every gradient still sums over the data axis as above. The trained
+model is whole on every rank: W1 and b1 are gathered along their
+columns and W2 along its rows (one all-gather), as ``np.asarray`` of the
+JAX package's sharded params gives, so persistence, the AOT cache and
+the online tier see one (d, hidden) model at any M. A fit checkpoint
+holds whole arrays and a resume slices them, so one file restores at
+any M. Predict is the full-width ordered predict of the gathered model
+(a deliberate divergence: the JAX package predicts through its sharded
+params).
 """
 
 from __future__ import annotations
@@ -42,7 +78,8 @@ from learningorchestra_tpu_torch.models.base import (
     TrainedModel, as_design, ordered_matmul, ordered_softmax)
 from learningorchestra_tpu_torch.models.logistic import (
     _bf16, _device_stats, _dsum, adam_update, pop_scores)
-from learningorchestra_tpu_torch.parallel.mesh import MODEL_AXIS
+from learningorchestra_tpu_torch.parallel.mesh import (
+    DATA_AXIS, MODEL_AXIS, all_gather, all_reduce_)
 from learningorchestra_tpu_torch.parallel.runtime import DeviceRuntime
 from learningorchestra_tpu_torch.utils import fitckpt
 
@@ -92,6 +129,11 @@ def forward(params, X):
     return _bf16(h) @ _bf16(params["W2"]) + params["b2"]
 
 
+def _model_split(mesh) -> bool:
+    """Whether ``mesh`` splits the hidden layer (model axis above 1)."""
+    return mesh is not None and mesh.size(MODEL_AXIS) > 1
+
+
 def loss_and_grads(params, X, Y1, mask, l2, mesh=None):
     """The masked mean cross-entropy plus l2·(ΣW1² + ΣW2²) at ``params``,
     and its gradients with respect to every entry of ``PARAMS``. Y1 (n,
@@ -99,18 +141,24 @@ def loss_and_grads(params, X, Y1, mask, l2, mesh=None):
     A bf16 product's cotangent is rounded to bf16 before it contracts
     with the product's other bf16 operand (float32 sums); relu's
     derivative at 0 is 0, as ``jax.nn.relu``'s. ``mesh``: the row sums
-    (and the loss) add over its data axis (a pod's row shards)."""
+    (and the loss) add over its data axis when it is split (a pod's row
+    shards), and on a model axis above 1 ``params`` hold this rank's
+    hidden slice (``shard_params``) and the partial logits and the packed
+    standardization sums add over it (the module docstring)."""
+    dmesh = mesh if mesh is not None and mesh.size(DATA_AXIS) > 1 else None
     W1b, W2b = _bf16(params["W1"]), _bf16(params["W2"])
     u = X - params["mu"]
     Xs = _bf16(u / params["sigma"])
     z = Xs @ W1b + params["b1"]
     hb = _bf16(torch.relu(z))
-    logits = hb @ W2b + params["b2"]
+    part = hb @ W2b
+    if _model_split(mesh):
+        all_reduce_(part, mesh, MODEL_AXIS)
+        part = _bf16(part)
+    logits = part + params["b2"]
     logp = torch.log_softmax(logits, dim=-1)
-    msum = _dsum(mask.sum(), mesh)
+    msum = _dsum(mask.sum(), dmesh)
     nll = -(logp * Y1).sum(dim=1)
-    reg = l2 * ((params["W1"] ** 2).sum() + (params["W2"] ** 2).sum())
-    loss = _dsum((nll * mask).sum(), mesh) / msum + reg
     dlog = (torch.exp(logp) - Y1) * (mask / msum)[:, None]
     dlog_b = _bf16(dlog)
     dz = (dlog_b @ W2b.T) * (z > 0)
@@ -119,17 +167,63 @@ def loss_and_grads(params, X, Y1, mask, l2, mesh=None):
     # through the first product (float32, as the compiled JAX program
     # keeps it) and the division.
     dXs = dz_b @ W1b.T
-    grads = {"W1": _bf16(_dsum(Xs.T @ dz_b, mesh))
+    sq1, sq2 = (params["W1"] ** 2).sum(), (params["W2"] ** 2).sum()
+    d = X.shape[1]
+    packed = torch.cat([
+        (-(dXs / params["sigma"])).sum(dim=0),
+        ((-dXs * u) * (1.0 / (params["sigma"] * params["sigma"])))
+        .sum(dim=0), sq1.reshape(1), sq2.reshape(1)])
+    if _model_split(mesh):
+        all_reduce_(packed, mesh, MODEL_AXIS)
+    loss = (_dsum((nll * mask).sum(), dmesh) / msum
+            + l2 * (packed[2 * d] + packed[2 * d + 1]))
+    grads = {"W1": _bf16(_dsum(Xs.T @ dz_b, dmesh))
              + (2.0 * params["W1"]) * l2,
-             "b1": _dsum(dz.sum(dim=0), mesh),
-             "W2": _bf16(_dsum(hb.T @ dlog_b, mesh))
+             "b1": _dsum(dz.sum(dim=0), dmesh),
+             "W2": _bf16(_dsum(hb.T @ dlog_b, dmesh))
              + (2.0 * params["W2"]) * l2,
-             "b2": _dsum(dlog.sum(dim=0), mesh),
-             "mu": _dsum((-(dXs / params["sigma"])).sum(dim=0), mesh),
-             "sigma": _dsum(((-dXs * u)
-                             * (1.0 / (params["sigma"] * params["sigma"])))
-                            .sum(dim=0), mesh)}
+             "b2": _dsum(dlog.sum(dim=0), dmesh),
+             "mu": _dsum(packed[:d].contiguous(), dmesh),
+             "sigma": _dsum(packed[d:2 * d].contiguous(), dmesh)}
     return loss, grads
+
+
+def shard_params(params, mesh) -> dict:
+    """This rank's hidden slice of whole (d, hidden) params: W1 and b1's
+    columns and W2's rows ``[kh, (k+1)h)`` for model-axis index k, h =
+    hidden / M; b2, mu and sigma whole. Whole params on a model axis of
+    1. Raises when M does not divide the hidden width."""
+    if not _model_split(mesh):
+        return dict(params)
+    m, k = mesh.size(MODEL_AXIS), mesh.index(MODEL_AXIS)
+    hidden = int(params["W1"].shape[1])
+    if hidden % m:
+        raise ValueError(f"mlp hidden width {hidden} is not a multiple of "
+                         f"the model axis's {m} ranks")
+    h = hidden // m
+    cols = slice(k * h, (k + 1) * h)
+    out = dict(params)
+    out["W1"] = params["W1"][:, cols].contiguous()
+    out["b1"] = params["b1"][cols].contiguous()
+    out["W2"] = params["W2"][cols, :].contiguous()
+    return out
+
+
+def gather_params(params, mesh) -> dict:
+    """Whole params from every rank's hidden slice (``shard_params``'s
+    inverse): one all-gather over the model axis of W1, b1 and W2ᵀ
+    stacked as (d + 1 + C, h) columns."""
+    if not _model_split(mesh):
+        return dict(params)
+    d, C = params["W1"].shape[0], params["W2"].shape[1]
+    stacked = torch.cat([params["W1"], params["b1"][None, :],
+                         params["W2"].T])
+    whole = all_gather(stacked, mesh, MODEL_AXIS, dim=1)
+    out = dict(params)
+    out["W1"] = whole[:d].contiguous()
+    out["b1"] = whole[d].contiguous()
+    out["W2"] = whole[d + 1:d + 1 + C].T.contiguous()
+    return out
 
 
 def _adam_state(params) -> dict:
@@ -147,24 +241,31 @@ def _run(params, state, X, Y1, mask, *, lr, l2, steps, mesh=None):
         adam_update(params, grads, state, lr)
 
 
-def _ckpt_arrays(params, state) -> dict:
+def _ckpt_arrays(params, state, mesh=None) -> dict:
     """(params, Adam state) as the flat name → ndarray dict of a fit
-    checkpoint; ``_ckpt_restore`` inverts it."""
+    checkpoint, whole arrays on a model axis (gathered, a collective
+    every rank reaches); ``_ckpt_restore`` inverts it."""
+    params = gather_params(params, mesh)
+    mu, nu = (gather_params(state[k], mesh) for k in ("mu", "nu"))
     out = {f"p.{k}": v.cpu().numpy() for k, v in params.items()}
     for k in PARAMS:
-        out[f"o.mu.{k}"] = state["mu"][k].cpu().numpy()
-        out[f"o.nu.{k}"] = state["nu"][k].cpu().numpy()
+        out[f"o.mu.{k}"] = mu[k].cpu().numpy()
+        out[f"o.nu.{k}"] = nu[k].cpu().numpy()
     out["o.count"] = np.asarray(state["count"], np.int64)
     return out
 
 
-def _ckpt_restore(arrays, device):
+def _ckpt_restore(arrays, device, mesh=None):
+    """A checkpoint's whole arrays on ``device``, as this rank's slice on
+    a model axis."""
     t = lambda a: torch.from_numpy(np.array(a)).to(device)
     params = {k[2:]: t(v) for k, v in arrays.items() if k.startswith("p.")}
     state = {"mu": {k: t(arrays[f"o.mu.{k}"]) for k in PARAMS},
              "nu": {k: t(arrays[f"o.nu.{k}"]) for k in PARAMS},
              "count": int(arrays["o.count"])}
-    return params, state
+    for k in ("mu", "nu"):
+        state[k] = shard_params(state[k], mesh)
+    return shard_params(params, mesh), state
 
 
 def _host_stats(X: np.ndarray):
@@ -206,19 +307,23 @@ def fit(runtime: DeviceRuntime, X, y, num_classes: int, seed: int = 0, *,
         hidden: int = 256, iters: int = 300, lr: float = 1e-2,
         l2: float = 1e-4, ckpt=None, params0=None) -> TrainedModel:
     """Full-batch Adam over all rows. ``params0`` (W1, b1, W2, b2 as
-    arrays) replaces the init draw (the parity tests carry the JAX
-    package's across). An enabled ``ckpt`` (utils/fitckpt.py) segments
-    the fit every ``ckpt.every`` iterations and checkpoints (params, Adam
-    state) between segments; the segmented fit is bit-identical to the
-    whole one, and a resume continues from the saved iteration."""
+    whole arrays) replaces the init draw (the parity tests carry the JAX
+    package's across); the model axis must divide its width. An enabled
+    ``ckpt`` (utils/fitckpt.py) segments the fit every ``ckpt.every``
+    iterations and checkpoints (params, Adam state) between segments;
+    the segmented fit is bit-identical to the whole one, and a resume
+    continues from the saved iteration. On a model axis above 1 each
+    rank trains its hidden slice of the whole init draw and the returned
+    model is gathered whole (the module docstring)."""
     X = as_design(X)
     X_dev, n = runtime.shard_rows(X)
     dev = X_dev.device
     mu, sigma = design_stats(runtime, X, X_dev)
     d = X.shape[1]
+    mesh = runtime.mesh
     if params0 is None:
         # The hidden width must divide the model axis; round up.
-        m = runtime.mesh.size(MODEL_AXIS)
+        m = mesh.size(MODEL_AXIS)
         hidden = -(-hidden // m) * m
         params = init_params(seed, d, hidden, num_classes, mu, sigma, dev)
     else:
@@ -226,13 +331,15 @@ def fit(runtime: DeviceRuntime, X, y, num_classes: int, seed: int = 0, *,
                   for k in ("W1", "b1", "W2", "b2")}
         params["mu"], params["sigma"] = mu, sigma
         hidden = int(params["W1"].shape[1])
+    params = shard_params(params, mesh)
     y_dev, _ = runtime.shard_rows(np.asarray(y, np.int32))
     Y1 = torch.nn.functional.one_hot(y_dev.long(), num_classes).float()
     valid = runtime.valid_rows(n)
     mask = (torch.ones((n,), dtype=torch.float32, device=dev)
             if valid is None else valid)
     state = _adam_state(params)
-    kw = dict(lr=lr, l2=l2, mesh=None if valid is None else runtime.mesh)
+    split = valid is not None or _model_split(mesh)
+    kw = dict(lr=lr, l2=l2, mesh=mesh if split else None)
     if ckpt is not None and ckpt.enabled and iters > ckpt.every:
         done = 0
         loaded = ckpt.load()
@@ -240,7 +347,7 @@ def fit(runtime: DeviceRuntime, X, y, num_classes: int, seed: int = 0, *,
             it_done, arrays, meta = loaded
             if 0 < it_done < iters and "o.count" in arrays:
                 done = it_done
-                params, state = _ckpt_restore(arrays, dev)
+                params, state = _ckpt_restore(arrays, dev, kw["mesh"])
                 fitckpt.count_resume()
                 jobs.record_job_resume(ckpt.family, {
                     "iters": int(done), "of": int(iters),
@@ -254,10 +361,10 @@ def fit(runtime: DeviceRuntime, X, y, num_classes: int, seed: int = 0, *,
             done += k
             jobs.heartbeat()
             if done < iters:
-                ckpt.save(done, _ckpt_arrays(params, state))
+                ckpt.save(done, _ckpt_arrays(params, state, kw["mesh"]))
     else:
         _run(params, state, X_dev, Y1, mask, steps=iters, **kw)
-    return TrainedModel(kind="mlp", params=params,
+    return TrainedModel(kind="mlp", params=gather_params(params, kw["mesh"]),
                         predict_proba_fn=_predict_proba,
                         num_classes=num_classes,
                         hparams={"hidden": hidden, "iters": iters, "lr": lr})

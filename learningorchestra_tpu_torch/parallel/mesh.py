@@ -26,11 +26,14 @@ collectives say what their transposes are:
 
 A collective on a mesh whose process group exists is issued whatever the
 axis size (a one-rank group included); only a mesh with no process group
-skips them.
+skips them. Each one issued adds one to this process's count for its
+kind and axis (``collective_counts``: ``all_reduce.model`` and so on),
+which ``/cluster`` reports per process.
 """
 
 from __future__ import annotations
 
+import threading
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
 
@@ -142,40 +145,70 @@ def local_mesh(cfg: Optional[Settings] = None) -> ProcessMesh:
 
 
 # ---------------------------------------------------------------------------
+# Collective counts
+# ---------------------------------------------------------------------------
+
+_counts: Dict[str, int] = {}
+_counts_lock = threading.Lock()
+
+
+def _count(op: str, axis: str) -> None:
+    with _counts_lock:
+        key = f"{op}.{axis}"
+        _counts[key] = _counts.get(key, 0) + 1
+
+
+def collective_counts() -> Dict[str, int]:
+    """Collectives this process issued since its start (or the last
+    reset), by ``<op>.<axis>``: ``all_reduce``, ``all_gather`` and
+    ``ppermute`` over ``data``, ``model`` or ``seq``."""
+    with _counts_lock:
+        return dict(_counts)
+
+
+def reset_collective_counts() -> None:
+    with _counts_lock:
+        _counts.clear()
+
+
+# ---------------------------------------------------------------------------
 # Differentiable collectives
 # ---------------------------------------------------------------------------
 
-def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+def _all_reduce(x: torch.Tensor, group, axis: str) -> torch.Tensor:
     out = x.contiguous().clone()
+    _count("all_reduce", axis)
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
     return out
 
 
 class _PSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        return _all_reduce(x, group)
+    def forward(ctx, x, group, axis):
+        return _all_reduce(x, group, axis)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return g, None, None
 
 
 class _PVary(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, group, axis):
+        ctx.line = (group, axis)
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return _all_reduce(g, ctx.group), None
+        return _all_reduce(g, *ctx.line), None, None
 
 
-def _hop(x: torch.Tensor, group, dst: int, src: int) -> torch.Tensor:
+def _hop(x: torch.Tensor, group, dst: int, src: int,
+         axis: str) -> torch.Tensor:
     """Send ``x`` to global rank ``dst`` and receive a tensor like it from
     ``src`` in one batch."""
     x = x.contiguous()
+    _count("ppermute", axis)
     out = torch.empty_like(x)
     ops = [dist.P2POp(dist.isend, x, dst, group),
            dist.P2POp(dist.irecv, out, src, group)]
@@ -186,27 +219,27 @@ def _hop(x: torch.Tensor, group, dst: int, src: int) -> torch.Tensor:
 
 class _PPermute(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, nxt, prv):
-        ctx.ring = (group, nxt, prv)
-        return _hop(x, group, nxt, prv)
+    def forward(ctx, x, group, nxt, prv, axis):
+        ctx.ring = (group, nxt, prv, axis)
+        return _hop(x, group, nxt, prv, axis)
 
     @staticmethod
     def backward(ctx, g):
-        group, nxt, prv = ctx.ring
-        return _hop(g, group, prv, nxt), None, None, None
+        group, nxt, prv, axis = ctx.ring
+        return _hop(g, group, prv, nxt, axis), None, None, None, None
 
 
 def psum(x: torch.Tensor, mesh: ProcessMesh, axis: str) -> torch.Tensor:
     """Sum over ``axis`` (all-reduce); its cotangent passes through."""
     group = mesh.groups[axis]
-    return x if group is None else _PSum.apply(x, group)
+    return x if group is None else _PSum.apply(x, group, axis)
 
 
 def pvary(x: torch.Tensor, mesh: ProcessMesh, axis: str) -> torch.Tensor:
     """A value replicated over ``axis`` entering per-rank work: the
     identity forward, the sum of the ranks' cotangents backward."""
     group = mesh.groups[axis]
-    return x if group is None else _PVary.apply(x, group)
+    return x if group is None else _PVary.apply(x, group, axis)
 
 
 def ppermute_next(x: torch.Tensor, mesh: ProcessMesh,
@@ -219,7 +252,8 @@ def ppermute_next(x: torch.Tensor, mesh: ProcessMesh,
         return x
     ring = mesh.axis_ranks(axis)
     i, p = mesh.index(axis), mesh.size(axis)
-    return _PPermute.apply(x, group, ring[(i + 1) % p], ring[(i - 1) % p])
+    return _PPermute.apply(x, group, ring[(i + 1) % p],
+                           ring[(i - 1) % p], axis)
 
 
 def all_reduce_(t: torch.Tensor, mesh: ProcessMesh, axis: str) -> None:
@@ -230,6 +264,7 @@ def all_reduce_(t: torch.Tensor, mesh: ProcessMesh, axis: str) -> None:
     if group is not None:
         if not t.is_contiguous():
             raise ValueError("all_reduce_ needs a contiguous tensor")
+        _count("all_reduce", axis)
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
 
 
@@ -242,5 +277,6 @@ def all_gather(t: torch.Tensor, mesh: ProcessMesh, axis: str,
         return t
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(mesh.size(axis))]
+    _count("all_gather", axis)
     dist.all_gather(parts, t, group=group)
     return torch.cat(parts, dim=dim)

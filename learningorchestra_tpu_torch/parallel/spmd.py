@@ -1054,9 +1054,12 @@ def kernel_launches() -> Dict[str, int]:
 
 
 def _lite_snapshot() -> Dict[str, Any]:
-    """The lite resource snapshot a worker ships, with its launches."""
+    """The lite resource snapshot a worker ships, with its launches and
+    its collectives."""
+    from learningorchestra_tpu_torch.parallel.mesh import collective_counts
+
     return dict(resources.process_snapshot(lite=True),
-                launches=kernel_launches())
+                launches=kernel_launches(), collectives=collective_counts())
 
 
 def shutdown_workers() -> None:

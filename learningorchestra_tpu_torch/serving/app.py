@@ -50,6 +50,7 @@ from learningorchestra_tpu_torch.ops.dtypes import convert_fields
 from learningorchestra_tpu_torch.ops.histogram import create_histogram
 from learningorchestra_tpu_torch.ops.projection import create_projection
 from learningorchestra_tpu_torch.parallel import distributed, spmd
+from learningorchestra_tpu_torch.parallel.mesh import collective_counts
 from learningorchestra_tpu_torch.parallel.runtime import DeviceRuntime
 from learningorchestra_tpu_torch.serving.batcher import (
     BatcherStopped, DeadlineExceeded, DispatcherCrashed, ModelQuarantined,
@@ -636,11 +637,13 @@ class App:
             # workers from their last job-channel shipment — so a
             # multi-process pod's host RSS / device memory is comparable
             # at a glance (lite form: no per-dataset disk walk). Each
-            # carries its process's kernel launches by wrapper.
+            # carries its process's kernel launches by wrapper and its
+            # collectives by kind and mesh axis.
             info["resources"] = {
                 str(info["process_index"]): dict(
                     resources.process_snapshot(app.cfg, lite=True),
-                    launches=spmd.kernel_launches()),
+                    launches=spmd.kernel_launches(),
+                    collectives=collective_counts()),
                 **{str(k): v
                    for k, v in resources.remote_snapshots().items()},
             }

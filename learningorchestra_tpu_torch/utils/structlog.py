@@ -20,6 +20,10 @@ format follows ``LO_TPU_LOG_FORMAT``:
   ``msg``, ``trace_id``/``span_id``, ``process``, and ``exc`` on
   exception records — the machine-parseable form log shippers want.
 
+A record may carry fields of its own: ``log.info(msg, extra=
+structlog.fields(rank=1, code=0))`` puts them in the JSON doc as keys,
+and after the text line as `` key=value`` pairs.
+
 lolint's ``log-discipline`` rule (docs/static_analysis.md) bans bare
 ``print(`` and root-logger ``logging.*`` calls in package code so
 nothing bypasses this funnel.
@@ -39,6 +43,12 @@ from learningorchestra_tpu_torch.utils import tracing
 #: Root of the framework's logger tree; every get_logger() name nests
 #: under it so one handler + level governs the whole package.
 ROOT = "lo_tpu"
+
+
+def fields(**values) -> dict:
+    """The ``extra`` of a log call whose record carries ``values`` as
+    fields of its own (see the module docstring)."""
+    return {"fields": values}
 
 
 def get_logger(name: str) -> logging.Logger:
@@ -67,6 +77,7 @@ class JsonFormatter(logging.Formatter):
             doc["span_id"] = ctx.span_id
         if record.exc_info:
             doc["exc"] = self.formatException(record.exc_info)
+        doc.update(getattr(record, "fields", None) or {})
         return json.dumps(doc, default=str)
 
 
@@ -80,6 +91,8 @@ class TextFormatter(logging.Formatter):
 
     def format(self, record: logging.LogRecord) -> str:
         line = super().format(record)
+        for key, value in (getattr(record, "fields", None) or {}).items():
+            line += f" {key}={value}"
         ctx = tracing.current()
         if ctx is not None:
             line += f" trace={ctx.trace_id} span={ctx.span_id}"

@@ -27,7 +27,7 @@ def test_import_leaves_jax_unloaded():
               "models.flops", "serving.frontend", "serving.status_page",
               "utils.alerts", "utils.flightrec", "utils.prometheus",
               "utils.resources", "utils.timeseries", "parallel.spmd",
-              "supervisor"):
+              "supervisor", "launch"):
         assert f"learningorchestra_tpu_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
