@@ -10,8 +10,8 @@ Phases, one JSON line each (any failure exits non-zero):
    and ``csrc/tsne_kernels.cu`` with nvcc for sm_90a, one nvcc per
    source, all started together; each timed, ``fresh`` per source; per
    kernel its registers and spill bytes (ptxas -v) and its shared-atomic,
-   special-function, shuffle, float-to-int, float FMA/add/multiply and
-   shared-load instructions (cuobjdump);
+   special-function, shuffle, float-to-int, float FMA/add/multiply,
+   shared-load and local (spill) load/store instructions (cuobjdump);
 3. one line per tree kernel at the HIGGS-sweep shapes (n train rows,
    d=28, 32 bins, depth 5): the kernel against its plain PyTorch version
    on the same inputs (bit-identical for node ids and integer-valued
@@ -34,7 +34,18 @@ Phases, one JSON line each (any failure exits non-zero):
    ``torch.equal`` to its one-slice launch, each form against its plain
    version on the first 2^20 rows and bit-identical over two calls, its
    time beside its bound (the codes counted once per bin matrix for the
-   histogram);
+   histogram and the descent); then the histogram and the descent at the
+   tune's own shapes (gb's 18 slices over one bin matrix, float stats;
+   rf's 24 over two, integer stats): the histogram at each level of a
+   depth-6 population (32 node slots, 2^level live), with the time of
+   each count of slice copies that fits, the descent one depth-6 tree a
+   slice, each checked the same way. Before the kernels, the atomics
+   probe: the card's shared ``ATOMS.ADD`` rate, conflict-free and into
+   random bins of 32 words; every histogram line has its atomics floor
+   (its nonzero fixed-point words' adds at the random-bin rate) beside
+   its byte bound; last, concurrent launches: two host threads launch
+   the histogram at two shared-memory sizes at once, as concurrent fits
+   do, every launch bit-identical to its single-thread result;
 4. the t-SNE repulsion kernel at the MNIST-60k shape (60,416 rows, 60,000
    valid), at 60,000 rows with no padding, and with 1% of the rows
    invalid at random positions and parked at 0, each against its plain
@@ -121,8 +132,11 @@ Phases, one JSON line each (any failure exits non-zero):
    generator, 3 folds and 3 halving rungs each; per family its waves,
    halving drops, winner and mean score, seconds, the job's
    ``peak_hbm_bytes``, the allocator's peak beside the modeled wave
-   footprint, and the kernels' launches (dt, rf and gb through every
-   slice form); each winner answers ``ModelBuilder.predict`` and an
+   footprint, the kernels' launches (dt, rf and gb through every slice
+   form), K1's and K3's device milliseconds (a CUDA-only profile of the
+   sweep) and the board (every member's fold scores, the same bits
+   whichever kernels' design ran them); each winner answers
+   ``ModelBuilder.predict`` and an
    online request; ``/metrics`` counts the sweeps; then folds=1 parity
    on the 1M-row set, every member's score its serial fit's
    self-accuracy on the card (gb within 0.02);
@@ -199,6 +213,7 @@ Then a ``{"kernels": [...]}`` line and, as the last line,
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import re
@@ -257,7 +272,8 @@ TSNE_OPS_PER_FOREIGN_PAIR = 13
 #: reported beside it.
 TSNE_OPS_PER_ORDERED_PAIR = 14
 #: SASS opcodes the build line counts per kernel.
-SASS_OPS = ("ATOMS", "MUFU", "SHFL", "F2I", "FFMA", "FADD", "FMUL", "LDS")
+SASS_OPS = ("ATOMS", "MUFU", "SHFL", "F2I", "FFMA", "FADD", "FMUL", "LDS",
+            "LDL", "STL")
 ROOT = os.path.dirname(os.path.abspath(__file__))
 #: Held-out rows of the HIGGS-like sweep.
 TEST_ROWS = 100_000
@@ -282,6 +298,17 @@ PROFILE_SECONDS = 2.0
 #: (models/trees.py ``_SCORE_ROWS``).
 SLICES = 24
 SCORE_ROWS = 1 << 19
+#: The tune's own slice shapes (the tune phase's sweeps): a population
+#: grows at its deepest member's depth, 6, so every level runs at NL = 32
+#: node slots; gb's 18 slices (6 configs × 3 folds, float stats) share one
+#: bin matrix, rf's 24 (8 configs × 3 folds, integer stats) two.
+TUNE_DEPTH = 6
+TUNE_SHAPES = ((18, 1, "float"), (24, 2, "int"))
+#: Rounds of the shared-atomic probe (32 adds a thread a round).
+ATOMS_ROUNDS = 256
+#: Rows and launches a thread of the concurrent-launch check.
+CONCURRENT_ROWS = 1 << 16
+CONCURRENT_LAUNCHES = 10000
 
 
 def check(ok, what) -> None:
@@ -331,15 +358,16 @@ _SASS_LINE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
 
 def _kernel_label(mangled: str) -> str:
     """A readable kernel name from a mangled one: ``hist_slice_kernel
-    <uint8_t>`` from ``_ZN..17hist_slice_kernelIhEEv...``,
+    <uint8_t, 16>`` from ``_ZN..17hist_slice_kernelIhLi16EEEv...``,
     ``descend_staged_kernel<4>`` from ``..descend_staged_kernelILi4EEEv``."""
-    m = re.search(r"\d([a-z][a-z_]*_kernel)(?:I(?:(\w)|Li(\d+)E)E)?E",
+    m = re.search(r"\d([a-z][a-z_]*_kernel)(?:I((?:[a-z]|L[ib]\d+E)+)E)?E",
                   mangled)
     if not m:
         return mangled
-    targ = {"h": "uint8_t", "i": "int32_t"}.get(m.group(2) or "",
-                                                m.group(3) or "")
-    return m.group(1) + (f"<{targ}>" if targ else "")
+    targs = [num or {"h": "uint8_t", "i": "int32_t"}.get(ch, ch)
+             for num, ch in re.findall(r"L[ib](\d+)E|([a-z])",
+                                       m.group(2) or "")]
+    return m.group(1) + (f"<{', '.join(targs)}>" if targs else "")
 
 
 def kernel_report(mod) -> dict:
@@ -379,7 +407,59 @@ def kernel_report(mod) -> dict:
     return report
 
 
-def check_kernels(n: int, n_test: int, dev) -> dict:
+def check_atomics_probe(dev) -> dict:
+    """The card's shared-atomic rate (``tree_kernels
+    .shared_atomics_probe``): 32-bit ``ATOMS.ADD``s from one 1,024-thread
+    block an SM, conflict-free (a bank a lane) and into random bins of 32
+    words (K1's pattern: a warp's rows land on random bins); adds a
+    second, and a SM and cycle at the maximum SM clock. K1's atomics
+    floor is its adds over the random-bin rate."""
+    import torch
+
+    from learningorchestra_tpu_torch.ops import tree_kernels as tk
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    mhz = float(card_line("clocks.max.sm").split()[0])
+    doc = {"phase": "atomics_probe", "card": card_line(), "sms": sms,
+           "rounds": ATOMS_ROUNDS}
+    for key, random_bins in (("conflict_free", False), ("random_bins", True)):
+        adds = tk.shared_atomics_probe(dev, ATOMS_ROUNDS, random_bins)
+        ms = time_ms(lambda: tk.shared_atomics_probe(dev, ATOMS_ROUNDS,
+                                                     random_bins), 5)
+        doc[key] = {"ms": ms, "adds": adds, "adds_per_s": adds / ms * 1e3,
+                    "adds_per_sm_cycle": adds / (ms * 1e-3) / sms
+                    / (mhz * 1e6)}
+    emit(doc)
+    return doc
+
+
+def hist_adds(stats_T, max_abs, active, d: int) -> int:
+    """The shared adds K1's (G, S, n) stats need: d a row that is active,
+    for each of its stats' fixed-point words that is not zero (the kernel
+    also adds the zero high words of a stat, which change nothing, so
+    its floor counts none)."""
+    import torch
+
+    from learningorchestra_tpu_torch.ops import tree_kernels as tk
+
+    total = 0
+    for g in range(stats_T.shape[0]):
+        x = tk._fixed_rows(stats_T[g], max_abs[g])
+        words = (((x >> tk.HIST_LO_BITS) != 0).int()
+                 + ((x & ((1 << tk.HIST_LO_BITS) - 1)) != 0).int())
+        total += int((words * active[g]).sum())
+        del x, words
+    torch.cuda.empty_cache()
+    return total * d
+
+
+def atomics_floor_ms(adds: int, atoms: dict) -> float:
+    """The least time ``adds`` shared adds take at the probe's random-bin
+    rate."""
+    return adds / atoms["random_bins"]["adds_per_s"] * 1e3
+
+
+def check_kernels(n: int, n_test: int, dev, atoms: dict) -> dict:
     """Each kernel against its plain version at the main path's shapes."""
     import torch
 
@@ -409,6 +489,8 @@ def check_kernels(n: int, n_test: int, dev) -> dict:
                          "library_ms": library_ms}
         if layout_floor_ms is not None:
             results[name]["layout_floor_ms"] = layout_floor_ms
+        if "atomics_floor_ms" in extra:
+            results[name]["atomics_floor_ms"] = extra["atomics_floor_ms"]
         emit({"phase": "kernel", "name": name, "exact": exact,
               **results[name], **extra})
 
@@ -441,7 +523,9 @@ def check_kernels(n: int, n_test: int, dev) -> dict:
     extra = {
         "ms_onehot": time_ms(lambda: tk.tree_histogram(
             codes, onehot, rel, active, max_abs=oh_max, **kw), 10),
-        "stat_max_abs_ms": time_ms(lambda: tk.stat_max_abs(grads), 10)}
+        "stat_max_abs_ms": time_ms(lambda: tk.stat_max_abs(grads), 10),
+        "atomics_floor_ms": atomics_floor_ms(
+            hist_adds(grads[None], g_max[None], active[None], d), atoms)}
     key = (rel.long()[:, None] * (d * nb)
            + torch.arange(d, device=dev) * nb + codes.long())[active]
     src = grads.T[active][:, None, :].expand(-1, d, S).reshape(-1, S)
@@ -475,13 +559,17 @@ def check_kernels(n: int, n_test: int, dev) -> dict:
     leaf_out = torch.zeros((M, S), device=dev)
     along = assign.long()
     gT = grads.T
+    every = torch.ones((1, n), dtype=torch.bool, device=dev)
     record("tree_leaf_stats", err,
            time_ms(lambda: tk.tree_leaf_stats(assign, grads, n_nodes=M,
                                               max_abs=g_max), 10),
            time_ms(lambda: tk.tree_leaf_stats_ref(assign, grads, n_nodes=M),
                    3),
            4 * n + 4 * S * n + 4 * M * S, n * S,
-           time_ms(lambda: leaf_out.index_add_(0, along, gT), 5), True)
+           time_ms(lambda: leaf_out.index_add_(0, along, gT), 5), True,
+           atomics_floor_ms=atomics_floor_ms(
+               hist_adds(grads[None], g_max[None], every, 1), atoms))
+    del every
 
     # K2: routing at the deepest level's width, from the feature-major
     # codes as every level of a fit calls it, and without them (the
@@ -590,13 +678,14 @@ def check_kernels(n: int, n_test: int, dev) -> dict:
     return results
 
 
-def check_slice_kernels(n: int, dev) -> dict:
+def check_slice_kernels(n: int, dev, atoms: dict) -> dict:
     """The slice-axis launches (``*_slices``) at the tune phase's shapes:
     SLICES slices over two bin matrices of the HIGGS sweep (n train rows,
     d=28, 32 bins, depth 5), as a population of rf or gb members grows
     one tree each. Each against SLICES one-slice launches (``torch.equal``
     per slice), against its plain version on the first 2^20 rows, two
-    calls bit-identical, and its time beside its bound."""
+    calls bit-identical, and its time beside its bound. Then K1 and K3 at
+    the tune's own shapes (``check_tune_shapes``)."""
     import torch
 
     from learningorchestra_tpu_torch.ops import tree_kernels as tk
@@ -616,13 +705,16 @@ def check_slice_kernels(n: int, dev) -> dict:
     grads = torch.randn((G, S, n), generator=g_, device=dev)
     g_max = tk.stat_max_abs(grads)
     small = 1 << 20
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     results = {}
 
     def record(name, err, ms, plain_ms, nbytes, ops, library_ms, **extra):
         b_ms, b_by = bound(nbytes, ops)
         results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": b_ms, "bound_by": b_by,
-                         "library_ms": library_ms}
+                         "library_ms": library_ms,
+                         **{k: v for k, v in extra.items()
+                            if k.endswith("floor_ms")}}
         emit({"phase": "kernel", "name": name, "exact": True, "slices": G,
               "bin_matrices": P, **results[name], **extra})
 
@@ -674,6 +766,8 @@ def check_slice_kernels(n: int, dev) -> dict:
                codes, idx, grads, rel, active, **kw), 1, warmup=0),
            other + code_bytes, sum(n_act) * d * S, None,
            codes_counted="once per bin matrix",
+           atomics_floor_ms=atomics_floor_ms(
+               hist_adds(grads, g_max, active, d), atoms),
            bound_codes_per_slice_ms=bound(other + per_slice_codes)[0],
            library_note=("one index_add_ over every slice's (row, feature) "
                          f"keys needs {8 * sum(n_act) * d / 1e9:.1f} GB of "
@@ -696,6 +790,15 @@ def check_slice_kernels(n: int, dev) -> dict:
     err = float((lks - lrs).abs().max())
     check(torch.allclose(lks, lrs, rtol=1e-5, atol=atol),
           f"tree_leaf_stats_slices: err {err}")
+    # The plan's choice of slice copies against the others: the same
+    # bits, and each one's time.
+    copies = {}
+    for r in tk.HIST_REPLICAS:
+        launch = functools.partial(tk._leaf_launch, assign, grads, M, g_max,
+                                   fixed=False, replicas=r)
+        check(torch.equal(launch().transpose(1, 2), lk),
+              f"tree_leaf_stats_slices: {r} copies differ")
+        copies[r] = time_ms(launch, 3)
     keys = (assign.long() + M * torch.arange(G, device=dev)[:, None]
             ).reshape(-1)
     src = grads.transpose(1, 2).reshape(G * n, S)
@@ -707,7 +810,11 @@ def check_slice_kernels(n: int, dev) -> dict:
                assign, grads, n_nodes=M), 1, warmup=0),
            G * (4 * n + 4 * S * n + 4 * M * S), G * n * S,
            time_ms(lambda: leaf_out.index_add_(0, keys, src), 3),
-           codes_counted="none (node ids are the codes)")
+           codes_counted="none (node ids are the codes)",
+           ms_by_copies=copies,
+           grid=tk.hist_grid(n, 1, M, S, 1, sms, G)._asdict(),
+           atomics_floor_ms=atomics_floor_ms(hist_adds(
+               grads, g_max, torch.ones_like(active), 1), atoms))
     del lk, keys, src, leaf_out
 
     # K2, from the feature-major stack.
@@ -769,17 +876,224 @@ def check_slice_kernels(n: int, dev) -> dict:
         "row block)")
     visits = sum(descent_visits(codes[idx[g]], *(t[g] for t in one),
                                 depth)[0] for g in range(G))
+    # The code bytes any walk of a matrix's slices touches, once per
+    # matrix (the slices of a matrix walk one staged tile), the tables and
+    # the leaf ids; the layout floor stages each matrix's rows once.
+    touched = descent_touched_bytes(codes, idx, *one, depth)
     record("tree_descend_slices", 0.0,
            time_ms(lambda: tk.tree_descend_slices(codes, idx, *one,
                                                   max_depth=depth), 10),
            time_ms(lambda: tk.tree_descend_slices_ref(
                codes, idx, *one, max_depth=depth), 1, warmup=0),
-           visits + G * 12 * M + G * 4 * n, 0, None,
-           codes_counted="per slice (the code bytes each walk touches)",
+           touched + G * 12 * M + G * 4 * n, 0, None,
+           codes_counted="once per bin matrix (the bytes any walk touches)",
+           bound_codes_per_slice_ms=bound(visits + G * 12 * M
+                                          + G * 4 * n)[0],
+           layout_floor_ms=bound(P * n * d + G * 4 * n)[0],
            forest_block_ms=time_ms(lambda: tk.tree_descend_slices(
                block, idx, *forest, max_depth=depth), 10),
            forest_block_rows=SCORE_ROWS)
+    del codes, rel, active, grads, out, block, feat, thr, internal
+    torch.cuda.empty_cache()
+    hist_levels, descend_groups = check_tune_shapes(n, dev, atoms)
+    results["tree_histogram_slices"]["tune_levels"] = hist_levels
+    results["tree_descend_slices"]["tune_groups"] = descend_groups
     return results
+
+
+def check_tune_shapes(n: int, dev, atoms: dict):
+    """K1's and K3's slice forms at the tune's own shapes (TUNE_SHAPES:
+    gb's 18 slices over one bin matrix, float stats; rf's 24 over two,
+    integer stats; n rows, d=28, 32 bins): K1 at each level of a depth-6
+    population (NL = 32 node slots, the level's 2^level nodes holding
+    rows), K3 one depth-6 tree a slice. Each launch ``torch.equal`` to
+    its one-slice launches, against its plain version on the first 2^20
+    rows (bit for bit for integer stats and node ids; float stats within
+    the K1 tolerance), two calls bit-identical; its time beside its
+    bound, K1's atomics floor and K3's layout floor. Returns (K1's rows,
+    K3's rows)."""
+    import torch
+
+    from learningorchestra_tpu_torch.ops import tree_kernels as tk
+
+    g_ = torch.Generator(device=dev)
+    g_.manual_seed(3)
+    d, nb, S, depth = 28, 32, 2, TUNE_DEPTH
+    NL, M = 2 ** (depth - 1), 2 ** (depth + 1) - 1
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    G_all = max(G for G, _, _ in TUNE_SHAPES)
+    P_all = max(P for _, P, _ in TUNE_SHAPES)
+    small = 1 << 20
+    codes = torch.randint(0, nb, (P_all, n, d), generator=g_, device=dev,
+                          dtype=torch.uint8)
+    active = torch.rand((G_all, n), generator=g_, device=dev) < 0.9
+    # Each row's node at the deepest level; at level l its node is the
+    # ancestor, deep >> (depth - 1 - l).
+    deep = torch.randint(0, NL, (G_all, n), generator=g_, device=dev,
+                         dtype=torch.int32)
+    stats_by_kind = {
+        "float": torch.randn((G_all, S, n), generator=g_, device=dev),
+        "int": torch.poisson(torch.ones((G_all, S, n), device=dev),
+                             generator=g_)}
+    levels = []
+    for G, P, kind in TUNE_SHAPES:
+        idx = [g % P for g in range(G)]
+        cs = codes[:P]
+        stats, act = stats_by_kind[kind][:G], active[:G]
+        mx = tk.stat_max_abs(stats)
+        adds = hist_adds(stats, mx, act, d)
+        n_act = act.sum(dim=1).tolist()
+        any_act = [int(act[[g for g in range(G) if idx[g] == p]].any(0)
+                       .sum()) for p in range(P)]
+        small_cs = cs[:, :small].contiguous()
+        small_st = stats[..., :small].contiguous()
+        small_act = act[:, :small].contiguous()
+        atol = 1e-6 * float(small_st.abs().sum(dim=(1, 2)).max())
+        for level in range(depth):
+            live = 1 << level
+            rel = torch.where(act, deep[:G] >> (depth - 1 - level),
+                              torch.zeros_like(deep[:G]))
+            kw = dict(n_nodes=NL, n_bins=nb, n_live=live)
+            h = tk.tree_histogram_slices(cs, idx, stats, rel, act,
+                                         max_abs=mx, **kw)
+            for g in range(G):
+                check(torch.equal(h[g], tk.tree_histogram(
+                    cs[idx[g]], stats[g], rel[g], act[g], max_abs=mx[g],
+                    **kw)), f"tree_histogram_slices G={G} level {level}: "
+                    f"slice {g} differs from its one-slice launch")
+            check(torch.equal(h, tk.tree_histogram_slices(
+                cs, idx, stats, rel, act, max_abs=mx, **kw)),
+                f"tree_histogram_slices G={G} level {level}: two calls "
+                f"differ")
+            del h
+            small_rel = rel[:, :small].contiguous()
+            hk = tk.tree_histogram_slices(small_cs, idx, small_st, small_rel,
+                                          small_act, **kw)
+            hr = tk.tree_histogram_slices_ref(small_cs, idx, small_st,
+                                              small_rel, small_act, **kw)
+            err = float((hk - hr).abs().max())
+            if kind == "int":
+                check(torch.equal(hk, hr), f"tree_histogram_slices G={G} "
+                      f"level {level}: integer stats differ from the plain "
+                      f"version")
+            else:
+                check(torch.allclose(hk, hr, rtol=1e-5, atol=atol),
+                      f"tree_histogram_slices G={G} level {level}: float "
+                      f"stats err {err} > atol {atol}")
+            del hk, hr, small_rel
+            ms = time_ms(lambda: tk.tree_histogram_slices(
+                cs, idx, stats, rel, act, max_abs=mx, **kw), 5)
+            # The plan's choice of slice copies against the others that
+            # fit: the same bits, and each one's time.
+            plan = tk.hist_plan(n, d, nb, S, NL, sms, G, live)
+            grid = tk.hist_grid(n, d, nb, S, NL, sms, G, live)
+            want = tk.tree_histogram_slices(cs, idx, stats, rel, act,
+                                            max_abs=mx, **kw)
+            copies = {}
+            for r in tk.HIST_REPLICAS:
+                if tk.hist_smem_bytes(plan.NG, plan.CG, S, r) > tk.SMEM_BYTES:
+                    continue
+                launch = functools.partial(
+                    tk._hist_launch, cs, idx, stats, rel, act, NL, nb, mx,
+                    fixed=False, n_live=live, replicas=r)
+                check(torch.equal(launch(), want),
+                      f"tree_histogram_slices G={G} level {level}: "
+                      f"{r} copies differ")
+                copies[r] = time_ms(launch, 3)
+            del want
+            # Flags and node ids of every row and slice, stats of the
+            # active rows, codes once per bin matrix (the rows active in
+            # any of its slices), the (G, NL, d, nb, S) histogram once.
+            nbytes = (G * 5 * n + sum(n_act) * 4 * S + sum(any_act) * d
+                      + G * 4 * NL * d * nb * S)
+            b_ms, b_by = bound(nbytes, sum(n_act) * d * S)
+            levels.append({"slices": G, "bin_matrices": P, "stats": kind,
+                           "level": level, "live_nodes": 1 << level,
+                           "ms": ms, "max_abs_err": err, "bound_ms": b_ms,
+                           "bound_by": b_by,
+                           "atomics_floor_ms": atomics_floor_ms(adds, atoms),
+                           "adds": adds, "plan": plan._asdict(),
+                           "grid": grid._asdict(),
+                           "partial_bytes": 8 * grid.blocks * G * live * d
+                           * nb * S, "ms_by_copies": copies})
+            emit({"phase": "kernel", "name": "tree_histogram_slices",
+                  "shape": f"tune depth {depth}", "exact": True,
+                  **levels[-1]})
+            del rel
+    del stats_by_kind, deep, active
+    torch.cuda.empty_cache()
+
+    feat = torch.randint(0, d, (G_all, 1, M), generator=g_, device=dev,
+                         dtype=torch.int32)
+    thr = torch.randint(0, nb, (G_all, 1, M), generator=g_, device=dev,
+                        dtype=torch.int32)
+    internal = torch.rand((G_all, 1, M), generator=g_, device=dev) < 0.8
+    internal[:, :, 0] = True
+    groups = []
+    for G, P, _ in TUNE_SHAPES:
+        idx = [g % P for g in range(G)]
+        cs = codes[:P]
+        one = (feat[:G], thr[:G], internal[:G])
+        out = tk.tree_descend_slices(cs, idx, *one, max_depth=depth)
+        for g in range(G):
+            check(torch.equal(out[g], tk.tree_descend(
+                cs[idx[g]], *(t[g] for t in one), max_depth=depth)),
+                f"tree_descend_slices G={G}: slice {g} differs from its "
+                f"one-slice launch")
+        check(torch.equal(out, tk.tree_descend_slices(cs, idx, *one,
+                                                      max_depth=depth)),
+              f"tree_descend_slices G={G}: two calls differ")
+        small_cs = cs[:, :small].contiguous()
+        check(torch.equal(
+            tk.tree_descend_slices(small_cs, idx, *one, max_depth=depth),
+            tk.tree_descend_slices_ref(small_cs, idx, *one,
+                                       max_depth=depth)),
+            f"tree_descend_slices G={G} differs from the plain version")
+        del out, small_cs
+        ms = time_ms(lambda: tk.tree_descend_slices(cs, idx, *one,
+                                                    max_depth=depth), 10)
+        # Needed: the code bytes any walk of a matrix's slices touches,
+        # once per matrix, the tables, and the leaf ids. The layout
+        # floor: each matrix's rows once, and the leaf ids.
+        touched = descent_touched_bytes(cs, idx, *one, depth)
+        b_ms, b_by = bound(touched + G * 12 * M + G * 4 * n)
+        plan = tk.descend_plan(n, d, depth, 1, sms,
+                               tk.slice_groups(idx, P, dev).counts)
+        groups.append({"slices": G, "bin_matrices": P, "trees": 1,
+                       "depth": depth, "ms": ms, "plan": plan._asdict(),
+                       "bound_ms": b_ms,
+                       "bound_by": b_by, "touched_code_bytes": touched,
+                       "layout_floor_ms": bound(P * n * d + G * 4 * n)[0]})
+        emit({"phase": "kernel", "name": "tree_descend_slices",
+              "shape": f"tune depth {depth}", "exact": True, **groups[-1]})
+    return levels, groups
+
+
+def descent_touched_bytes(codes, code_idx, feat, thr, internal,
+                          depth) -> int:
+    """The code bytes that any walk of a matrix's slices reads, each
+    (row, feature) of a matrix counted once, summed over the matrices."""
+    import torch
+
+    P, n, d = codes.shape
+    total = 0
+    rows = torch.arange(n, device=codes.device) * d
+    for p in range(P):
+        touched = torch.zeros((n * d,), dtype=torch.bool,
+                              device=codes.device)
+        for g in (g for g in range(len(code_idx)) if code_idx[g] == p):
+            for t in range(feat.shape[1]):
+                f, th = feat[g, t].long(), thr[g, t]
+                go = internal[g, t]
+                a = torch.zeros((n,), dtype=torch.long, device=codes.device)
+                for _ in range(depth):
+                    on = go[a]
+                    touched[(rows + f[a])[on]] = True
+                    v = codes[p].gather(1, f[a][:, None])[:, 0]
+                    a = torch.where(on, 2 * a + 1 + (v > th[a]).long(), a)
+        total += int(touched.sum())
+        del touched
+    return total
 
 
 def descent_visits(codes, feat, thr, internal, depth) -> list:
@@ -1175,6 +1489,69 @@ def check_fixed_forms(n: int, dev) -> dict:
     emit({"phase": "kernel", "name": "tree_histogram_fixed", "exact": True,
           **doc})
     return doc
+
+
+def check_concurrent_launches(dev) -> None:
+    """Two host threads launch the histogram kernel at once, as the
+    builder's concurrent fits do, one at 4 live nodes and one at 16 (two
+    dynamic shared-memory sizes past the default 48 KiB, one kernel):
+    every launch succeeds and equals its single-thread result."""
+    import threading
+
+    import torch
+
+    from learningorchestra_tpu_torch.ops import tree_kernels as tk
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    n, d, nb, NL, S = CONCURRENT_ROWS, 28, 32, 32, 2
+    codes = torch.randint(0, nb, (1, n, d), generator=g, device=dev,
+                          dtype=torch.uint8)
+    stats = torch.randn((1, S, n), generator=g, device=dev)
+    active = torch.ones((1, n), dtype=torch.bool, device=dev)
+    cases = []
+    for n_live in (4, 16):
+        rel = torch.randint(0, n_live, (1, n), generator=g, device=dev,
+                            dtype=torch.int32)
+        plan_args = (n, d, nb, S, NL, tk._num_sms(dev))
+        plan = tk.hist_plan(*plan_args, n_live=n_live)
+        smem = tk.hist_smem_bytes(plan.NG, plan.CG, S, tk.hist_grid(
+            *plan_args, n_live=n_live).replicas)
+        check(smem > 48 * 1024, f"n_live {n_live}: {smem} B of shared "
+              "memory do not need the kernel's raised cap")
+
+        def launch(rel=rel, n_live=n_live):
+            return tk.tree_histogram_slices(codes, (0,), stats, rel, active,
+                                            n_nodes=NL, n_bins=nb,
+                                            n_live=n_live)
+        cases.append((launch, launch(), smem))
+    errors, bad = [], torch.zeros((), dtype=torch.int64, device=dev)
+    lock = threading.Lock()
+
+    def worker(launch, ref):
+        try:
+            mism = torch.zeros((), dtype=torch.int64, device=dev)
+            for _ in range(CONCURRENT_LAUNCHES):
+                mism += (launch() != ref).any()
+            torch.cuda.synchronize()
+            with lock:
+                bad.add_(mism)
+        except Exception as e:  # reported below, with the other thread's
+            errors.append(repr(e))
+    t0 = time.time()
+    threads = [threading.Thread(target=worker, args=c[:2]) for c in cases]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    seconds = time.time() - t0
+    check(not errors, f"concurrent histogram launches failed: {errors}")
+    check(int(bad) == 0, f"{int(bad)} concurrent histogram launches differ "
+          "from their single-thread results")
+    emit({"phase": "kernel", "name": "tree_histogram_concurrent",
+          "threads": len(cases), "launches_a_thread": CONCURRENT_LAUNCHES,
+          "rows": n, "smem_bytes": [c[2] for c in cases], "exact": True,
+          "seconds": seconds})
 
 
 def check_rows_kernel(dev) -> dict:
@@ -2098,6 +2475,27 @@ TUNE_PARITY = {
 }
 
 
+#: Kernel names (substrings of the profiler's) of the tree kernels whose
+#: device time the tune line reports: K1 with its second pass, and K3.
+TUNE_KERNEL_NAMES = {"K1": ("hist_slice_kernel", "sum_partials_kernel"),
+                     "K3": ("descend_staged_kernel", "descend_direct_kernel")}
+
+
+def tune_device_ms(prof) -> dict:
+    """Device milliseconds of a profiled window: K1's and K3's kernels
+    (TUNE_KERNEL_NAMES) and every kernel and copy together."""
+    out = {k: 0.0 for k in TUNE_KERNEL_NAMES}
+    out["all"] = 0.0
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        out["all"] += us / 1e3
+        for k, names in TUNE_KERNEL_NAMES.items():
+            if any(nm in ev.key for nm in names):
+                out[k] += us / 1e3
+    return out
+
+
 def tune_path(cfg, store, dev) -> dict:
     """Device-resident hyperparameter sweeps on the sweep's catalog: (b)
     ``POST /tune`` (async, promote) of dt, rf and gb on the HIGGS train
@@ -2112,6 +2510,7 @@ def tune_path(cfg, store, dev) -> dict:
     sweep's design matrix (its memo), as a server that already built it
     would. Returns the kernel launches of the phase."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from benchmarks.workload import higgs_like_columns
     from learningorchestra_tpu_torch.models import tune
@@ -2144,16 +2543,19 @@ def tune_path(cfg, store, dev) -> dict:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(dev)
             tk.reset_launch_counts()
-            t0 = time.time()
-            status, body = client.call("POST", "/tune", {
-                "training_filename": ds, "tune_filename": name,
-                "classificator": fam, "configs": configs, "label": "label",
-                "folds": TUNE_FOLDS, "rungs": TUNE_RUNGS, "promote": True,
-                "sync": False})
-            check(status == 201, f"POST /tune {fam}: {status} {body}")
-            meta = wait_finished(client, name)
-            torch.cuda.synchronize()
-            sweep_s = time.time() - t0
+            # The kernels' device time in the sweep: CUDA activity only
+            # (every thread's launches), grouped by kernel.
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.time()
+                status, body = client.call("POST", "/tune", {
+                    "training_filename": ds, "tune_filename": name,
+                    "classificator": fam, "configs": configs,
+                    "label": "label", "folds": TUNE_FOLDS,
+                    "rungs": TUNE_RUNGS, "promote": True, "sync": False})
+                check(status == 201, f"POST /tune {fam}: {status} {body}")
+                meta = wait_finished(client, name)
+                torch.cuda.synchronize()
+                sweep_s = time.time() - t0
             launches = tk.launch_counts()
             allocator_peak = torch.cuda.max_memory_allocated(dev)
             for k, v in launches.items():
@@ -2207,7 +2609,14 @@ def tune_path(cfg, store, dev) -> dict:
                 "allocator_peak_bytes": allocator_peak,
                 "modeled_wave_bytes": members * tune._per_member_bytes(
                     fam, n_rows, 28, 2),
-                "launches": {k: v for k, v in launches.items() if v}}
+                "launches": {k: v for k, v in launches.items() if v},
+                "device_ms": tune_device_ms(prof),
+                # Every member's fold scores: runs of other kernels must
+                # give the same board.
+                "board": [{"config": r["config"],
+                           "fold_scores": r["fold_scores"],
+                           "alive": r["alive"]}
+                          for r in board["results"]]}
         status, metrics = client.call("GET", "/metrics")
         check(status == 200, f"GET /metrics: {status}")
         doc["metrics_tune"] = metrics["tune"]
@@ -3463,14 +3872,16 @@ def main() -> int:
           "clocks_max_sm": card_line("clocks.max.sm"),
           "torch": torch.__version__, "cuda": torch.version.cuda})
     build_all()
-    results = check_kernels(args.train_rows, TEST_ROWS, dev)
+    atoms = check_atomics_probe(dev)
+    results = check_kernels(args.train_rows, TEST_ROWS, dev, atoms)
     torch.cuda.empty_cache()
-    results.update(check_slice_kernels(args.train_rows, dev))
+    results.update(check_slice_kernels(args.train_rows, dev, atoms))
     torch.cuda.empty_cache()
     results["tsne_repulsion"] = check_tsne_kernel(dev)
     results["tsne_repulsion_rows"] = check_rows_kernel(dev)
     results["tree_histogram"]["fixed_form"] = check_fixed_forms(
         -(-args.train_rows // POD_RANKS), dev)
+    check_concurrent_launches(dev)
     torch.cuda.empty_cache()
     check_small_reference(dev)
     check_tsne_small_reference(dev)

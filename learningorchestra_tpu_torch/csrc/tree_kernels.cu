@@ -38,39 +38,63 @@
 //       shared atomicAdd is itself a compare-and-swap loop on this card,
 //       so two native words are the cheaper slot (chip_smoke.py's build
 //       line counts the ATOMS forms each kernel compiled to).
-//     - Zero words are skipped: for integer stats lo is always 0 in every
-//       lane, and a warp-uniform branch then takes a loop with no low-word
-//       atomics (predicated off, they would still cost instruction slots); a
-//       one-hot class stat's zero classes and rf's zero bootstrap weights
-//       add nothing.
+//     - For integer stats lo is always 0 in every lane, and a warp-uniform
+//       branch then takes a loop with no low-word atomics.
 //     - With the adds integer, what remains is the atomics' bank
 //       conflicts (a warp's 32 rows land on bins at random) and latency:
 //       the block is 1024 threads (one block an SM holds the HIGGS slice),
 //       a row's loads are all started before any is used, its uint8 codes
 //       are held four to a register, and the high- and low-word atomics
 //       are interleaved feature by feature.
-//     - Each block writes its slice as exact int64 sums (hi * 2^14 + lo);
-//       the second pass adds them in int64 and converts once,
-//       (float)((double)total * 2^-k_s). Integer sums do not depend on
-//       their order, so every histogram, float stats included, is the
-//       same on every run, and integer-valued stats are bit-identical to
-//       the float index_add_ of the plain version.
-//     Codes, stats and node ids are read once per slice: at the HIGGS
-//     shape (16 nodes x 28 features x 32 bins x 2 stats x 8 B = 224 KiB)
-//     there is one slice, so one read of the rows by one wave of blocks.
+//     - Each block flushes its slice as exact int64 sums (hi * 2^14 + lo)
+//       into int64 partials; the second pass adds them in int64 and
+//       converts once, (float)((double)total * 2^-k_s). Integer sums do not
+//       depend on their order, so every histogram, float stats included,
+//       is the same on every run, and integer-valued stats are
+//       bit-identical to the float index_add_ of the plain version.
+//     - Live nodes: at level l of a tree only its 2^l nodes hold rows, but
+//       a population grows every level at the deepest width (NL = 32 at
+//       depth 6). The caller names the live nodes [0, n_live); the slice,
+//       its node groups and the partials cover those alone, and the
+//       second pass writes 0 for the rest. At depth 6, levels 0-4 are one
+//       node group of 1-16 nodes, not two of 16 whose second adds nothing.
+//     - Persistent blocks: a stream is one (slice, node group, column
+//       group); its B blocks (ops/tree_kernels.py hist_grid: whole waves
+//       of the card, each at least 95% busy) walk its row chunks in turn,
+//       and a block flushes after each chunk: a plain load-add-store into
+//       its own int64 partial slot of the stream, then the words
+//       re-zeroed. A chunk holds at most 2^17 rows a copy (below), the
+//       overflow bound above. The partials scale with the blocks a stream
+//       holds, not with n / 2^17 (84 chunks a slice at 11M rows).
+//     - Bank-spread copies: a narrow level's slice leaves shared memory
+//       free, which goes to copies of the slice (hist_replicas), lane l
+//       adding to copy l % R with the copy in the low bits of a slot's word
+//       address: lanes of different copies never share a bank, so a warp's
+//       random bins collide only within a copy's lanes; the flush sums the
+//       copies. A copy takes one row in R of a chunk, so chunks may be R
+//       times as long. Copies pay where rows add two words a stat (float
+//       stats) and 8 or more fit; the plan gives them only there.
+//     - Every add is made, a zero word included, and a code outside the
+//       slice's columns adds to the lane's spare word: a condition on an
+//       add makes the compiler branch around it, which doubled the
+//       instructions of the loop the adds bound.
+//     The shared atomics and the instructions around them remain what
+//     binds it; chip_smoke.py's atomics probe gives the card's ATOMS.ADD
+//     rate, conflict-free and into random bins, and K1's atomics floor
+//     (its adds at that rate).
 //
 // The slice axis (K1, K1 leaf form, K2, K3). One launch serves G slices:
 // the trees of a population fit (models/tune.py) at one level, each with its
 // own stats, node ids and node tables, over one of P bin matrices stacked
 // (P, n, d) and named by the slice's entry of code_idx (members that share
-// n_bins share a matrix, so the codes are held once per matrix). The grid's
-// last dimension is the slice; every slice's pointers are offset at the top
-// of the kernel, and its arithmetic is the one-slice launch's: K1's sums are
-// exact int64 fixed point at the slice's own scale, K2 and K3 are integer,
-// so each slice's output is bit-identical to a launch of that slice alone.
-// A single-tree call is the one-slice case (G = 1). The codes are read once
-// per slice, not once per matrix: slices that share a matrix walk different
-// trees, so a level's reads differ.
+// n_bins share a matrix, so the codes are held once per matrix). Every
+// slice's arithmetic is the one-slice launch's: K1's sums are exact int64
+// fixed point at the slice's own scale, K2 and K3 are integer, so each
+// slice's output is bit-identical to a launch of that slice alone. A
+// single-tree call is the one-slice case (G = 1). K1 and K2 read a
+// matrix's codes once per slice (slices route different rows to different
+// nodes); K3's staged path groups the slices by matrix and walks all their
+// trees over one staged tile, so it reads each matrix once.
 //
 // K2 and K3 pack their node tables as each block loads them into shared
 // memory, so the wrapper spends no tensor operations on them, and a
@@ -121,10 +145,14 @@
 //     the next tile's copy overlaps this tile's walk, and walks every
 //     tree of its chunk over the staged tile, so device memory sees
 //     exactly d bytes a row once per launch plus the leaf ids written.
-//     The trees' tables sit beside the two tiles; where all T do not fit
-//     (depth 12: 4,095 entries a tree), trees go in chunks, one grid.y
-//     each, and each chunk reads the codes once. A forest's walks are
-//     bound by shared memory, not device memory: a level is two
+//     A slice launch groups its slices by bin matrix: grid.z is the
+//     matrix, and a chunk holds (slice, tree) pairs of that matrix, so the
+//     slices of one matrix are walked as the trees of one forest and the
+//     matrix is staged once (not once per slice: gb's 18 tune slices share
+//     one matrix). The tables sit beside the two tiles; where all pairs
+//     do not fit (depth 12: 4,095 entries a tree), they go in chunks, one
+//     grid.y each, and each chunk reads the codes once. A forest's walks
+//     are bound by shared memory, not device memory: a level is two
 //     dependent shared loads (entry, code) and about six integer
 //     instructions, so each thread walks its tile rows (up to four) at
 //     once, four independent chains; the root's entry is read once per
@@ -137,7 +165,8 @@
 //     the HIGGS shape's fourth level). Direct path: where d exceeds 32 B
 //     (a sector) times the depth, staging a row costs more bytes than a
 //     walk can touch (a 784-column one-hot design), so each thread walks
-//     its row's codes in device memory over node words in shared memory.
+//     its row's codes in device memory over node words in shared memory,
+//     one grid.z a slice.
 //     ops/tree_kernels.py descend_plan chooses the path by shape.
 
 #include <cuda_runtime.h>
@@ -156,6 +185,9 @@ constexpr int kMaxRowsPerChunk = 1 << 17;
 constexpr int kHistThreads = 1024;
 // Stats a histogram thread holds in registers (more are loaded per use).
 constexpr int kRegStats = 2;
+// A histogram block's spare words, one a lane (HIST_SPARE_BYTES in
+// ops/tree_kernels.py).
+constexpr int kSpareBytes = 32 * sizeof(uint32_t);
 
 // The codes a histogram thread holds for one row, a group of features at
 // a time: uint8 codes packed four to a 32-bit register (a HIGGS row's 28
@@ -167,27 +199,29 @@ struct CodeGroup {
   static constexpr int kSize = kPer * kWords;  // features
   uint32_t w[kWords];
 
-  // Codes of features [f0, fe): whole 32-bit words where the row is
-  // word-aligned (uint8 codes, d a multiple of 4, f0 a multiple of 4),
-  // else one load each. Codes past fe are garbage, which callers skip.
+  // Codes of features [f0, f0 + count): whole 32-bit words where the row
+  // is word-aligned (uint8 codes, d a multiple of 4, f0 a multiple of 4),
+  // else one load each. Codes past count are garbage, which callers skip.
+  // The bounds are tested against count alone, so that no per-feature
+  // bound is held (or spilled) through a row loop.
   __device__ __forceinline__ void load(const CodeT* __restrict__ crow,
-                                       int f0, int fe, bool words) {
+                                       int f0, int count, bool words) {
 #pragma unroll
     for (int k = 0; k < kWords; ++k) {
-      const int f = f0 + k * kPer;
-      if (f >= fe) break;
+      if (k * kPer >= count) break;
+      const CodeT* p = crow + f0 + k * kPer;
       if constexpr (kPer == 4) {
         if (words) {
-          w[k] = *reinterpret_cast<const uint32_t*>(crow + f);
+          w[k] = *reinterpret_cast<const uint32_t*>(p);
           continue;
         }
-        uint32_t p = 0;
+        uint32_t packed = 0;
 #pragma unroll
         for (int t = 0; t < 4; ++t)
-          if (f + t < fe) p |= (uint32_t)crow[f + t] << (8 * t);
-        w[k] = p;
+          if (k * 4 + t < count) packed |= (uint32_t)p[t] << (8 * t);
+        w[k] = packed;
       } else {
-        w[k] = (uint32_t)crow[f];
+        w[k] = (uint32_t)*p;
       }
     }
   }
@@ -207,60 +241,88 @@ __device__ __forceinline__ int stat_exponent(float max_abs) {
   return min(kValueBits - (m == 0.5f ? e - 1 : e), 126);
 }
 
-// The adds of one (row, stat) over a group of codes: the high word, and
-// with kLo the low word, each where it is nonzero. The two words' atomics
-// are interleaved, one feature at a time, which the card runs faster than
-// one word's atomics after the other's.
-template <bool kLo, typename CodeT>
+// The adds of one (row, stat) over a group of `count` codes, the first
+// feature's code 0 at column col0: the high word, and with kLo the low
+// word. The two words' atomics are interleaved, one feature at a time,
+// which the card runs faster than one word's atomics after the other's.
+// Every add is made, a zero word included: a condition on an add makes
+// the compiler branch around it (a convergence barrier, a branch, the add
+// and the barrier's end: twice the instructions of the add in a loop the
+// adds bound). A code outside the slice's columns adds to the lane's own
+// spare word instead. The column steps by n_bins a feature, so no
+// per-feature offset is held through the row loop.
+template <bool kLo, int kRep, typename CodeT>
 __device__ __forceinline__ void add_words(int hi, uint32_t lo,
                                           const CodeGroup<CodeT>& grp,
-                                          int f0, int fe, int n_bins, int c0,
-                                          int c1, int32_t* hi_run,
-                                          uint32_t* lo_run) {
+                                          int count, int col0, int n_bins,
+                                          int c0, int cw, int32_t* hi_run,
+                                          uint32_t* lo_run, uint32_t* spare) {
+  int col_f = col0;
 #pragma unroll
   for (int j = 0; j < CodeGroup<CodeT>::kSize; ++j) {
-    if (f0 + j >= fe) break;
+    if (j >= count) break;
     const int code = grp.code(j);
-    const int col = (f0 + j) * n_bins + code;
-    const bool in = (unsigned)code < (unsigned)n_bins && col >= c0 &&
-                    col < c1;
-    if (in && hi != 0) atomicAdd(hi_run + col, hi);
-    if (kLo && in && lo != 0) atomicAdd(lo_run + col, lo);
+    const int col = col_f + code;
+    const bool in = (unsigned)code < (unsigned)n_bins &&
+                    (unsigned)(col - c0) < (unsigned)cw;
+    atomicAdd(in ? reinterpret_cast<uint32_t*>(hi_run) + col * kRep : spare,
+              (uint32_t)hi);
+    if (kLo) atomicAdd(in ? lo_run + col * kRep : spare, lo);
+    col_f += n_bins;
   }
 }
 
 // One stat value (already scaled) of one row into the columns its codes
 // select: x = rint(v), split into the two words. Where the low word is
 // zero in every lane of the warp (always, for an integer-valued stat), a
-// uniform branch takes the loop without its atomics: predicated off, they
-// would still cost instruction slots. hi_run and lo_run point at this
-// (node, stat)'s run of columns, offset so that column c0 of the slice is
-// index c0.
-template <typename CodeT>
+// uniform branch takes the loop without its atomics. hi_run and lo_run point at this
+// (node, stat)'s run of columns and the thread's copy, offset so that
+// column c0 of the slice is index c0 * kRep.
+template <int kRep, typename CodeT>
 __device__ __forceinline__ void add_stat(float scaled,
-                                         const CodeGroup<CodeT>& grp, int f0,
-                                         int fe, int n_bins, int c0, int c1,
-                                         int32_t* hi_run, uint32_t* lo_run) {
+                                         const CodeGroup<CodeT>& grp,
+                                         int count, int col0, int n_bins,
+                                         int c0, int cw, int32_t* hi_run,
+                                         uint32_t* lo_run, uint32_t* spare) {
   const int x = __float2int_rn(scaled);
   const int hi = x >> kLoBits;
   const uint32_t lo = (uint32_t)x & ((1u << kLoBits) - 1u);
   if (__any_sync(__activemask(), lo != 0)) {
-    add_words<true>(hi, lo, grp, f0, fe, n_bins, c0, c1, hi_run, lo_run);
+    add_words<true, kRep>(hi, lo, grp, count, col0, n_bins, c0, cw, hi_run,
+                          lo_run, spare);
   } else {
-    add_words<false>(hi, lo, grp, f0, fe, n_bins, c0, c1, hi_run, lo_run);
+    add_words<false, kRep>(hi, lo, grp, count, col0, n_bins, c0, cw, hi_run,
+                           lo_run, spare);
   }
 }
 
-// Grid (R row chunks, node groups x column groups, G slices). Slice z reads
-// matrix code_idx[z] (slice z itself where code_idx is null: the leaf form's
-// per-slice node ids) and its own stats, scales, node ids and flags.
-template <typename CodeT>
-__global__ void __launch_bounds__(kHistThreads) hist_slice_kernel(
-    const CodeT* __restrict__ codes, const int32_t* __restrict__ code_idx,
-    const float* __restrict__ stats, const float* __restrict__ max_abs,
-    const int32_t* __restrict__ rel, const uint8_t* __restrict__ active,
-    long long* __restrict__ partial, int n, int d, int n_bins, int S,
-    int n_nodes, int NG, int CG, int n_cgroups, int rows_per_chunk) {
+// Grid (B blocks a stream, node groups x column groups, G slices): a
+// stream is one (slice, node group, column group), and its B blocks are
+// persistent: block x walks the stream's row chunks x, x + B, x + 2B, ...
+// of at most kMaxRowsPerChunk rows a copy (the overflow bound above: a
+// chunk's rows go to the copies in turn, lane by lane). After each
+// chunk it flushes its shared slice — kRep bank-spread copies of it (lane
+// l adds to copy l % kRep, the copy index in the low bits of a slot's word
+// address), each slot's copies summed to an exact int64 — into its own
+// int64 partial slot x of the stream: a store at its first chunk, a plain
+// load-add-store (the slot is the block's own) at the others; the words
+// are re-zeroed. Only the n_live nodes [0, n_live) may hold active rows
+// at this level; the slice, the node groups and the partials cover those
+// alone. Slice z reads matrix code_idx[z] (slice z itself where code_idx
+// is null: the leaf form's per-slice node ids) and its own stats, scales,
+// node ids and flags. The leaf form (int32 codes) is held to 32 registers,
+// so that an SM holds two of its blocks.
+template <typename CodeT, int kRep>
+__global__ void __launch_bounds__(kHistThreads, sizeof(CodeT) == 4 ? 2 : 1)
+    hist_slice_kernel(const CodeT* __restrict__ codes,
+                      const int32_t* __restrict__ code_idx,
+                      const float* __restrict__ stats,
+                      const float* __restrict__ max_abs,
+                      const int32_t* __restrict__ rel,
+                      const uint8_t* __restrict__ active,
+                      long long* __restrict__ partial, int n, int d,
+                      int n_bins, int S, int n_live, int NG, int CG,
+                      int n_cgroups, int rows_per_chunk) {
   constexpr int kGroup = CodeGroup<CodeT>::kSize;
   extern __shared__ int32_t smem[];
   // Slice z's rows start zn entries into its (G, n) arrays and cbase
@@ -272,24 +334,24 @@ __global__ void __launch_bounds__(kHistThreads) hist_slice_kernel(
   const long long cbase =
       (long long)(code_idx != nullptr ? code_idx[z] : z) * n;
   const int DC = d * n_bins;
-  const int g = blockIdx.y / n_cgroups;
-  const int cg = blockIdx.y % n_cgroups;
-  const int g0 = g * NG;
-  const int c0 = cg * CG;
+  const int g0 = blockIdx.y / n_cgroups * NG;
+  const int c0 = blockIdx.y % n_cgroups * CG;
   const int c1 = min(c0 + CG, DC);
   const int cw = c1 - c0;
   const int f_lo = c0 / n_bins;
   const int f_hi = (c1 - 1) / n_bins;
-  const int slice = NG * cw * S;
+  const int words = NG * cw * S * kRep;
   int32_t* acc_hi = smem;
-  uint32_t* acc_lo = reinterpret_cast<uint32_t*>(smem + slice);
-  float* scale = reinterpret_cast<float*>(smem + 2 * slice);
+  uint32_t* acc_lo = reinterpret_cast<uint32_t*>(smem + words);
+  float* scale = reinterpret_cast<float*>(smem + 2 * words);
+  // Each lane's spare word, for the adds of codes outside the slice.
+  uint32_t* spare = reinterpret_cast<uint32_t*>(scale + S) + threadIdx.x % 32;
+  const int rep = (int)(threadIdx.x % kRep);
 
-  for (int i = threadIdx.x; i < 2 * slice; i += blockDim.x) smem[i] = 0;
+  for (int i = threadIdx.x; i < 2 * words; i += blockDim.x) smem[i] = 0;
   for (int s = threadIdx.x; s < S; s += blockDim.x)
     scale[s] =
         __int_as_float((stat_exponent(max_abs[z * S + s]) + 127) << 23);
-  __syncthreads();
 
   // One thread per row. All of a row's loads (flag, node id, up to
   // kRegStats stats, its first group of codes) are started before any is
@@ -298,83 +360,108 @@ __global__ void __launch_bounds__(kHistThreads) hist_slice_kernel(
   // 28 codes are 7 loads. Neighbouring threads take neighbouring rows, so
   // flags, ids and stats coalesce. Then up to two shared integer adds per
   // (feature, stat), predicated on the word being nonzero.
-  const bool words = sizeof(CodeT) == 1 && d % 4 == 0 &&
-                     reinterpret_cast<uintptr_t>(codes) % 4 == 0;
-  const int f_start = words ? f_lo & ~3 : f_lo;
-  const long long r0 = (long long)blockIdx.x * rows_per_chunk;
-  const long long r1 = min((long long)n, r0 + rows_per_chunk);
+  const bool words_ok = sizeof(CodeT) == 1 && d % 4 == 0 &&
+                        reinterpret_cast<uintptr_t>(codes) % 4 == 0;
+  const int f_start = words_ok ? f_lo & ~3 : f_lo;
   const float* zstats = stats + zn * S;
-  for (long long row = r0 + threadIdx.x; row < r1; row += blockDim.x) {
-    const bool act = active == nullptr || active[zn + row] != 0;
-    const int nl = (rel != nullptr ? rel[zn + row] : 0) - g0;
-    float v[kRegStats];
+  // Chunk k of this block is chunk blockIdx.x + k * gridDim.x of the
+  // stream; the loop runs once at least, so the block's partial slot is
+  // stored even where its first chunk lies past the rows. Only k is
+  // carried through the row loop: the rest is recomputed from it.
+  for (int k = 0;; ++k) {
+    const long long r0 =
+        ((long long)k * gridDim.x + blockIdx.x) * rows_per_chunk;
+    if (k > 0 && r0 >= n) break;
+    // The last chunk's flush (its re-zeroing) is done before these adds.
+    __syncthreads();
+    const long long r1 = min((long long)n, r0 + rows_per_chunk);
+    for (long long row = r0 + threadIdx.x; row < r1; row += blockDim.x) {
+      const bool act = active == nullptr || active[zn + row] != 0;
+      const int nl = (rel != nullptr ? rel[zn + row] : 0) - g0;
+      float v[kRegStats];
 #pragma unroll
-    for (int s = 0; s < kRegStats; ++s)
-      v[s] = s < S ? zstats[(long long)s * n + row] : 0.0f;
-    const CodeT* crow = codes + (cbase + row) * d;
-    CodeGroup<CodeT> grp;
-    grp.load(crow, f_start, min(f_start + kGroup, f_hi + 1), words);
-    if (!act || nl < 0 || nl >= NG || g0 + nl >= n_nodes) continue;
-    const int node = nl * S * cw - c0;
-    for (int f0 = f_start; f0 <= f_hi; f0 += kGroup) {
-      const int fe = min(f0 + kGroup, f_hi + 1);
-      if (f0 != f_start) grp.load(crow, f0, fe, words);
+      for (int s = 0; s < kRegStats; ++s)
+        v[s] = s < S ? zstats[(long long)s * n + row] : 0.0f;
+      const CodeT* crow = codes + (cbase + row) * d;
+      CodeGroup<CodeT> grp;
+      grp.load(crow, f_start, min(kGroup, f_hi + 1 - f_start), words_ok);
+      if (!act || nl < 0 || nl >= NG || g0 + nl >= n_live) continue;
+      const int node = nl * S * cw - c0;
+      for (int f0 = f_start; f0 <= f_hi; f0 += kGroup) {
+        const int count = min(kGroup, f_hi + 1 - f0);
+        if (f0 != f_start) grp.load(crow, f0, count, words_ok);
 #pragma unroll
-      for (int s = 0; s < kRegStats; ++s) {
-        if (s >= S) break;
-        add_stat(v[s] * scale[s], grp, f0, fe, n_bins, c0, c1,
-                 acc_hi + node + s * cw, acc_lo + node + s * cw);
+        for (int s = 0; s < kRegStats; ++s) {
+          if (s >= S) break;
+          add_stat<kRep>(v[s] * scale[s], grp, count, f0 * n_bins, n_bins,
+                         c0, cw, acc_hi + (node + s * cw) * kRep + rep,
+                         acc_lo + (node + s * cw) * kRep + rep, spare);
+        }
+        for (int s = kRegStats; s < S; ++s)
+          add_stat<kRep>(zstats[(long long)s * n + row] * scale[s], grp,
+                         count, f0 * n_bins, n_bins, c0, cw,
+                         acc_hi + (node + s * cw) * kRep + rep,
+                         acc_lo + (node + s * cw) * kRep + rep, spare);
       }
-      for (int s = kRegStats; s < S; ++s)
-        add_stat(zstats[(long long)s * n + row] * scale[s], grp, f0, fe,
-                 n_bins, c0, c1, acc_hi + node + s * cw,
-                 acc_lo + node + s * cw);
+    }
+    __syncthreads();
+
+    // Flush the slice, laid out (node, stat, column, copy) in shared
+    // memory so that the lanes of one add spread over the banks by bin
+    // and copy, into this block's partial slot of slice z: partials are
+    // laid out (B, G, n_live * d*n_bins * S), each slice in the public
+    // (node, d*n_bins, S) layout. Consecutive threads read (and re-zero)
+    // consecutive words, a slot's kRep copies in kRep consecutive lanes,
+    // summed with shuffles.
+    const long long live_total = (long long)n_live * DC * S;
+    long long* out =
+        partial + ((long long)blockIdx.x * gridDim.z + z) * live_total;
+    for (int w0 = 0; w0 < words; w0 += blockDim.x) {
+      const int w = w0 + threadIdx.x;
+      long long t = 0;
+      if (w < words) {
+        t = (long long)acc_hi[w] * (1LL << kLoBits) + (long long)acc_lo[w];
+        acc_hi[w] = 0;
+        acc_lo[w] = 0;
+      }
+#pragma unroll
+      for (int o = kRep / 2; o > 0; o /= 2)
+        t += __shfl_down_sync(0xFFFFFFFFu, t, o, kRep);
+      const int i = w / kRep;
+      const int nl = i / (S * cw);
+      if (w >= words || w % kRep != 0 || g0 + nl >= n_live) continue;
+      long long* o =
+          out + ((long long)(g0 + nl) * DC + c0 + i % cw) * S + i / cw % S;
+      *o = k == 0 ? t : *o + t;
     }
   }
-  __syncthreads();
-
-  // Write the slice, laid out (node, stat, column) in shared memory so
-  // that the lanes of one add spread over the banks by bin, into this row
-  // chunk's partial of slice z, laid out (R, G, n_nodes * d*n_bins * S)
-  // with each slice in the public (node, d*n_bins, S) layout.
-  const long long total = (long long)n_nodes * DC * S;
-  long long* out =
-      partial + ((long long)blockIdx.x * gridDim.z + z) * total;
-  for (int i = threadIdx.x; i < slice; i += blockDim.x) {
-    const int nl = i / (S * cw);
-    const int s = i / cw % S;
-    const int c = i % cw;
-    if (g0 + nl >= n_nodes) continue;
-    out[((long long)(g0 + nl) * DC + c0 + c) * S + s] =
-        (long long)acc_hi[i] * (1LL << kLoBits) + (long long)acc_lo[i];
-  }
 }
 
-// out[i] = the R row chunks' exact sums, converted once at the scale of
-// the slice's stat: total * 2^-k_s. `all` = G slices of `total` values.
-__global__ void sum_partials_kernel(const long long* __restrict__ partial,
-                                    const float* __restrict__ max_abs,
-                                    float* __restrict__ out, long long total,
-                                    long long all, int R, int S) {
+// out[i] = the B partial slots' exact sums of each slot of the public
+// (G, n_nodes, d*n_bins, S) layout, converted once at the scale of the
+// slice's stat (total * 2^-k_s), or with out_i64 left as integers: the
+// totals a pod adds across ranks before the one conversion
+// (models/trees.py). Nodes n_live.. are 0: no row adds there.
+__global__ void sum_partials_kernel(
+    const long long* __restrict__ partial, const float* __restrict__ max_abs,
+    float* __restrict__ out_f32, long long* __restrict__ out_i64,
+    long long total, long long live_total, int G, int S, int B) {
+  const long long all = total * G;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        i < all; i += (long long)gridDim.x * blockDim.x) {
+    const long long g = i / total;
+    const long long j = i % total;
     long long t = 0;
-    for (int r = 0; r < R; ++r) t += partial[(long long)r * all + i];
-    const int k = stat_exponent(max_abs[i / total * S + i % S]);
-    out[i] = (float)((double)t * __longlong_as_double((1023LL - k) << 52));
-  }
-}
-
-// out[i] = the R row chunks' exact sums, left as integers: the totals a
-// pod adds across ranks before the one conversion (models/trees.py).
-__global__ void sum_partials_i64_kernel(const long long* __restrict__ partial,
-                                        long long* __restrict__ out,
-                                        long long all, int R) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < all; i += (long long)gridDim.x * blockDim.x) {
-    long long t = 0;
-    for (int r = 0; r < R; ++r) t += partial[(long long)r * all + i];
-    out[i] = t;
+    if (j < live_total)
+      for (int r = 0; r < B; ++r)
+        t += partial[((long long)r * G + g) * live_total + j];
+    if (out_i64 != nullptr) {
+      out_i64[i] = t;
+    } else {
+      const int k = stat_exponent(max_abs[g * S + j % S]);
+      out_f32[i] =
+          (float)((double)t * __longlong_as_double((1023LL - k) << 52));
+    }
   }
 }
 
@@ -623,7 +710,8 @@ struct Trees {
   int M, W, T;
 };
 
-template <bool kSteps>
+// The direct path's chunk: trees t0 .. t0 + nt - 1 of the slice, as node
+// words.
 __device__ __forceinline__ int load_chunk(uint32_t* s_tbl, Trees tr, int d,
                                           int trees_per_chunk) {
   const int t0 = blockIdx.y * trees_per_chunk;
@@ -635,40 +723,66 @@ __device__ __forceinline__ int load_chunk(uint32_t* s_tbl, Trees tr, int d,
     const int f = in ? tr.feat[j] : 0;
     const int thr = in ? tr.thr[j] : 0;
     const bool go = in && tr.internal[j] != 0;
-    s_tbl[i] = kSteps ? pack_step(a, f, thr, go, d)
-                      : (uint32_t)pack_node(f, thr, go, d);
+    s_tbl[i] = (uint32_t)pack_node(f, thr, go, d);
   }
   return nt;
 }
 
-// Slice z of a launch (grid.z) walks its own (T, M) tables; its codes are
-// matrix code_idx[z] of the stack, and its leaf ids its own (T, n) block.
+// Slice z of a direct launch (grid.z) walks its own (T, M) tables; its
+// codes are matrix code_idx[z] of the stack, and its leaf ids its own
+// (T, n) block.
 __device__ __forceinline__ void slice_tables(Trees& tr, long long z) {
   tr.feat += z * tr.T * tr.M;
   tr.thr += z * tr.T * tr.M;
   tr.internal += z * tr.T * tr.M;
 }
 
-// Staged path: grid (tile blocks, chunks, slices). Shared memory: two
-// tile buffers of tile_bytes, then the chunk's tables. A tile has kRows
-// rows a thread (rows_per_tile = kRows * blockDim.x), which each thread
-// walks at once: kRows independent chains of dependent shared-memory
-// loads, interleaved to hide their latency.
+// The tables of a staged chunk, as staged entries: its (slice, tree)
+// pairs q = c0 .. c0 + nt - 1 of one matrix, pair q being tree q % T of
+// slice order[s0 + q / T].
+__device__ __forceinline__ void load_pairs(uint32_t* s_tbl, Trees tr,
+                                           const int32_t* __restrict__ order,
+                                           int s0, int c0, int nt, int d) {
+  for (int i = threadIdx.x; i < nt * tr.W; i += blockDim.x) {
+    const int a = i % tr.W;
+    const int q = c0 + i / tr.W;
+    const long long table = (long long)order[s0 + q / tr.T] * tr.T + q % tr.T;
+    const long long j = table * tr.M + a;
+    const bool in = a < tr.M;
+    s_tbl[i] = pack_step(a, in ? tr.feat[j] : 0, in ? tr.thr[j] : 0,
+                         in && tr.internal[j] != 0, d);
+  }
+}
+
+// Staged path: grid (tile blocks, chunks, P bin matrices). The slices of
+// matrix p = blockIdx.z are order[first[p] .. first[p + 1]) (the wrapper
+// groups them by matrix), and its (slice, tree) pairs go in chunks of
+// pairs_per_chunk, one grid.y each: to this kernel the slices of one
+// matrix are the trees of one forest. A block stages each tile of matrix
+// p's rows once and walks every pair of its chunk over it, each pair's
+// leaf ids into its slice's own (T, n) block. Shared memory: two tile
+// buffers of tile_bytes, then the chunk's tables. A tile has kRows rows a
+// thread (rows_per_tile = kRows * blockDim.x), which each thread walks at
+// once: kRows independent chains of dependent shared-memory loads,
+// interleaved to hide their latency.
 template <int kRows>
 __global__ void __launch_bounds__(kDescendThreads) descend_staged_kernel(
-    const uint8_t* __restrict__ codes, const int32_t* __restrict__ code_idx,
-    long long code_stride, Trees tr, int32_t* __restrict__ out, int n, int d,
-    int depth, int trees_per_chunk, int tile_bytes) {
+    const uint8_t* __restrict__ codes, long long code_stride,
+    const int32_t* __restrict__ order, const int32_t* __restrict__ first,
+    Trees tr, int32_t* __restrict__ out, int n, int d, int depth,
+    int pairs_per_chunk, int tile_bytes) {
   // Named apart from the histogram kernel's int32_t smem: extern shared
   // arrays of one name must share a type.
   extern __shared__ __align__(16) uint8_t s_bytes[];
-  codes += (long long)code_idx[blockIdx.z] * code_stride;
-  out += (long long)blockIdx.z * tr.T * n;
-  slice_tables(tr, blockIdx.z);
+  const int s0 = first[blockIdx.z];
+  const int pairs = (first[blockIdx.z + 1] - s0) * tr.T;
+  const int c0 = blockIdx.y * pairs_per_chunk;
+  if (c0 >= pairs) return;
+  const int nt = min(pairs_per_chunk, pairs - c0);
+  codes += (long long)blockIdx.z * code_stride;
   uint32_t* s_tbl = reinterpret_cast<uint32_t*>(s_bytes + 2 * tile_bytes);
   const int W = tr.W;
-  const int nt = load_chunk<true>(s_tbl, tr, d, trees_per_chunk);
-  const int t0 = blockIdx.y * trees_per_chunk;
+  load_pairs(s_tbl, tr, order, s0, c0, nt, d);
   const int rows_per_tile = kRows * blockDim.x;
   const long long total = (long long)n * d;
   const long long n_tiles = ((long long)n + rows_per_tile - 1) /
@@ -705,8 +819,11 @@ __global__ void __launch_bounds__(kDescendThreads) descend_staged_kernel(
 #pragma unroll
     for (int j = 0; j < kRows; ++j)
       row[j] = rows0 + min(r + j * (int)blockDim.x, rows - 1) * d;
-    for (int t = 0; t < nt; ++t) {
-      const uint32_t* node = s_tbl + t * W;
+    // Pair q's slice and tree, stepped along with q.
+    int t = c0 % tr.T;
+    int si = s0 + c0 / tr.T;
+    for (int p = 0; p < nt; ++p) {
+      const uint32_t* node = s_tbl + p * W;
       const uint32_t e0 = node[0];
       uint32_t a[kRows];
 #pragma unroll
@@ -715,10 +832,14 @@ __global__ void __launch_bounds__(kDescendThreads) descend_staged_kernel(
 #pragma unroll
         for (int j = 0; j < kRows; ++j) a[j] = step(node[a[j]], row[j]);
       }
-      int32_t* o = out + (long long)(t0 + t) * n + r0;
+      int32_t* o = out + ((long long)order[si] * tr.T + t) * n + r0;
 #pragma unroll
       for (int j = 0; j < kRows; ++j)
         if (r + j * (int)blockDim.x < rows) o[r + j * blockDim.x] = (int)a[j];
+      if (++t == tr.T) {
+        t = 0;
+        ++si;
+      }
     }
     // Every thread is done with this buffer before it is staged again.
     __syncthreads();
@@ -736,7 +857,7 @@ __global__ void __launch_bounds__(kDescendThreads) descend_direct_kernel(
   out += (long long)blockIdx.z * tr.T * n;
   slice_tables(tr, blockIdx.z);
   const int W = tr.W;
-  const int nt = load_chunk<false>(s_word, tr, d, trees_per_chunk);
+  const int nt = load_chunk(s_word, tr, d, trees_per_chunk);
   const int t0 = blockIdx.y * trees_per_chunk;
   __syncthreads();
   for (long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -748,51 +869,136 @@ __global__ void __launch_bounds__(kDescendThreads) descend_direct_kernel(
   }
 }
 
+// Lets `kernel` launch with `smem` bytes of dynamic shared memory. The cap
+// it sets is the most the card allows beside the kernel's static shared
+// memory, the same for every launch, never this launch's size: host threads
+// launch one kernel at different sizes at once (concurrent fits), and a cap
+// lowered by one thread between another's set and launch would refuse that
+// launch (cudaErrorInvalidValue).
 template <typename K>
 int prepare_smem(K kernel, size_t smem) {
-  if (smem > (size_t)kDefaultSmem) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  return 0;
+  if (smem <= (size_t)kDefaultSmem) return 0;
+  int dev, optin;
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return (int)e;
+  const int cap = optin - (int)attr.sharedSizeBytes;
+  if (smem > (size_t)cap) return (int)cudaErrorInvalidValue;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, cap);
+}
+
+template <typename CodeT, int kRep>
+int launch_hist_kernel(size_t smem, dim3 grid, cudaStream_t stream,
+                       const CodeT* codes, const int32_t* code_idx,
+                       const float* stats, const float* max_abs,
+                       const int32_t* rel, const uint8_t* active,
+                       long long* partial, int n, int d, int n_bins, int S,
+                       int n_live, int NG, int CG, int n_cgroups,
+                       int rows_per_chunk) {
+  int e = prepare_smem(hist_slice_kernel<CodeT, kRep>, smem);
+  if (e) return e;
+  hist_slice_kernel<CodeT, kRep><<<grid, kHistThreads, smem, stream>>>(
+      codes, code_idx, stats, max_abs, rel, active, partial, n, d, n_bins, S,
+      n_live, NG, CG, n_cgroups, rows_per_chunk);
+  return (int)cudaGetLastError();
 }
 
 // out is float (G, ...) sums, or with `fixed` the int64 fixed-point totals.
+// partial: (B, G, n_live * d*n_bins * S) int64 scratch, B = blocks a
+// stream.
 template <typename CodeT>
 int launch_hist(const CodeT* codes, const int32_t* code_idx,
                 const float* stats, const float* max_abs, const int32_t* rel,
                 const uint8_t* active, void* out, bool fixed,
                 long long* partial, int n, int d, int n_bins, int S,
-                int n_nodes, int NG, int CG, int R, int rows_per_chunk, int G,
-                cudaStream_t stream) {
-  if (rows_per_chunk > kMaxRowsPerChunk || G < 1 || G > 65535)
+                int n_nodes, int n_live, int NG, int CG, int rows_per_chunk,
+                int B, int replicas, int G, cudaStream_t stream) {
+  // A copy takes one row in `replicas` of a chunk: at most
+  // kMaxRowsPerChunk of them between flushes.
+  if (replicas < 1 ||
+      (long long)rows_per_chunk > (long long)kMaxRowsPerChunk * replicas ||
+      rows_per_chunk < 1 || G < 1 || G > 65535 || n_live < 1 ||
+      n_live > n_nodes || NG < 1 || CG < 1 || B < 1 || n < 0)
     return (int)cudaErrorInvalidValue;
   const int DC = d * n_bins;
   const int n_cgroups = (DC + CG - 1) / CG;
-  const int n_ngroups = (n_nodes + NG - 1) / NG;
-  const size_t smem = (size_t)NG * CG * S * 2 * sizeof(int32_t) +
-                      (size_t)S * sizeof(float);
-  int e = prepare_smem(hist_slice_kernel<CodeT>, smem);
-  if (e) return e;
-  dim3 grid(R, n_ngroups * n_cgroups, G);
-  hist_slice_kernel<CodeT><<<grid, kHistThreads, smem, stream>>>(
-      codes, code_idx, stats, max_abs, rel, active, partial, n, d, n_bins, S,
-      n_nodes, NG, CG, n_cgroups, rows_per_chunk);
-  e = (int)cudaGetLastError();
+  const long long groups = (long long)(n_live + NG - 1) / NG * n_cgroups;
+  if (groups > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid(B, (unsigned)groups, G);
+  const size_t smem = (size_t)NG * CG * S * 2 * sizeof(int32_t) * replicas +
+                      (size_t)S * sizeof(float) + kSpareBytes;
+  int e;
+#define LO_HIST_CASE(R)                                                     \
+  case R:                                                                   \
+    e = launch_hist_kernel<CodeT, R>(smem, grid, stream, codes, code_idx,   \
+                                     stats, max_abs, rel, active, partial,  \
+                                     n, d, n_bins, S, n_live, NG, CG,       \
+                                     n_cgroups, rows_per_chunk);            \
+    break;
+  switch (replicas) {
+    LO_HIST_CASE(1)
+    LO_HIST_CASE(2)
+    LO_HIST_CASE(4)
+    LO_HIST_CASE(8)
+    LO_HIST_CASE(16)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef LO_HIST_CASE
   if (e) return e;
   const long long total = (long long)n_nodes * DC * S;
   const long long all = total * G;
-  long long blocks = (all + kThreads - 1) / kThreads;
-  if (blocks > 65535) blocks = 65535;
-  if (fixed) {
-    sum_partials_i64_kernel<<<(int)blocks, kThreads, 0, stream>>>(
-        partial, (long long*)out, all, R);
-  } else {
-    sum_partials_kernel<<<(int)blocks, kThreads, 0, stream>>>(
-        partial, max_abs, (float*)out, total, all, R, S);
-  }
+  long long sum_blocks = (all + kThreads - 1) / kThreads;
+  if (sum_blocks > 65535) sum_blocks = 65535;
+  if (sum_blocks < 1) sum_blocks = 1;
+  sum_partials_kernel<<<(int)sum_blocks, kThreads, 0, stream>>>(
+      partial, max_abs, fixed ? nullptr : (float*)out,
+      fixed ? (long long*)out : nullptr, total, (long long)n_live * DC * S,
+      G, S, B);
   return (int)cudaGetLastError();
+}
+
+// The shared-atomic probe, K1's atomics floor (not a kernel of the port's
+// paths): each thread adds to 32-bit shared words with ATOMS.ADD, 32 adds
+// a round, add u of a round into word (u << 5) + bin of a 1,024-word run
+// (32 consecutive words, one a bank). kRandom: a pseudo-random bin in
+// [0, 32) per lane and add, K1's pattern (a warp's rows land on random
+// bins); else bin = lane, one bank a lane, conflict-free. The adds take
+// the word address as a register plus a constant, so the loop is the
+// atomics and a few integer instructions a round; the value added is not
+// a constant 1, so the compiler keeps ATOMS.ADD.
+template <bool kRandom>
+__global__ void __launch_bounds__(kHistThreads) atoms_probe_kernel(
+    int rounds, uint32_t* __restrict__ sink) {
+  __shared__ uint32_t acc[32 * 32];
+  for (int i = threadIdx.x; i < 32 * 32; i += blockDim.x) acc[i] = 0;
+  __syncthreads();
+  const uint32_t lane = threadIdx.x & 31u;
+  const uint32_t v = lane | 2u;
+  uint32_t x = 2654435761u * (blockIdx.x * blockDim.x + threadIdx.x) + 1u;
+  for (int r = 0; r < rounds; ++r) {
+    uint32_t b[8];
+    if (kRandom) {
+      x ^= x << 13;
+      x ^= x >> 17;
+      x ^= x << 5;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) b[j] = (x >> (3 * j)) & 31u;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) b[j] = lane;
+    }
+#pragma unroll
+    for (int u = 0; u < 32; ++u) atomicAdd(&acc[(u << 5) + b[u & 7]], v);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 32 * 32; i += blockDim.x)
+    if (acc[i] == 0xFFFFFFFFu) sink[0] = (uint32_t)i;
 }
 
 int row_blocks(long long n, int cap) {
@@ -807,19 +1013,23 @@ extern "C" {
 
 // K1, histogram form, G slices: codes (P, n, d) uint8, code_idx (G,) int32
 // in [0, P), stats (G, S, n) f32, max_abs (G, S) f32 = max |stats[g, s]|,
-// rel (G, n) int32, active (G, n) bool -> out (G, n_nodes, d, n_bins, S)
-// f32. partial: (R, G, n_nodes*d*n_bins*S) int64 scratch; R row chunks of
-// at most 2^17 rows.
+// rel (G, n) int32 in [0, n_live) for every active row, active (G, n)
+// bool -> out (G, n_nodes, d, n_bins, S) f32. The plan (ops/tree_kernels.py
+// hist_plan and hist_grid): node groups of NG of the n_live nodes, column
+// groups of CG, row chunks of rows_per_chunk <= 2^17 rows, B persistent
+// blocks a stream, `replicas` copies of the shared slice; partial:
+// (B, G, n_live*d*n_bins*S) int64 scratch.
 int lo_tree_hist_u8(const void* codes, const void* code_idx,
                     const void* stats, const void* max_abs, const void* rel,
                     const void* active, void* out, void* partial, int n,
-                    int d, int n_bins, int S, int n_nodes, int NG, int CG,
-                    int R, int rows_per_chunk, int G, void* stream) {
+                    int d, int n_bins, int S, int n_nodes, int n_live, int NG,
+                    int CG, int rows_per_chunk, int B, int replicas, int G,
+                    void* stream) {
   return launch_hist<uint8_t>(
       (const uint8_t*)codes, (const int32_t*)code_idx, (const float*)stats,
       (const float*)max_abs, (const int32_t*)rel, (const uint8_t*)active,
-      out, false, (long long*)partial, n, d, n_bins, S, n_nodes, NG, CG, R,
-      rows_per_chunk, G, (cudaStream_t)stream);
+      out, false, (long long*)partial, n, d, n_bins, S, n_nodes, n_live, NG,
+      CG, rows_per_chunk, B, replicas, G, (cudaStream_t)stream);
 }
 
 // lo_tree_hist_u8 with out (G, n_nodes, d, n_bins, S) int64: each stat's
@@ -828,13 +1038,14 @@ int lo_tree_hist_u8_fixed(const void* codes, const void* code_idx,
                           const void* stats, const void* max_abs,
                           const void* rel, const void* active, void* out,
                           void* partial, int n, int d, int n_bins, int S,
-                          int n_nodes, int NG, int CG, int R,
-                          int rows_per_chunk, int G, void* stream) {
+                          int n_nodes, int n_live, int NG, int CG,
+                          int rows_per_chunk, int B, int replicas, int G,
+                          void* stream) {
   return launch_hist<uint8_t>(
       (const uint8_t*)codes, (const int32_t*)code_idx, (const float*)stats,
       (const float*)max_abs, (const int32_t*)rel, (const uint8_t*)active,
-      out, true, (long long*)partial, n, d, n_bins, S, n_nodes, NG, CG, R,
-      rows_per_chunk, G, (cudaStream_t)stream);
+      out, true, (long long*)partial, n, d, n_bins, S, n_nodes, n_live, NG,
+      CG, rows_per_chunk, B, replicas, G, (cudaStream_t)stream);
 }
 
 // K1, leaf form, G slices: the row's node id is its only "feature" code
@@ -843,25 +1054,26 @@ int lo_tree_hist_u8_fixed(const void* codes, const void* code_idx,
 // transposes to (G, S, M)).
 int lo_tree_leaf_i32(const void* assign, const void* stats,
                      const void* max_abs, void* out, void* partial, int n,
-                     int n_ids, int S, int CG, int R, int rows_per_chunk,
-                     int G, void* stream) {
+                     int n_ids, int S, int CG, int rows_per_chunk, int B,
+                     int replicas, int G, void* stream) {
   return launch_hist<int32_t>(
       (const int32_t*)assign, nullptr, (const float*)stats,
       (const float*)max_abs, nullptr, nullptr, out, false,
-      (long long*)partial, n, 1, n_ids, S, 1, 1, CG, R, rows_per_chunk, G,
-      (cudaStream_t)stream);
+      (long long*)partial, n, 1, n_ids, S, 1, 1, 1, CG, rows_per_chunk, B,
+      replicas, G, (cudaStream_t)stream);
 }
 
 // lo_tree_leaf_i32 with out (G, n_leaf_ids, S) int64 fixed-point totals.
 int lo_tree_leaf_i32_fixed(const void* assign, const void* stats,
                            const void* max_abs, void* out, void* partial,
-                           int n, int n_ids, int S, int CG, int R,
-                           int rows_per_chunk, int G, void* stream) {
+                           int n, int n_ids, int S, int CG,
+                           int rows_per_chunk, int B, int replicas, int G,
+                           void* stream) {
   return launch_hist<int32_t>(
       (const int32_t*)assign, nullptr, (const float*)stats,
       (const float*)max_abs, nullptr, nullptr, out, true,
-      (long long*)partial, n, 1, n_ids, S, 1, 1, CG, R, rows_per_chunk, G,
-      (cudaStream_t)stream);
+      (long long*)partial, n, 1, n_ids, S, 1, 1, 1, CG, rows_per_chunk, B,
+      replicas, G, (cudaStream_t)stream);
 }
 
 // K2, G slices: codes_T (P, d, n) uint8, code_idx (G,) int32 in [0, P),
@@ -910,22 +1122,26 @@ int lo_feature_major(const void* codes, void* out, int n, int d,
 // apart, code_idx (G,) int32 in [0, P), feat/thr (G, T, M) int32, internal
 // (G, T, M) bool -> out (G, T, n) int32 leaf ids, walking `depth` levels
 // over tables of W = 2^depth - 1 entries. The plan (ops/tree_kernels.py
-// descend_plan): the direct path (rows_per_tile 0) or the staged one with
-// tiles of rows_per_tile = 1, 2 or 4 rows a thread and buffers of
-// tile_bytes; trees a chunk (one grid.y each) and blocks a chunk and slice.
+// descend_plan): the direct path (rows_per_tile 0; grid (blocks, chunks of
+// a slice's trees, G)) or the staged one (grid (blocks, chunks of a
+// matrix's (slice, tree) pairs, P), the slices grouped by matrix: order
+// (G,) the slices sorted by matrix, first (P + 1,) where each matrix's
+// start) with tiles of rows_per_tile = 1, 2 or 4 rows a thread and
+// buffers of tile_bytes; per_chunk trees (direct) or pairs (staged) a
+// chunk, and blocks a chunk.
 int lo_tree_descend(const void* codes, const void* code_idx,
+                    const void* order, const void* first,
                     long long code_stride, const void* feat, const void* thr,
                     const void* internal, void* out, int n, int d, int M,
                     int W, int T, int depth, int rows_per_tile,
-                    int tile_bytes, int trees_per_chunk, int blocks, int G,
-                    void* stream) {
-  if (G < 1 || G > 65535) return (int)cudaErrorInvalidValue;
+                    int tile_bytes, int per_chunk, int chunks, int blocks,
+                    int G, int P, void* stream) {
+  if (G < 1 || G > 65535 || P < 1 || P > 65535 || chunks < 1 ||
+      chunks > 65535 || per_chunk < 1 || blocks < 1)
+    return (int)cudaErrorInvalidValue;
   const Trees tr{(const int32_t*)feat, (const int32_t*)thr,
                  (const uint8_t*)internal, M, W, T};
-  const int chunks =
-      T > 0 ? (T + trees_per_chunk - 1) / trees_per_chunk : 1;
-  const size_t tables = (size_t)trees_per_chunk * W * sizeof(uint32_t);
-  const dim3 grid(blocks, chunks, G);
+  const size_t tables = (size_t)per_chunk * W * sizeof(uint32_t);
   int e;
   if (rows_per_tile) {
     const int per_thread = rows_per_tile / kDescendThreads;
@@ -943,16 +1159,35 @@ int lo_tree_descend(const void* codes, const void* code_idx,
                                     : descend_staged_kernel<1>;
     e = prepare_smem(kernel, smem);
     if (e) return e;
-    kernel<<<grid, kDescendThreads, smem, (cudaStream_t)stream>>>(
-        (const uint8_t*)codes, (const int32_t*)code_idx, code_stride, tr,
-        (int32_t*)out, n, d, depth, trees_per_chunk, tile_bytes);
+    kernel<<<dim3(blocks, chunks, P), kDescendThreads, smem,
+             (cudaStream_t)stream>>>(
+        (const uint8_t*)codes, code_stride, (const int32_t*)order,
+        (const int32_t*)first, tr, (int32_t*)out, n, d, depth, per_chunk,
+        tile_bytes);
   } else {
     e = prepare_smem(descend_direct_kernel, tables);
     if (e) return e;
-    descend_direct_kernel<<<grid, kDescendThreads, tables,
-                            (cudaStream_t)stream>>>(
+    descend_direct_kernel<<<dim3(blocks, chunks, G), kDescendThreads,
+                            tables, (cudaStream_t)stream>>>(
         (const uint8_t*)codes, (const int32_t*)code_idx, code_stride, tr,
-        (int32_t*)out, n, d, depth, trees_per_chunk);
+        (int32_t*)out, n, d, depth, per_chunk);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The shared-atomic probe: `blocks` blocks of kHistThreads threads, each
+// thread 32 * rounds adds; random_bins picks K1's random-bin pattern over
+// the conflict-free one. sink: one uint32 the kernel may write.
+int lo_atoms_probe(int rounds, int random_bins, int blocks, void* sink,
+                   void* stream) {
+  if (random_bins) {
+    atoms_probe_kernel<true><<<blocks, kHistThreads, 0,
+                               (cudaStream_t)stream>>>(rounds,
+                                                       (uint32_t*)sink);
+  } else {
+    atoms_probe_kernel<false><<<blocks, kHistThreads, 0,
+                                (cudaStream_t)stream>>>(rounds,
+                                                        (uint32_t*)sink);
   }
   return (int)cudaGetLastError();
 }

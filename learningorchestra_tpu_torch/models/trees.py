@@ -168,16 +168,19 @@ def _build_trees(B, code_idx, stats_T, feat_gain_mask, *, max_depth,
         active = (rel >= 0) & (rel < offset + 1)
         rel = torch.where(active, rel, torch.zeros_like(rel))
 
+        # Only the level's offset + 1 nodes hold rows: the histogram
+        # accumulates those alone and leaves the other slots 0.
         if pod:
             totals = tree_kernels.tree_histogram_fixed(
                 B, code_idx, stats_T, rel, active, n_nodes=NL,
-                n_bins=n_bins, max_abs=max_abs)
+                n_bins=n_bins, max_abs=max_abs, n_live=offset + 1)
             all_reduce_(totals, mesh, DATA_AXIS)
             hist = tree_kernels.fixed_to_float(totals, max_abs)
         else:
             hist = tree_kernels.tree_histogram_slices(
                 B, code_idx, stats_T, rel, active, n_nodes=NL,
-                n_bins=n_bins, max_abs=max_abs)              # (G,NL,d,nb,S)
+                n_bins=n_bins, max_abs=max_abs,
+                n_live=offset + 1)                           # (G,NL,d,nb,S)
         left = torch.cumsum(hist, dim=3)                         # ≤ bin t
         total = left[:, :, :, -1:, :]                        # (G,NL,d,1,S)
         gain = gain_fn(left, total)                          # (G,NL,d,nb)

@@ -24,7 +24,11 @@ at one level, each with its own stats, node ids and tables, over one of
 P bin matrices stacked (P, n, d) and named by the slice's entry of
 ``code_idx``. Each slice's output is bit-identical to a launch of that
 slice alone, and the single-tree wrappers are the G = 1 calls of the
-same launches.
+same launches. The histogram takes ``n_live``, the nodes of a level that
+may hold rows: a population grows every level at its deepest width, and
+the kernel's accumulators cover only the live nodes. The descent groups
+its slices by bin matrix and stages each matrix's rows once for all of
+them.
 
 Beside each wrapper is its plain PyTorch version (``*_ref``), blocked
 over rows so nothing (n, d·n_bins)-shaped exists; the slice forms' plain
@@ -59,9 +63,26 @@ SMEM_BYTES = 232_448
 _SM_SMEM_BYTES = 233_472
 #: Shared memory per histogram slot: two 32-bit fixed-point words.
 SLOT_BYTES = 8
+#: A histogram block's spare words past its slice, one a lane (the adds
+#: of codes outside the slice land there).
+HIST_SPARE_BYTES = 128
+#: Shared memory a histogram block's slices may take: the spare words are
+#: left free.
+_HIST_SMEM_BUDGET = SMEM_BYTES - HIST_SPARE_BYTES
 #: Histogram row chunk floor; 1024-thread blocks fit at most 2 to an SM.
 _HIST_MIN_ROWS = 2048
 _HIST_MAX_BLOCKS_PER_SM = 2
+#: Share of its waves' blocks a histogram launch keeps busy at least, and
+#: the most waves it takes to (``_hist_blocks``).
+_HIST_BALANCE = 0.95
+_HIST_MAX_ROUNDS = 8
+#: Share of the most chunks a block of a stream walks that the mean must
+#: reach (``_hist_layout``).
+_HIST_CHUNK_BALANCE = 0.97
+#: Bank-spread copies of a histogram slice the kernel is built for, and
+#: the fewest the plan gives a slice that takes more than one.
+HIST_REPLICAS = (1, 2, 4, 8, 16)
+_HIST_MIN_COPIES = 8
 #: Row cap of one histogram block, so its 32-bit words cannot overflow
 #: (kMaxRowsPerChunk in csrc/tree_kernels.cu, which refuses more).
 HIST_MAX_ROWS = 1 << 17
@@ -70,8 +91,9 @@ HIST_MAX_ROWS = 1 << 17
 #: of HIST_LO_BITS low bits and the signed rest.
 HIST_VALUE_BITS = 27
 HIST_LO_BITS = 14
-#: Cap on the per-chunk int64 partial histograms of one launch (lifted
-#: where the row cap needs more chunks).
+#: What the int64 partial histograms of one launch stay within at the
+#: shapes the fits use (tests/test_torch_tree_kernels.py holds the plans
+#: to it).
 _PARTIAL_BYTES = 512 << 20
 #: Grid cap (in units of SMs) for the routing kernel, whose blocks stride
 #: over rows so each loads its node table once.
@@ -109,13 +131,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _LIB = CudaLibrary("tree_kernels", {
-    "lo_tree_hist_u8": [_P] * 8 + [_I] * 10 + [_P],
-    "lo_tree_hist_u8_fixed": [_P] * 8 + [_I] * 10 + [_P],
-    "lo_tree_leaf_i32": [_P] * 5 + [_I] * 7 + [_P],
-    "lo_tree_leaf_i32_fixed": [_P] * 5 + [_I] * 7 + [_P],
+    "lo_tree_hist_u8": [_P] * 8 + [_I] * 12 + [_P],
+    "lo_tree_hist_u8_fixed": [_P] * 8 + [_I] * 12 + [_P],
+    "lo_tree_leaf_i32": [_P] * 5 + [_I] * 8 + [_P],
+    "lo_tree_leaf_i32_fixed": [_P] * 5 + [_I] * 8 + [_P],
     "lo_tree_route": [_P] * 9 + [_I] * 5 + [_P],
     "lo_feature_major": [_P] * 2 + [_I] * 2 + [_P],
-    "lo_tree_descend": [_P] * 2 + [_L] + [_P] * 4 + [_I] * 11 + [_P],
+    "lo_tree_descend": [_P] * 4 + [_L] + [_P] * 4 + [_I] * 13 + [_P],
+    "lo_atoms_probe": [_I] * 3 + [_P] * 2,
 })
 SOURCE = _LIB.source
 BUILD_DIR = _LIB.build_dir
@@ -126,6 +149,17 @@ log_path = _LIB.log_path
 #: Compile the kernels if this source has no library yet.
 build = _LIB.build
 _library = _LIB.load
+
+
+def _slice_tuple(code_idx: Sequence[int], P: int) -> Tuple[int, ...]:
+    idx = tuple(int(i) for i in code_idx)
+    if not idx:
+        raise ValueError("a slice launch needs at least one slice")
+    if len(idx) > 65535:
+        raise ValueError(f"{len(idx)} slices exceed a launch's 65,535")
+    if min(idx) < 0 or max(idx) >= P:
+        raise ValueError(f"code_idx {idx} outside the {P} bin matrices")
+    return idx
 
 
 @functools.lru_cache(maxsize=256)
@@ -139,54 +173,192 @@ def slice_index(code_idx: Sequence[int], P: int,
     """The (G,) int32 device tensor a slice launch reads its matrix
     indices from, after checking each lies in [0, P). Cached by value, so
     the levels of a tree group copy it to the card once."""
-    idx = tuple(int(i) for i in code_idx)
-    if not idx:
-        raise ValueError("a slice launch needs at least one slice")
-    if len(idx) > 65535:
-        raise ValueError(f"{len(idx)} slices exceed a launch's 65,535")
-    if min(idx) < 0 or max(idx) >= P:
-        raise ValueError(f"code_idx {idx} outside the {P} bin matrices")
-    return _index_tensor(idx, device)
+    return _index_tensor(_slice_tuple(code_idx, P), device)
+
+
+class SliceGroups(NamedTuple):
+    """The slices of a launch grouped by bin matrix (``slice_groups``)."""
+    order: torch.Tensor     # (G,) int32: the slices, sorted by matrix
+    first: torch.Tensor     # (P + 1,) int32: where each matrix's start
+    counts: Tuple[int, ...]  # slices of each matrix
+
+
+@functools.lru_cache(maxsize=256)
+def _group_tensors(code_idx: Tuple[int, ...], P: int,
+                   device: torch.device) -> SliceGroups:
+    order = sorted(range(len(code_idx)), key=code_idx.__getitem__)
+    counts = [0] * P
+    for c in code_idx:
+        counts[c] += 1
+    first = np.concatenate([[0], np.cumsum(counts)])
+    return SliceGroups(
+        torch.tensor(order, dtype=torch.int32, device=device),
+        torch.tensor(first, dtype=torch.int32, device=device),
+        tuple(counts))
+
+
+def slice_groups(code_idx: Sequence[int], P: int,
+                 device: torch.device) -> SliceGroups:
+    """The slices of a launch grouped by bin matrix, as the staged descent
+    reads them: ``order`` the slices sorted by matrix (a stable sort, so
+    a matrix's slices keep their order), matrix p's being ``order[first[p]
+    : first[p + 1]]``. Device tensors, cached by value as
+    ``slice_index``."""
+    return _group_tensors(_slice_tuple(code_idx, P), P, device)
 
 
 # ---------------------------------------------------------------------------
 # K1 — histogram and leaf statistics
 # ---------------------------------------------------------------------------
 
-def hist_smem_bytes(NG: int, CG: int, S: int) -> int:
-    """Dynamic shared memory of one histogram block: the slice's slots
-    and the S fixed-point scales."""
-    return NG * CG * S * SLOT_BYTES + 4 * S
+def hist_smem_bytes(NG: int, CG: int, S: int, replicas: int = 1) -> int:
+    """Dynamic shared memory of one histogram block: ``replicas`` copies
+    of the slice's slots and the S fixed-point scales (and
+    HIST_SPARE_BYTES more, which the plan leaves free)."""
+    return NG * CG * S * SLOT_BYTES * replicas + 4 * S
+
+
+class HistPlan(NamedTuple):
+    """The histogram kernel's slice and row chunks (``hist_plan``)."""
+    NG: int     # nodes of a node group (of the level's live nodes)
+    CG: int     # columns of a column group (of the d·n_bins)
+    R: int      # row chunks of a stream (one slice, node and column group)
+    rows: int   # rows a chunk (the flush interval): at most HIST_MAX_ROWS
+                # a copy of the slice (``hist_grid``)
+
+
+class HistGrid(NamedTuple):
+    """The histogram kernel's launch (``hist_grid``)."""
+    blocks: int     # persistent blocks a stream, each its own partial slot
+    replicas: int   # bank-spread copies of the shared slice
+
+
+def hist_replicas(NG: int, CG: int, S: int) -> int:
+    """The copies of a shared slice the plan gives it: as many of
+    HIST_REPLICAS as fit a block's shared memory where that is
+    _HIST_MIN_COPIES or more — a narrow level, few live nodes and a small
+    slice — else one. The copies spread a warp's adds over the banks
+    (lane l adds to copy l % replicas), which pays where a row adds two
+    words a stat (float stats) and many copies fit; the flush of the
+    copies costs the one-word rows (integer stats) a few percent at any
+    width (chip_smoke.py times each count the shared memory fits)."""
+    r = 1
+    for cand in HIST_REPLICAS:
+        if hist_smem_bytes(NG, CG, S, cand) <= _HIST_SMEM_BUDGET:
+            r = cand
+    return r if r >= _HIST_MIN_COPIES else 1
+
+
+def _hist_wave(NG: int, CG: int, S: int, replicas: int, n_sms: int,
+               leaf: bool) -> int:
+    """Blocks the card holds at once: the histogram form's 1,024-thread
+    blocks take up to 64 registers a thread, an SM's whole register file,
+    so one an SM; the leaf form's are held to 32 registers, so two where
+    their shared memory fits."""
+    per_sm = _SM_SMEM_BYTES // (hist_smem_bytes(NG, CG, S, replicas)
+                                + HIST_SPARE_BYTES + 1024)
+    cap = _HIST_MAX_BLOCKS_PER_SM if leaf else 1
+    return max(1, min(cap, per_sm)) * n_sms
+
+
+def _hist_blocks(streams: int, wave: int) -> int:
+    """Persistent blocks a stream: over 1 to _HIST_MAX_ROUNDS waves, the
+    fewest rounds whose whole waves the streams' blocks keep at least
+    _HIST_BALANCE busy (else the best of them): one wave where the
+    streams divide it, a few where they do not (48 streams share 132
+    SMs evenly only over 3 waves of 8 blocks a stream)."""
+    best, best_eff = 1, 0.0
+    for k in range(1, _HIST_MAX_ROUNDS + 1):
+        B = k * wave // streams
+        if B < 1:
+            continue
+        eff = streams * B / (k * wave)
+        if eff > best_eff + 1e-9:
+            best, best_eff = B, eff
+        if eff >= _HIST_BALANCE:
+            break
+    return best
+
+
+class _HistLayout(NamedTuple):
+    plan: HistPlan
+    grid: HistGrid
+
+
+@functools.lru_cache(maxsize=1024)
+def _hist_layout(n: int, d: int, n_bins: int, S: int, n_live: int,
+                 n_sms: int, G: int, replicas=None,
+                 leaf: bool = False) -> _HistLayout:
+    DC = d * n_bins
+    NG, CG = max(n_live, 1), max(DC, 1)
+    while hist_smem_bytes(NG, CG, S) > _HIST_SMEM_BUDGET and NG > 1:
+        NG = -(-NG // 2)
+    while hist_smem_bytes(NG, CG, S) > _HIST_SMEM_BUDGET and CG > 1:
+        CG = -(-CG // 2)
+    if hist_smem_bytes(NG, CG, S) > _HIST_SMEM_BUDGET:
+        raise ValueError(f"{S} stats per row do not fit a histogram slice")
+    if replicas is None:
+        # The leaf form's kernel is held to 32 registers, where copies
+        # spill (chip_smoke.py times its copies against one): one copy.
+        replicas = 1 if leaf else hist_replicas(NG, CG, S)
+    if (replicas not in HIST_REPLICAS
+            or hist_smem_bytes(NG, CG, S, replicas) > _HIST_SMEM_BUDGET):
+        raise ValueError(f"{replicas} copies of a histogram slice do not "
+                         f"fit shared memory")
+    streams = G * -(-n_live // NG) * -(-DC // CG)
+    B = _hist_blocks(streams, _hist_wave(NG, CG, S, replicas, n_sms, leaf))
+    # Chunks of at least _HIST_MIN_ROWS rows, and partials within
+    # _PARTIAL_BYTES where one slot a slice allows it.
+    B = max(1, min(B, -(-n // _HIST_MIN_ROWS),
+                   _PARTIAL_BYTES // (8 * G * n_live * DC * S)))
+    # Chunks within the cap: a copy takes one row in `replicas` of a chunk
+    # (lane l adds to copy l % replicas), so the cap on the rows a copy
+    # sums between flushes allows chunks `replicas` times as long. A
+    # stream's blocks walk ceil(C / B) chunks at most; where that is more
+    # than _HIST_CHUNK_BALANCE of the mean, C rounds up to a multiple of B.
+    C = max(1, -(-n // (HIST_MAX_ROWS * replicas)))
+    if C < _HIST_CHUNK_BALANCE * B * -(-C // B):
+        C = B * -(-C // B)
+    rows = max(1, -(-n // C))
+    return _HistLayout(HistPlan(NG, CG, max(1, -(-n // rows)), rows),
+                       HistGrid(B, replicas))
+
+
+def _live_arg(n_live, n_nodes: int) -> int:
+    n_live = n_nodes if n_live is None else int(n_live)
+    if not 1 <= n_live <= max(n_nodes, 1):
+        raise ValueError(f"n_live {n_live} outside [1, {n_nodes}]")
+    return n_live
 
 
 def hist_plan(n: int, d: int, n_bins: int, S: int, n_nodes: int,
-              n_sms: int, G: int = 1) -> Tuple[int, int, int, int]:
-    """Launch shape of the histogram kernel over G slices: (NG nodes and
-    CG of the d·n_bins columns per shared-memory slice, R row chunks,
-    rows per chunk). The slice is the whole accumulator when it fits the
-    block's shared memory; past that, node groups halve first, then
-    columns. Row chunks of all G slices together fill one wave of
-    resident blocks, with at most HIST_MAX_ROWS rows each; the int64
-    partials of all slices (R · G histograms) stay within
-    ``_PARTIAL_BYTES`` unless the row cap needs more chunks."""
-    DC = d * n_bins
-    NG, CG = max(n_nodes, 1), max(DC, 1)
-    while hist_smem_bytes(NG, CG, S) > SMEM_BYTES and NG > 1:
-        NG = -(-NG // 2)
-    while hist_smem_bytes(NG, CG, S) > SMEM_BYTES and CG > 1:
-        CG = -(-CG // 2)
-    if hist_smem_bytes(NG, CG, S) > SMEM_BYTES:
-        raise ValueError(f"{S} stats per row do not fit a histogram slice")
-    groups = -(-n_nodes // NG) * -(-DC // CG)
-    # One wave: as many row chunks as the SMs hold blocks at once.
-    per_sm = max(1, min(_HIST_MAX_BLOCKS_PER_SM, _SM_SMEM_BYTES
-                        // (hist_smem_bytes(NG, CG, S) + 1024)))
-    R = max(1, min(-(-n // _HIST_MIN_ROWS),
-                   -(-per_sm * n_sms // (groups * G))))
-    R = min(R, max(1, _PARTIAL_BYTES // max(G * n_nodes * DC * S * 8, 1)))
-    R = max(R, -(-n // HIST_MAX_ROWS))
-    rows = max(1, -(-n // R))
-    return NG, CG, max(1, -(-n // rows)), rows
+              n_sms: int, G: int = 1, n_live=None) -> HistPlan:
+    """Slice and row chunks of the histogram kernel over G slices: (NG
+    nodes and CG of the d·n_bins columns per shared-memory slice, R row
+    chunks, rows per chunk). The slice covers the level's ``n_live`` live
+    nodes (default n_nodes), whole when it fits the block's shared
+    memory; past that, node groups halve first, then columns. A stream —
+    one slice's node and column group — walks its rows in R chunks, the
+    interval at which a block flushes its 32-bit words into its int64
+    partial, each of at most HIST_MAX_ROWS rows a copy of the slice; R
+    is the least that the row cap allows, raised to a multiple of the
+    stream's blocks (``hist_grid``) where the blocks' shares of it would
+    differ by more than 3%."""
+    return _hist_layout(n, d, n_bins, S, _live_arg(n_live, n_nodes),
+                        n_sms, G).plan
+
+
+def hist_grid(n: int, d: int, n_bins: int, S: int, n_nodes: int,
+              n_sms: int, G: int = 1, n_live=None) -> HistGrid:
+    """Launch of the histogram kernel for ``hist_plan``'s slice and
+    chunks: persistent blocks a stream, filling whole waves of the card
+    evenly, each walking every blocks-th chunk of its stream and adding
+    into its own int64 partial slot; and the copies of the slice
+    (``hist_replicas``). The partials then scale with the blocks, not
+    with n / HIST_MAX_ROWS: blocks · G · n_live · d · n_bins · S · 8
+    bytes."""
+    return _hist_layout(n, d, n_bins, S, _live_arg(n_live, n_nodes),
+                        n_sms, G).grid
 
 
 def stat_max_abs(stats_T: torch.Tensor) -> torch.Tensor:
@@ -246,13 +418,21 @@ def _max_abs_arg(stats_T, max_abs):
     return max_abs
 
 
+def _check_live(rel, active, n_live: int) -> None:
+    """The plain versions' check of the live-node precondition."""
+    if bool((rel[active] >= n_live).any()):
+        raise ValueError(f"an active row's node id is past the {n_live} "
+                         f"live nodes")
+
+
 def tree_histogram_ref(codes, stats_T, rel, active, *, n_nodes: int,
-                       n_bins: int) -> torch.Tensor:
+                       n_bins: int, n_live=None) -> torch.Tensor:
     """Plain version of ``tree_histogram``: an ``index_add_`` of each
     active row's stats into its (node, feature, bin) slots, one row block
-    at a time."""
+    at a time. Raises if an active row's ``rel`` is past ``n_live``."""
     n, d = codes.shape
     S = stats_T.shape[0]
+    _check_live(rel, active, _live_arg(n_live, n_nodes))
     out = torch.zeros((n_nodes * d * n_bins, S), dtype=torch.float32,
                       device=codes.device)
     fcol = torch.arange(d, device=codes.device) * n_bins
@@ -268,67 +448,76 @@ def tree_histogram_ref(codes, stats_T, rel, active, *, n_nodes: int,
 
 
 def tree_histogram(codes, stats_T, rel, active, *, n_nodes: int,
-                   n_bins: int, max_abs=None) -> torch.Tensor:
+                   n_bins: int, max_abs=None, n_live=None) -> torch.Tensor:
     """Per-level (node, feature, bin, stat) sums of ``stats_T`` over the
     active rows, grouped by ``rel``.
 
     codes: (n, d) uint8 bin codes; stats_T: (S, n) float32; rel: (n,)
     int32 node id relative to the level (0 for inactive rows); active:
     (n,) bool; max_abs: ``stat_max_abs(stats_T)`` if the caller has it
-    (computed here otherwise; unused on the CPU). Returns (n_nodes, d,
-    n_bins, S) float32. On the card the sums are exact integer sums of
-    the stats in fixed point (csrc/tree_kernels.cu): integer-valued stats
-    give the plain version's float sums exactly, float stats agree within
-    max|v|·2^-27 a row, and every run gives the same bits. The one-slice
-    launch of ``tree_histogram_slices``."""
+    (computed here otherwise; unused on the CPU); n_live: the nodes [0,
+    n_live) that may hold active rows at this level (default n_nodes) —
+    the kernel's accumulators cover only those, and nodes past them come
+    out 0. Every active row's ``rel`` must be below n_live: the plain
+    version raises otherwise, and the kernel takes it as given. Returns
+    (n_nodes, d, n_bins, S) float32. On the card the sums are exact
+    integer sums of the stats in fixed point (csrc/tree_kernels.cu):
+    integer-valued stats give the plain version's float sums exactly,
+    float stats agree within max|v|·2^-27 a row, and every run gives the
+    same bits. The one-slice launch of ``tree_histogram_slices``."""
     if not _on_cuda(codes, stats_T, rel, active):
         return tree_histogram_ref(codes, stats_T, rel, active,
-                                  n_nodes=n_nodes, n_bins=n_bins)
+                                  n_nodes=n_nodes, n_bins=n_bins,
+                                  n_live=n_live)
     return tree_histogram_slices(
         codes[None], (0,), stats_T[None], rel[None], active[None],
         n_nodes=n_nodes, n_bins=n_bins,
-        max_abs=None if max_abs is None else max_abs[None])[0]
+        max_abs=None if max_abs is None else max_abs[None], n_live=n_live)[0]
 
 
 def tree_histogram_slices_ref(codes, code_idx, stats_T, rel, active, *,
-                              n_nodes: int, n_bins: int) -> torch.Tensor:
+                              n_nodes: int, n_bins: int,
+                              n_live=None) -> torch.Tensor:
     """Plain version of ``tree_histogram_slices``: the plain histogram of
     each slice."""
     return torch.stack([
         tree_histogram_ref(codes[int(c)], stats_T[g], rel[g], active[g],
-                           n_nodes=n_nodes, n_bins=n_bins)
+                           n_nodes=n_nodes, n_bins=n_bins, n_live=n_live)
         for g, c in enumerate(code_idx)])
 
 
 def tree_histogram_slices(codes, code_idx, stats_T, rel, active, *,
-                          n_nodes: int, n_bins: int,
-                          max_abs=None) -> torch.Tensor:
+                          n_nodes: int, n_bins: int, max_abs=None,
+                          n_live=None) -> torch.Tensor:
     """``tree_histogram`` for G slices in one launch: codes (P, n, d)
     uint8, a stack of bin matrices; code_idx: G ints, slice g's matrix;
     stats_T (G, S, n) float32; rel (G, n) int32; active (G, n) bool;
-    max_abs (G, S) or None. Returns (G, n_nodes, d, n_bins, S), each
-    slice bit-identical to its own one-slice launch."""
+    max_abs (G, S) or None; n_live as for ``tree_histogram``, shared by
+    the slices. Returns (G, n_nodes, d, n_bins, S), each slice
+    bit-identical to its own one-slice launch."""
     if not _on_cuda(codes, stats_T, rel, active):
         return tree_histogram_slices_ref(codes, code_idx, stats_T, rel,
                                          active, n_nodes=n_nodes,
-                                         n_bins=n_bins)
+                                         n_bins=n_bins, n_live=n_live)
     return _hist_launch(codes, code_idx, stats_T, rel, active, n_nodes,
-                        n_bins, max_abs, fixed=False)
+                        n_bins, max_abs, fixed=False, n_live=n_live)
 
 
 def tree_histogram_fixed_ref(codes, code_idx, stats_T, rel, active, *,
-                             n_nodes: int, n_bins: int,
-                             max_abs) -> torch.Tensor:
+                             n_nodes: int, n_bins: int, max_abs,
+                             n_live=None) -> torch.Tensor:
     """Plain version of ``tree_histogram_fixed``: each active row's
     fixed-point stats ``index_add_``-ed as int64 into its (node, feature,
     bin) slots — the same integers the kernel sums."""
     G = len(code_idx)
     _, n, d = codes.shape
     S = stats_T.shape[1]
+    n_live = _live_arg(n_live, n_nodes)
     out = torch.zeros((G, n_nodes * d * n_bins, S), dtype=torch.int64,
                       device=codes.device)
     fcol = torch.arange(d, device=codes.device) * n_bins
     for g, c in enumerate(code_idx):
+        _check_live(rel[g], active[g], n_live)
         x = _fixed_rows(stats_T[g], max_abs[g])
         for i in range(0, n, _REF_BLOCK):
             a = active[g, i:i + _REF_BLOCK]
@@ -342,31 +531,36 @@ def tree_histogram_fixed_ref(codes, code_idx, stats_T, rel, active, *,
 
 
 def tree_histogram_fixed(codes, code_idx, stats_T, rel, active, *,
-                         n_nodes: int, n_bins: int,
-                         max_abs) -> torch.Tensor:
+                         n_nodes: int, n_bins: int, max_abs,
+                         n_live=None) -> torch.Tensor:
     """``tree_histogram_slices`` stopped before its conversion: the
     (G, n_nodes, d, n_bins, S) int64 fixed-point totals at the scale of
     ``max_abs`` (G, S), which the caller gives. Totals of the same scale
     add exactly across row shards, and ``fixed_to_float`` of their sum
     is the float launch over all the rows, bit for bit. The plain
-    version (CPU tensors) gives the same integers."""
+    version (CPU tensors) gives the same integers. n_live as for
+    ``tree_histogram``."""
     _need(max_abs, "max_abs", torch.float32, (len(code_idx),
                                               stats_T.shape[1]))
     if not _on_cuda(codes, stats_T, rel, active, max_abs):
         return tree_histogram_fixed_ref(codes, code_idx, stats_T, rel,
                                         active, n_nodes=n_nodes,
-                                        n_bins=n_bins, max_abs=max_abs)
+                                        n_bins=n_bins, max_abs=max_abs,
+                                        n_live=n_live)
     return _hist_launch(codes, code_idx, stats_T, rel, active, n_nodes,
-                        n_bins, max_abs, fixed=True)
+                        n_bins, max_abs, fixed=True, n_live=n_live)
 
 
 def _hist_launch(codes, code_idx, stats_T, rel, active, n_nodes, n_bins,
-                 max_abs, *, fixed: bool) -> torch.Tensor:
+                 max_abs, *, fixed: bool, n_live=None,
+                 replicas=None) -> torch.Tensor:
     """One launch of the histogram kernel: float sums, or with ``fixed``
-    the int64 totals."""
+    the int64 totals. ``replicas`` replaces ``hist_replicas``'s choice
+    of copies (chip_smoke.py times the choices against each other)."""
     G = len(code_idx)
     P, n, d = codes.shape
     S = stats_T.shape[1]
+    n_live = _live_arg(n_live, n_nodes)
     _need(codes, "codes", torch.uint8, (P, n, d))
     _need(stats_T, "stats_T", torch.float32, (G, S, n))
     _need(rel, "rel", torch.int32, (G, n))
@@ -374,18 +568,21 @@ def _hist_launch(codes, code_idx, stats_T, rel, active, n_nodes, n_bins,
     max_abs = _max_abs_arg(stats_T, max_abs)
     dev = codes.device
     idx = slice_index(code_idx, P, dev)
-    NG, CG, R, rows = hist_plan(n, d, n_bins, S, n_nodes, _num_sms(dev), G)
+    plan, grid = _hist_layout(n, d, n_bins, S, n_live, _num_sms(dev), G,
+                              replicas)
     out = torch.empty((G, n_nodes, d, n_bins, S),
                       dtype=torch.int64 if fixed else torch.float32,
                       device=dev)
-    partial = torch.empty((R, out.numel()), dtype=torch.int64, device=dev)
+    partial = torch.empty((grid.blocks, G, n_live * d * n_bins * S),
+                          dtype=torch.int64, device=dev)
     entry = (_library().lo_tree_hist_u8_fixed if fixed
              else _library().lo_tree_hist_u8)
     _check(entry(
         codes.data_ptr(), idx.data_ptr(), stats_T.data_ptr(),
         max_abs.data_ptr(), rel.data_ptr(), active.data_ptr(),
-        out.data_ptr(), partial.data_ptr(), n, d, n_bins, S, n_nodes, NG, CG,
-        R, rows, G, _stream(dev)), "tree_histogram")
+        out.data_ptr(), partial.data_ptr(), n, d, n_bins, S, n_nodes, n_live,
+        plan.NG, plan.CG, plan.rows, grid.blocks, grid.replicas, G,
+        _stream(dev)), "tree_histogram")
     _count("tree_histogram", G)
     return out
 
@@ -460,10 +657,10 @@ def tree_leaf_stats_fixed(assign, stats_T, *, n_nodes: int,
     return _leaf_launch(assign, stats_T, n_nodes, max_abs, fixed=True)
 
 
-def _leaf_launch(assign, stats_T, n_nodes, max_abs, *,
-                 fixed: bool) -> torch.Tensor:
+def _leaf_launch(assign, stats_T, n_nodes, max_abs, *, fixed: bool,
+                 replicas=None) -> torch.Tensor:
     """One launch of the leaf form: (G, n_nodes, S) float sums, or with
-    ``fixed`` int64 totals."""
+    ``fixed`` int64 totals; ``replicas`` as for ``_hist_launch``."""
     G, n = assign.shape
     S = stats_T.shape[1]
     if G > 65535:
@@ -472,19 +669,46 @@ def _leaf_launch(assign, stats_T, n_nodes, max_abs, *,
     _need(stats_T, "stats_T", torch.float32, (G, S, n))
     max_abs = _max_abs_arg(stats_T, max_abs)
     dev = assign.device
-    _, CG, R, rows = hist_plan(n, 1, n_nodes, S, 1, _num_sms(dev), G)
+    plan, grid = _hist_layout(n, 1, n_nodes, S, 1, _num_sms(dev), G,
+                              replicas, leaf=True)
     out = torch.empty((G, n_nodes, S),
                       dtype=torch.int64 if fixed else torch.float32,
                       device=dev)
-    partial = torch.empty((R, out.numel()), dtype=torch.int64, device=dev)
+    partial = torch.empty((grid.blocks, G, n_nodes * S), dtype=torch.int64,
+                          device=dev)
     entry = (_library().lo_tree_leaf_i32_fixed if fixed
              else _library().lo_tree_leaf_i32)
     _check(entry(
         assign.data_ptr(), stats_T.data_ptr(), max_abs.data_ptr(),
-        out.data_ptr(), partial.data_ptr(), n, n_nodes, S, CG, R, rows, G,
-        _stream(dev)), "tree_leaf_stats")
+        out.data_ptr(), partial.data_ptr(), n, n_nodes, S, plan.CG,
+        plan.rows, grid.blocks, grid.replicas, G, _stream(dev)),
+        "tree_leaf_stats")
     _count("tree_leaf_stats", G)
     return out
+
+
+@functools.lru_cache(maxsize=8)
+def _probe_sink(device: torch.device) -> torch.Tensor:
+    return torch.zeros((1,), dtype=torch.int32, device=device)
+
+
+def shared_atomics_probe(device: torch.device, rounds: int,
+                         random_bins: bool) -> int:
+    """Launch the shared-atomic probe (``atoms_probe_kernel`` in
+    csrc/tree_kernels.cu) on a CUDA device: one block of 1,024 threads an
+    SM, each thread 32 · ``rounds`` 32-bit shared ``ATOMS.ADD``s, into
+    random bins of 32 words (K1's pattern) or conflict-free. Returns the
+    adds it makes; timed, it gives the card's shared-atomic rate, K1's
+    atomics floor. A probe, not a kernel of the port's paths: it counts
+    no launch."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"the probe runs on a CUDA device, not {device}")
+    blocks = _num_sms(device)
+    _check(_library().lo_atoms_probe(rounds, int(random_bins), blocks,
+                                     _probe_sink(device).data_ptr(),
+                                     _stream(device)), "atoms_probe")
+    return blocks * 1024 * 32 * rounds
 
 
 # ---------------------------------------------------------------------------
@@ -654,7 +878,8 @@ class DescendPlan(NamedTuple):
     staged: bool
     rows_per_tile: int      # staged path: rows of one tile
     tile_bytes: int         # staged path: bytes of one of its two buffers
-    trees_per_chunk: int    # trees whose tables share a block
+    trees_per_chunk: int    # tables that share a block: a matrix's (slice,
+                            # tree) pairs (staged), a slice's trees (direct)
     chunks: int             # grid.y: each chunk reads the codes once
     blocks: int             # grid.x
     smem_bytes: int         # dynamic shared memory of a block
@@ -672,14 +897,17 @@ def descend_tile_bytes(rows: int, d: int) -> int:
     return (rows * d + 30) // 16 * 16
 
 
-def descend_plan(n: int, d: int, depth: int, T: int,
-                 n_sms: int, G: int = 1) -> DescendPlan:
-    """Path and launch shape of ``tree_descend`` over G slices. Staged
-    where a row is at most SECTOR_BYTES × depth wide and two tiles of
-    DESCEND_THREADS rows fit beside one table, with as many rows a thread
-    (4, 2 or 1) as fit; direct otherwise. Trees go in chunks as large as
-    the shared memory left beside the tiles holds; the blocks of all
-    chunks and slices fill one wave. Raises ``ValueError`` past
+def descend_plan(n: int, d: int, depth: int, T: int, n_sms: int,
+                 groups: Sequence[int] = (1,)) -> DescendPlan:
+    """Path and launch shape of ``tree_descend`` over slices of T trees
+    each, ``groups[p]`` of them over bin matrix p. Staged where a row is
+    at most SECTOR_BYTES × depth wide and two tiles of DESCEND_THREADS
+    rows fit beside one table, with as many rows a thread (4, 2 or 1) as
+    fit; direct otherwise. Staged, a matrix's (slice, tree) pairs go in
+    chunks as large as the shared memory left beside the tiles holds, so
+    a block stages each tile of the matrix once for all the pairs of its
+    chunk; direct, each slice's trees go in chunks of their own. The
+    blocks of all chunks fill one wave. Raises ``ValueError`` past
     MAX_DESCEND_DEPTH."""
     if depth > MAX_DESCEND_DEPTH:
         raise ValueError(f"a depth-{depth} walk exceeds the "
@@ -695,18 +923,22 @@ def descend_plan(n: int, d: int, depth: int, T: int,
                 break
     staged = rows > 0
     if staged:
-        per_chunk = min(T, (SMEM_BYTES - 2 * tile) // tb)
+        pairs = max(max(groups), 1) * T
+        per_chunk = min(pairs, (SMEM_BYTES - 2 * tile) // tb)
         smem = 2 * tile + per_chunk * tb
         units = -(-n // rows)
+        chunks = -(-pairs // per_chunk)
+        launched = sum(-(-g * T // per_chunk) for g in groups if g) or 1
     else:
         tile = 0
         per_chunk = min(T, SMEM_BYTES // tb)
         smem = per_chunk * tb
         units = -(-n // DESCEND_THREADS)
-    chunks = -(-T // per_chunk)
+        chunks = -(-T // per_chunk)
+        launched = chunks * max(sum(groups), 1)
     resident = max(1, min(_DESCEND_BLOCKS_PER_SM,
                           _SM_SMEM_BYTES // (smem + 1024)))
-    blocks = max(1, min(units, -(-resident * n_sms // (chunks * G))))
+    blocks = max(1, min(units, -(-resident * n_sms // launched)))
     # As few blocks as keep the rounds over the units the same, so that
     # no last round runs a few blocks alone.
     blocks = -(-units // -(-units // blocks)) if units else 1
@@ -774,7 +1006,10 @@ def tree_descend_slices(codes, code_idx, feat, thr, internal, *,
     T trees: codes (P, n, d) uint8, a stack of bin matrices whose rows
     are contiguous (a row range of a stack is fine); code_idx: G ints,
     slice g's matrix; feat, thr, internal (G, T, M). Returns (G, T, n)
-    int32, each slice bit-identical to its own one-slice launch."""
+    int32, each slice bit-identical to its own one-slice launch. On the
+    staged path the slices are grouped by matrix (``slice_groups``), and
+    each tile of a matrix's rows is staged once for all its slices'
+    trees."""
     G = len(code_idx)
     if not _on_cuda(codes, feat, thr, internal):
         return tree_descend_slices_ref(codes, code_idx, feat, thr, internal,
@@ -797,13 +1032,15 @@ def tree_descend_slices(codes, code_idx, feat, thr, internal, *,
     depth = descend_depth(M, max_depth)
     dev = codes.device
     idx = slice_index(code_idx, P, dev)
-    plan = descend_plan(n, d, depth, T, _num_sms(dev), G)
+    grouped = slice_groups(code_idx, P, dev)
+    plan = descend_plan(n, d, depth, T, _num_sms(dev), grouped.counts)
     out = torch.empty((G, T, n), dtype=torch.int32, device=dev)
     _check(_library().lo_tree_descend(
-        codes.data_ptr(), idx.data_ptr(), codes.stride(0), feat.data_ptr(),
+        codes.data_ptr(), idx.data_ptr(), grouped.order.data_ptr(),
+        grouped.first.data_ptr(), codes.stride(0), feat.data_ptr(),
         thr.data_ptr(), internal.data_ptr(), out.data_ptr(), n, d, M,
         table_words(depth), T, depth, plan.rows_per_tile, plan.tile_bytes,
-        plan.trees_per_chunk, plan.blocks, G, _stream(dev)),
+        plan.trees_per_chunk, plan.chunks, plan.blocks, G, P, _stream(dev)),
         "tree_descend")
     _count("tree_descend", G)
     return out

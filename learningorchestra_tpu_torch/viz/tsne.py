@@ -12,8 +12,8 @@ row to one Spark node, and runs single-core sklearn ``TSNE().fit_transform``
 - **Symmetrized sparse attraction**: the directed kNN edge set is flipped
   once on the host into a padded incoming-edge table (``_edge_table``),
   so each step's attraction is one gather and a dense reduction; edges of
-  hubs past the table's cap are summed per destination row in a fixed
-  order (a float64 running sum), so two embeds give the same bits.
+  hubs past the table's cap are summed per destination row exactly (an
+  int64 fixed-point running sum), so two embeds give the same bits.
 - **Exact repulsion**: the full n² q-sum through the hand-written CUDA
   kernel ``ops.tsne_kernels.tsne_repulsion`` (its plain version for CPU
   tensors). On a pod whose data axis has D > 1 ranks, and when each
@@ -202,12 +202,14 @@ def _step(Y, vel, gains, sym_idx, sym_w, ov_src, ov_dst, ov_w,
 
     ``ov_seg`` (``_overflow_segments(ov_dst)``, which the descent makes
     once; required when there are overflow edges) sums the overflow
-    edges deterministically: each destination's edges in order, through
-    a float64 running sum, then one add a row, each row once. Atomic adds
-    of the edges would round differently from run to run, so two embeds
-    of one dataset and seed would differ (the descent amplifies any
-    difference), and a pod's ranks, each stepping its own copy of the
-    embedding, would drift apart."""
+    edges deterministically: each edge's force as an int64 fixed-point
+    number, a running sum of those (exact, so the same bits in any order
+    of adds), then one add a row, each row once. Atomic adds of the
+    edges, or a float running sum (the card's scan groups its adds
+    differently from run to run), would round differently from run to
+    run, so two embeds of one dataset and seed would differ (the descent
+    amplifies any difference), and a pod's ranks, each stepping its own
+    copy of the embedding, would drift apart."""
     n = Y.shape[0]
     valid = (torch.arange(n, device=Y.device) < n_valid).float()
 
@@ -229,13 +231,20 @@ def _step(Y, vel, gains, sym_idx, sym_w, ov_src, ov_dst, ov_w,
         qov = 1.0 / (1.0 + (dov * dov).sum(dim=-1))
         fov = (ov_w * exaggeration * qov)[:, None] * dov
         rows, starts, ends = ov_seg
+        # Fixed point at 2^k, the largest scale at which m edges of the
+        # largest magnitude sum below 2^62 (frexp: bound < 2^e).
+        f64 = fov.double()
+        bound = f64.abs().max() * f64.shape[0]
+        scale = torch.ldexp(torch.ones_like(bound),
+                            62 - torch.frexp(bound).exponent)
         # One 1-D scan a coordinate: a scan down the rows of an (m, 2)
         # tensor runs a thread a column on the card.
         seg = []
         for c in range(2):
-            run = torch.cumsum(fov[:, c].double(), dim=0)
+            run = torch.cumsum(torch.round(f64[:, c] * scale).long(), dim=0)
             run = torch.cat([run.new_zeros(1), run])
-            seg.append((run[ends] - run[starts]).to(fov.dtype))
+            seg.append(((run[ends] - run[starts]).double() / scale)
+                       .to(fov.dtype))
         Fattr = Fattr.index_add(0, rows, torch.stack(seg, dim=1))
 
     grad = 4.0 * (Fattr - Frep / Z)

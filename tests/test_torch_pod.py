@@ -481,13 +481,13 @@ def _numpy_step(Y, vel, gains, table, n_valid, exaggeration, eta,
 
 
 def test_overflow_segment_sums_match_the_atomic_adds():
-    """The deterministic sum of the hub-overflow edges (one float64
-    running sum a destination, then one add a row), which every descent
-    takes on one card and on a pod, gives the step of a float64 numpy
-    evaluation that adds each edge on its own (``np.add.at``) within
-    rtol 1e-5, atol 1e-7. The step runs in float64 here, as the
-    reference does, so what differs is the order of the sums, not float32
-    rounding."""
+    """The deterministic sum of the hub-overflow edges (one int64
+    fixed-point running sum a destination, then one add a row), which
+    every descent takes on one card and on a pod, gives the step of a
+    float64 numpy evaluation that adds each edge on its own
+    (``np.add.at``) within rtol 1e-5, atol 1e-7. The step runs in
+    float64 here, as the reference does, so what differs is the order of
+    the sums, not float32 rounding."""
     rng = np.random.default_rng(7)
     n, k = 300, 4
     idx = rng.integers(0, n, (n, k))

@@ -565,3 +565,189 @@ def test_descend_tile_holds_its_chunks_at_any_alignment(rows, d):
         g1 = -(-(start + rows * d) // 16) * 16
         assert g1 - g0 <= tk.descend_tile_bytes(rows, d)
     assert tk.descend_tile_bytes(rows, d) % 16 == 0
+
+
+# ---------------------------------------------------------------------------
+# K1's live nodes and persistent blocks, K3's grouping by bin matrix
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("integer", [True, False], ids=["int", "float"])
+@pytest.mark.parametrize("n_live", [1, 2, 16, 32])
+def test_histogram_live_nodes_match_pallas(n_live, integer):
+    """A depth-6 level (NL = 32 node slots) whose rows lie in the first
+    n_live nodes: the histogram over the live nodes alone is the Pallas
+    kernel's over all 32, the other nodes 0; the slice and fixed forms
+    agree."""
+    NL, n, d, nb, S = 32, 2000, 6, 16, 2
+    codes, stats, _, active = _hist_inputs(n, d, nb, NL, S, integer,
+                                           seed=11)
+    rng = np.random.default_rng(12)
+    rel = np.where(active, rng.integers(0, n_live, n), 0).astype(np.int32)
+    ref = np.asarray(pk.tree_histogram(
+        jnp.asarray(codes), jnp.asarray(stats), jnp.asarray(rel),
+        jnp.asarray(active), n_nodes=NL, n_bins=nb,
+        tile=pk.tree_tile(d, nb)))
+    args = [torch.from_numpy(a) for a in (codes, stats, rel, active)]
+    out = tk.tree_histogram(*args, n_nodes=NL, n_bins=nb,
+                            n_live=n_live).numpy()
+    assert out.shape == (NL, d, nb, S)
+    assert not out[n_live:].any()
+    if integer:
+        np.testing.assert_array_equal(out, ref)
+    else:
+        np.testing.assert_allclose(out, ref, rtol=1e-5,
+                                   atol=1e-6 * np.abs(stats).sum())
+    stack = [a[None] for a in args]
+    sl = tk.tree_histogram_slices(stack[0], (0,), *stack[1:], n_nodes=NL,
+                                  n_bins=nb, n_live=n_live)
+    assert torch.equal(sl[0], torch.from_numpy(out))
+    max_abs = tk.stat_max_abs(stack[1])
+    fixed = tk.tree_histogram_fixed(stack[0], (0,), *stack[1:], n_nodes=NL,
+                                    n_bins=nb, max_abs=max_abs,
+                                    n_live=n_live)
+    assert torch.equal(fixed, tk.tree_histogram_fixed(
+        stack[0], (0,), *stack[1:], n_nodes=NL, n_bins=nb, max_abs=max_abs))
+    if integer:
+        assert torch.equal(tk.fixed_to_float(fixed, max_abs)[0],
+                           torch.from_numpy(out))
+
+
+def test_plain_versions_refuse_rows_past_the_live_nodes():
+    """The live-node precondition, checked where the plain versions run:
+    an active row at node n_live is refused by every histogram form; an
+    inactive one there is not."""
+    codes, stats, _, active = _hist_inputs(300, 4, 8, 8, 2, True, seed=13)
+    rel = np.zeros(300, np.int32)
+    i = int(np.flatnonzero(active)[0])
+    rel[i] = 4
+    args = [torch.from_numpy(a) for a in (codes, stats, rel, active)]
+    kw = dict(n_nodes=8, n_bins=8, n_live=4)
+    with pytest.raises(ValueError, match="live nodes"):
+        tk.tree_histogram(*args, **kw)
+    stack = [a[None] for a in args]
+    with pytest.raises(ValueError, match="live nodes"):
+        tk.tree_histogram_slices(stack[0], (0,), *stack[1:], **kw)
+    with pytest.raises(ValueError, match="live nodes"):
+        tk.tree_histogram_fixed(stack[0], (0,), *stack[1:],
+                                max_abs=tk.stat_max_abs(stack[1]), **kw)
+    tk.tree_histogram(*args, **dict(kw, n_live=5))
+    args[3][i] = False
+    tk.tree_histogram(*args, **kw)
+    with pytest.raises(ValueError, match="n_live"):
+        tk.tree_histogram(*args, **dict(kw, n_live=9))
+
+
+@pytest.mark.parametrize("G", [1, 18, 24])
+@pytest.mark.parametrize("depth", range(1, 9))
+def test_hist_plan_at_every_level(depth, G):
+    """Every level of a population at the tune's shape (11M rows, d=28, 32
+    bins, 2 stats, NL = 2^(depth-1) slots, 2^level live): the copies of
+    the slice fit a block's shared memory; the blocks fill whole waves of
+    the card (an SM holds one 1,024-thread block of up to 64 registers),
+    at most _HIST_MAX_ROUNDS of them and at least 95% busy; every block
+    walks a chunk at least; no copy of the slice sums more rows than the
+    row cap between flushes; the chunks cover the rows; and the int64
+    partials stay within _PARTIAL_BYTES."""
+    n, d, nb, S, sms = 11_000_000, 28, 32, 2, 132
+    NL = 2 ** (depth - 1)
+    for level in range(depth):
+        live = 2 ** level
+        plan = tk.hist_plan(n, d, nb, S, NL, sms, G, live)
+        grid = tk.hist_grid(n, d, nb, S, NL, sms, G, live)
+        smem = tk.hist_smem_bytes(plan.NG, plan.CG, S, grid.replicas)
+        assert smem <= tk.SMEM_BYTES
+        assert grid.replicas in tk.HIST_REPLICAS
+        assert grid.replicas == tk.hist_replicas(plan.NG, plan.CG, S)
+        assert plan.NG <= live
+        groups = -(-live // plan.NG) * -(-(d * nb) // plan.CG)
+        launched = grid.blocks * G * groups
+        rounds = -(-launched // sms)
+        assert rounds <= tk._HIST_MAX_ROUNDS
+        assert launched / (rounds * sms) >= 0.95
+        assert plan.R >= grid.blocks
+        # The rows a copy sums between flushes (one row in `replicas` of
+        # a chunk): within the row cap.
+        assert -(-plan.rows // grid.replicas) <= tk.HIST_MAX_ROWS
+        assert plan.R * plan.rows >= n and (plan.R - 1) * plan.rows < n
+        assert 8 * grid.blocks * G * live * d * nb * S <= tk._PARTIAL_BYTES
+
+
+@pytest.mark.parametrize("n,rows,blocks", [
+    (11_000_000, 125_000, 11), (11_000_000, 83_334, 132), (1000, 1000, 1),
+    (5, 2, 3), (0, 1, 1), (7000, 2048, 2)])
+def test_hist_blocks_walk_every_chunk_once(n, rows, blocks):
+    """hist_slice_kernel's chunk loop: block x of a stream walks chunks x,
+    x + B, ... and each chunk of the stream's rows is walked by one block;
+    every block runs the loop at least once, so each of its partial
+    slots is stored (a block past the rows stores zeros)."""
+    walked, firsts = [], []
+    for x in range(blocks):
+        r0 = x * rows
+        first = True
+        while r0 < n or first:
+            firsts.append(first)
+            walked.extend(range(r0, min(n, r0 + rows)))
+            first = False
+            r0 += blocks * rows
+    assert sorted(walked) == list(range(n))
+    assert sum(firsts) == blocks
+
+
+@pytest.mark.parametrize("P", [1, 2, 3])
+@pytest.mark.parametrize("T,depth,d", [(1, 6, 28), (20, 5, 28),
+                                       (3, 12, 28), (2, 6, 300)])
+def test_descend_groups_cover_every_slice_once(P, T, depth, d):
+    """Shuffled code_idx: the slices grouped by matrix, and the staged
+    plan's chunks of each matrix's (slice, tree) pairs (as
+    descend_staged_kernel walks them) take every (slice, tree) once,
+    over its own matrix; the tables of a chunk fit beside the two
+    tiles."""
+    rng = np.random.default_rng(P * 100 + T)
+    G = 24
+    code_idx = [int(c) for c in rng.permutation(np.arange(G) % P)]
+    grouped = tk.slice_groups(code_idx, P, torch.device("cpu"))
+    order, first = grouped.order.tolist(), grouped.first.tolist()
+    assert sorted(order) == list(range(G))
+    assert grouped.counts == tuple(np.bincount(code_idx, minlength=P))
+    for p in range(P):
+        mine = order[first[p]:first[p + 1]]
+        assert all(code_idx[g] == p for g in mine)
+        assert mine == sorted(mine)
+    plan = tk.descend_plan(100_003, d, depth, T, 132, grouped.counts)
+    assert plan.staged == (d <= tk.SECTOR_BYTES * depth)
+    tb = tk.STEP_BYTES * tk.table_words(depth)
+    assert plan.smem_bytes == (2 * plan.tile_bytes
+                               + plan.trees_per_chunk * tb)
+    assert plan.smem_bytes <= tk.SMEM_BYTES
+    if not plan.staged:
+        assert plan.chunks == -(-T // plan.trees_per_chunk)
+        return
+    walked = []
+    for p in range(P):
+        pairs = grouped.counts[p] * T
+        for y in range(plan.chunks):
+            c0 = y * plan.trees_per_chunk
+            for q in range(c0, min(c0 + plan.trees_per_chunk, pairs)):
+                g = order[first[p] + q // T]
+                assert code_idx[g] == p
+                walked.append((g, q % T))
+    assert sorted(walked) == [(g, t) for g in range(G) for t in range(T)]
+    assert plan.chunks == -(-max(grouped.counts) * T
+                            // plan.trees_per_chunk)
+
+
+@pytest.mark.parametrize("replicas", [1, 2, 4, 8, 16])
+def test_hist_copies_sum_within_the_row_cap(replicas):
+    """A chunk of replicas · HIST_MAX_ROWS rows (the longest the plan
+    gives a slice of that many copies): row i goes to thread i % 1024, so
+    to copy (i % 32) % replicas, and no copy sums more than
+    HIST_MAX_ROWS rows, the bound under which its 32-bit words cannot
+    overflow (test_hist_words_cannot_overflow)."""
+    rows = replicas * tk.HIST_MAX_ROWS
+    copy = (np.arange(rows) % 1024 % 32) % replicas
+    assert np.bincount(copy, minlength=replicas).max() <= tk.HIST_MAX_ROWS
+    n, d, nb, S = 11_000_000, 28, 32, 2
+    for live in (1, 2, 4, 8, 16):
+        plan = tk.hist_plan(n, d, nb, S, 32, 132, 24, live)
+        grid = tk.hist_grid(n, d, nb, S, 32, 132, 24, live)
+        assert plan.rows <= grid.replicas * tk.HIST_MAX_ROWS
