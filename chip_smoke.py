@@ -11,7 +11,10 @@ Phases, one JSON line each (any failure exits non-zero):
    source, all started together; each timed, ``fresh`` per source; per
    kernel its registers and spill bytes (ptxas -v) and its shared-atomic,
    special-function, shuffle, float-to-int, float FMA/add/multiply,
-   shared-load and local (spill) load/store instructions (cuobjdump);
+   shared-load, local (spill) load/store, global load/store, cp.async
+   (``LDGSTS``) and byte-permute instructions (cuobjdump); the
+   feature-major copy must show no spills, 16-B cp.async loads, 16-B
+   stores and no byte-wide shared load;
 3. one line per tree kernel at the HIGGS-sweep shapes (n train rows,
    d=28, 32 bins, depth 5): the kernel against its plain PyTorch version
    on the same inputs (bit-identical for node ids and integer-valued
@@ -22,7 +25,11 @@ Phases, one JSON line each (any failure exits non-zero):
    and the train rows, each beside the floor the row-major layout forces
    (``layout_floor_ms``), and the rate of a device-to-device copy of the
    codes in the same run; the feature-major copy against ``.t()
-   .contiguous()``; routing and descent also bit for bit at a
+   .contiguous()``, bit for bit and twice at rows 1 to 11M (odd counts
+   included) × widths 1 to 784 from aligned and unaligned bases, as a
+   stack of bin matrices in one launch, and timed at a pod rank's rows,
+   a two-matrix stack (beside a launch a matrix and ``torch.stack``) and
+   the descent cases' widths; routing and descent also bit for bit at a
    ragged n, d = 6, 256 bins, unaligned inputs, a depth-12 forest in
    several table chunks, rows of 128 and 300 bytes (two rows and one row
    a thread) and a 784-wide row on the direct path; and descent at the
@@ -273,7 +280,7 @@ TSNE_OPS_PER_FOREIGN_PAIR = 13
 TSNE_OPS_PER_ORDERED_PAIR = 14
 #: SASS opcodes the build line counts per kernel.
 SASS_OPS = ("ATOMS", "MUFU", "SHFL", "F2I", "FFMA", "FADD", "FMUL", "LDS",
-            "LDL", "STL")
+            "LDL", "STL", "LDGSTS", "LDG", "STG", "PRMT")
 ROOT = os.path.dirname(os.path.abspath(__file__))
 #: Held-out rows of the HIGGS-like sweep.
 TEST_ROWS = 100_000
@@ -568,7 +575,11 @@ def check_kernels(n: int, n_test: int, dev, atoms: dict) -> dict:
            4 * n + 4 * S * n + 4 * M * S, n * S,
            time_ms(lambda: leaf_out.index_add_(0, along, gT), 5), True,
            atomics_floor_ms=atomics_floor_ms(
-               hist_adds(grads[None], g_max[None], every, 1), atoms))
+               hist_adds(grads[None], g_max[None], every, 1), atoms),
+           # Its two kernels' device time alone: a call is short enough
+           # that the wrapper's host time shows in back-to-back calls.
+           device_ms=device_ms(lambda: tk.tree_leaf_stats(
+               assign, grads, n_nodes=M, max_abs=g_max), 20)[0])
     del every
 
     # K2: routing at the deepest level's width, from the feature-major
@@ -591,7 +602,10 @@ def check_kernels(n: int, n_test: int, dev, atoms: dict) -> dict:
     record("feature_major", 0.0,
            time_ms(lambda: tk.feature_major(codes), 10),
            time_ms(lambda: tk.feature_major_ref(codes), 10),
-           2 * n * d, 0, time_ms(lambda: codes.t().contiguous(), 10), True)
+           2 * n * d, 0, time_ms(lambda: codes.t().contiguous(), 10), True,
+           plan=tk.feature_major_plan(n, d, codes_T.data_ptr())._asdict(),
+           cases=feature_major_cases(dev, n),
+           shapes=feature_major_shapes(dev, n))
     out = tk.tree_route_level(*args, codes_T=codes_T)
     ref = tk.tree_route_level_ref(*args)
     check(torch.equal(out, ref), "tree_route_level differs")
@@ -824,7 +838,10 @@ def check_slice_kernels(n: int, dev, atoms: dict) -> dict:
                            dtype=torch.int32)
     split = torch.rand((G, NL), generator=g_, device=dev) < 0.7
     base = rel + (NL - 1)
-    codes_T = torch.stack([tk.feature_major(c) for c in codes])
+    codes_T = tk.feature_major(codes)
+    check(torch.equal(codes_T, torch.stack([tk.feature_major_ref(c)
+                                            for c in codes])),
+          "feature_major: the stack differs from the plain versions")
     args = (rel, active, base, best_f, best_t, split)
     out = tk.tree_route_level_slices(codes, idx, *args, codes_T=codes_T)
     per_slice("tree_route_level_slices", out, lambda g: tk.tree_route_level(
@@ -1114,6 +1131,103 @@ def descent_visits(codes, feat, thr, internal, depth) -> list:
             a = torch.where(on, 2 * a + 1 + (v > th[a]).long(), a)
         visits.append(count)
     return visits
+
+
+#: The feature-major copy's exactness sweep: row counts (1 to the HIGGS
+#: sweep's; odd ones, whose output rows are not 16-B aligned) and widths
+#: (the span path up to TRANS_FEATS bytes, strided rows past it, 33: one
+#: byte past a tile), each from an aligned base, a one-row view (d bytes
+#: in) and a three-byte view.
+FM_ROWS = (1, 3, 15, 17, 1_025, 1_000_003)
+FM_DIMS = (1, 6, 28, 32, 33, 128, 300, 784)
+FM_VIEWS = ("aligned", "row_view", "byte_view")
+
+
+def feature_major_cases(dev, n_train: int) -> dict:
+    """``feature_major`` against its plain version, bit for bit and twice
+    the same, at every FM_ROWS (and the train rows) × FM_DIMS shape from
+    each FM_VIEWS base, and the stack form (P matrices in one launch)
+    against the stacked plain versions. Its own seed."""
+    import torch
+
+    from learningorchestra_tpu_torch.ops import tree_kernels as tk
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    count = 0
+    for n in FM_ROWS + (n_train,):
+        for d in FM_DIMS:
+            flat = torch.randint(0, 256, ((n + 1) * d + 16,), generator=g,
+                                 device=dev, dtype=torch.uint8)
+            views = (flat[:n * d].view(n, d),
+                     flat[:(n + 1) * d].view(n + 1, d)[1:],
+                     flat[3:3 + n * d].view(n, d))
+            for name, v in zip(FM_VIEWS, views):
+                got = tk.feature_major(v)
+                check(torch.equal(got, tk.feature_major_ref(v)),
+                      f"feature_major differs: n={n} d={d} {name}")
+                check(torch.equal(got, tk.feature_major(v)),
+                      f"feature_major: two calls differ: n={n} d={d} "
+                      f"{name}")
+                count += 1
+                del got
+            del flat, views
+    torch.cuda.empty_cache()
+    stacks = []
+    for P, n, d in ((2, n_train, 28), (2, 1_000_003, 6), (3, 17, 33),
+                    (2, 100_003, 300)):
+        st = torch.randint(0, 256, (P, n, d), generator=g, device=dev,
+                           dtype=torch.uint8)
+        got = tk.feature_major(st)
+        check(torch.equal(got, torch.stack([tk.feature_major_ref(x)
+                                            for x in st])),
+              f"feature_major stack differs: P={P} n={n} d={d}")
+        check(torch.equal(got, tk.feature_major(st)),
+              f"feature_major stack: two calls differ: P={P} n={n} d={d}")
+        stacks.append([P, n, d])
+        del st, got
+    torch.cuda.empty_cache()
+    return {"shapes": count, "rows": list(FM_ROWS) + [n_train],
+            "dims": list(FM_DIMS), "views": list(FM_VIEWS),
+            "stacks": stacks, "exact": True}
+
+
+def feature_major_shapes(dev, n_train: int) -> list:
+    """``feature_major``'s time at the shapes its callers give it: a pod
+    rank's rows (half the sweep's), a population's two bin matrices in
+    one launch (beside two one-matrix launches and the ``torch.stack``
+    that made the stack before), and the widths of ``descend_cases`` at
+    its row counts; each beside its byte bound and one PyTorch call's
+    time (``transpose`` then ``contiguous``)."""
+    import torch
+
+    from learningorchestra_tpu_torch.ops import tree_kernels as tk
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(6)
+    rank = -(-n_train // POD_RANKS)
+    out = []
+    for P, n, d in ((1, rank, 28), (2, n_train, 28), (1, 1_000_003, 6),
+                    (1, 100_003, 128), (1, 100_003, 300),
+                    (1, 100_003, 784)):
+        x = torch.randint(0, 32, (P, n, d), generator=g, device=dev,
+                          dtype=torch.uint8)
+        x = x[0] if P == 1 else x
+        it = 10 if n * d * P > 10**8 else 50
+        doc = {"P": P, "n": n, "d": d,
+               "ms": time_ms(lambda: tk.feature_major(x), it),
+               "device_ms": device_ms(lambda: tk.feature_major(x), it)[0],
+               "bound_ms": bound(2 * P * n * d)[0],
+               "library_ms": time_ms(
+                   lambda: x.transpose(-1, -2).contiguous(), it),
+               "plan": tk.feature_major_plan(n, d, 0)._asdict()}
+        if P > 1:
+            doc["per_matrix_and_stack_ms"] = time_ms(
+                lambda: torch.stack([tk.feature_major(m) for m in x]), it)
+        out.append(doc)
+        del x
+    torch.cuda.empty_cache()
+    return out
 
 
 def route_cases(dev) -> list:
@@ -1485,7 +1599,10 @@ def check_fixed_forms(n: int, dev) -> dict:
            "hist_float_ms": time_ms(lambda: tk.tree_histogram_slices(
                codes, (0,), stats, rel, active, **kw), 10),
            "leaf_fixed_ms": time_ms(lambda: tk.tree_leaf_stats_fixed(
-               assign, stats, n_nodes=M, max_abs=max_abs), 10)}
+               assign, stats, n_nodes=M, max_abs=max_abs), 10),
+           "leaf_fixed_device_ms": device_ms(
+               lambda: tk.tree_leaf_stats_fixed(
+                   assign, stats, n_nodes=M, max_abs=max_abs), 20)[0]}
     emit({"phase": "kernel", "name": "tree_histogram_fixed", "exact": True,
           **doc})
     return doc
@@ -3852,6 +3969,16 @@ def build_all() -> None:
         builds = list(pool.map(one, (tk, tsk)))
     emit({"phase": "build", "seconds": time.time() - t0,
           "sources": builds})
+    # The feature-major copy moves its bytes 16 at a time and transposes
+    # from 32-bit shared words: no spills, 16-B cp.async loads and 16-B
+    # stores in its code, no byte-wide shared load.
+    fm = builds[0]["kernels"].get("feature_major_kernel", {})
+    sass = fm.get("sass")
+    check(fm.get("spill_bytes") == 0, f"feature_major_kernel spills: {fm}")
+    if sass is not None:
+        check(any(k.startswith("LDGSTS") and "128" in k for k in sass)
+              and "STG.E.128" in sass and "LDS.U8" not in sass,
+              f"feature_major_kernel's loads and stores: {sass}")
 
 
 def main() -> int:

@@ -437,31 +437,59 @@ __global__ void __launch_bounds__(kHistThreads, sizeof(CodeT) == 4 ? 2 : 1)
   }
 }
 
+// The second pass's block; the most threads it gives one output, and the
+// threads (about what the card holds at once) past which it gives one.
+constexpr int kSumThreads = 512;
+constexpr int kSumMaxSlices = 16;
+constexpr long long kSumFill = 1LL << 18;
+
 // out[i] = the B partial slots' exact sums of each slot of the public
 // (G, n_nodes, d*n_bins, S) layout, converted once at the scale of the
 // slice's stat (total * 2^-k_s), or with out_i64 left as integers: the
 // totals a pod adds across ranks before the one conversion
-// (models/trees.py). Nodes n_live.. are 0: no row adds there.
-__global__ void sum_partials_kernel(
+// (models/trees.py). Nodes n_live.. are 0: no row adds there. A block is
+// (C outputs, Y threads an output), C * Y = kSumThreads: thread (c, y)
+// of block x sums slots y, y + Y, ... of output C x + c (a row of
+// threads loads consecutive outputs, coalesced), and row 0 adds the
+// rows' sums. A thread thus waits on B / Y loads, not B: the leaf form's
+// B = 264 slots of 126 outputs, one thread an output, were a chain of
+// loads that their latency bound (one build of that loop kept only two
+// in flight). Y is the largest power of two up to min(B, kSumMaxSlices)
+// that keeps all outputs' threads within kSumFill: where the outputs
+// alone fill the card (a population's histograms), Y = 1, a thread an
+// output, with no shared-memory step.
+__global__ void __launch_bounds__(kSumThreads) sum_partials_kernel(
     const long long* __restrict__ partial, const float* __restrict__ max_abs,
     float* __restrict__ out_f32, long long* __restrict__ out_i64,
     long long total, long long live_total, int G, int S, int B) {
+  __shared__ long long s_sum[kSumThreads];
+  const int C = blockDim.x;
+  const int Y = blockDim.y;
   const long long all = total * G;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < all; i += (long long)gridDim.x * blockDim.x) {
-    const long long g = i / total;
-    const long long j = i % total;
-    long long t = 0;
-    if (j < live_total)
-      for (int r = 0; r < B; ++r)
-        t += partial[((long long)r * G + g) * live_total + j];
-    if (out_i64 != nullptr) {
-      out_i64[i] = t;
-    } else {
-      const int k = stat_exponent(max_abs[g * S + j % S]);
-      out_f32[i] =
-          (float)((double)t * __longlong_as_double((1023LL - k) << 52));
+  const long long i = (long long)blockIdx.x * C + threadIdx.x;
+  long long t = 0, g = 0, j = 0;
+  if (i < all) {
+    g = i / total;
+    j = i % total;
+    if (j < live_total) {
+      const long long* p =
+          partial + ((long long)threadIdx.y * G + g) * live_total + j;
+      const long long step = (long long)Y * G * live_total;
+      for (int r = threadIdx.y; r < B; r += Y, p += step) t += *p;
     }
+  }
+  if (Y > 1) {
+    s_sum[threadIdx.y * C + threadIdx.x] = t;
+    __syncthreads();
+    if (threadIdx.y != 0) return;
+    for (int y = 1; y < Y; ++y) t += s_sum[y * C + threadIdx.x];
+  }
+  if (i >= all) return;
+  if (out_i64 != nullptr) {
+    out_i64[i] = t;
+  } else {
+    const int k = stat_exponent(max_abs[g * S + j % S]);
+    out_f32[i] = (float)((double)t * __longlong_as_double((1023LL - k) << 52));
   }
 }
 
@@ -573,48 +601,6 @@ __global__ void __launch_bounds__(kThreads) route_kernel(
 // Threads of a descent block (DESCEND_THREADS in ops/tree_kernels.py).
 constexpr int kDescendThreads = 256;
 
-// Tiles of the feature-major copy: rows (a multiple of 4) x features.
-constexpr int kTransRows = 1024;
-constexpr int kTransFeats = 32;
-
-// codes (n, d) -> out (d, n), one tile of rows x features a block: each
-// warp reads whole rows' feature slices (consecutive lanes on consecutive
-// bytes), then each thread writes four rows of one feature as one word
-// (consecutive lanes on consecutive words). The tile's row stride in
-// shared memory is odd, so the write phase's lanes, four rows apart,
-// fall on distinct banks.
-__global__ void __launch_bounds__(kDescendThreads) feature_major_kernel(
-    const uint8_t* __restrict__ codes, uint8_t* __restrict__ out, int n,
-    int d, bool words) {
-  __shared__ uint8_t s_tile[kTransRows * (kTransFeats + 1)];
-  const long long r0 = (long long)blockIdx.x * kTransRows;
-  const int f0 = blockIdx.y * kTransFeats;
-  const int F = min(kTransFeats, d - f0);
-  const int S = F | 1;
-  const int R = (int)min((long long)kTransRows, (long long)n - r0);
-  const int lane = threadIdx.x % 32;
-  // Unrolled so that a warp has several rows' loads in flight.
-#pragma unroll 8
-  for (int r = threadIdx.x / 32; r < R; r += blockDim.x / 32)
-    if (lane < F) s_tile[r * S + lane] = codes[(r0 + r) * d + f0 + lane];
-  __syncthreads();
-  constexpr int kQuads = kTransRows / 4;
-  for (int e = threadIdx.x; e < F * kQuads; e += blockDim.x) {
-    const int f = e / kQuads;
-    const int r = 4 * (e % kQuads);
-    if (r >= R) continue;
-    const uint8_t* src = s_tile + r * S + f;
-    uint8_t* dst = out + (long long)(f0 + f) * n + r0 + r;
-    if (words && r + 4 <= R) {
-      *reinterpret_cast<uint32_t*>(dst) =
-          (uint32_t)src[0] | (uint32_t)src[S] << 8 |
-          (uint32_t)src[2 * S] << 16 | (uint32_t)src[3 * S] << 24;
-    } else {
-      for (int k = 0; k < 4 && r + k < R; ++k) dst[k] = src[k * S];
-    }
-  }
-}
-
 // K3's staged entry of node a, one 32-bit word: e = (key << 9) | f, so
 // that a level of the walk is a' = (e + (code[f] << 9)) >> 17 = (key +
 // code[f]) >> 8, branch-free. A split has key = ((2a + 1) << 8) + 256 -
@@ -669,14 +655,18 @@ __device__ __forceinline__ void cp_async_wait_one() {
 
 // Stage bytes [b0, b1) of codes (n * d bytes at codes) into dst, as the
 // 16-B aligned chunks that cover them: byte b lands at dst[(codes + b) -
-// align16(codes + b0)]. Chunks that start inside the buffer are cp.async
-// copies (the buffer's last chunk reads only its own bytes, zero-filling
-// the rest); a chunk that starts before an unaligned buffer is copied
-// byte by byte, since the bytes before the buffer are not its own.
+// align16(codes + b0)], or with pad = 1 chunk c (counted from the first)
+// at chunk c + c / pitch, a 16-B pad after every pitch chunks (the
+// feature-major copy's layout). Chunks that start inside the buffer are
+// cp.async copies (the buffer's last chunk reads only its own bytes,
+// zero-filling the rest); a chunk that starts before an unaligned buffer
+// is copied byte by byte, since the bytes before the buffer are not its
+// own.
 __device__ __forceinline__ void stage_rows(uint8_t* dst,
                                            const uint8_t* codes,
                                            long long total, long long b0,
-                                           long long b1) {
+                                           long long b1, int pitch = 1,
+                                           int pad = 0) {
   const uintptr_t base = reinterpret_cast<uintptr_t>(codes);
   const uintptr_t end = base + (uintptr_t)total;
   const uintptr_t g0 = (base + (uintptr_t)b0) & ~(uintptr_t)15;
@@ -684,7 +674,7 @@ __device__ __forceinline__ void stage_rows(uint8_t* dst,
   const int chunks = (int)((g1 - g0) / 16);
   for (int c = threadIdx.x; c < chunks; c += blockDim.x) {
     const uintptr_t g = g0 + 16 * (uintptr_t)c;
-    uint8_t* s = dst + 16 * c;
+    uint8_t* s = dst + 16 * (c + (pad ? c / pitch : 0));
     if (g >= base) {
       const uintptr_t left = end - g;
       cp_async16(s, reinterpret_cast<const void*>(g),
@@ -695,6 +685,264 @@ __device__ __forceinline__ void stage_rows(uint8_t* dst,
         s[i] = p >= base && p < end ? *reinterpret_cast<const uint8_t*>(p)
                                     : 0;
       }
+    }
+  }
+}
+
+// Copies `bytes` (1..v) of a v-byte cp.async (v = 4 or 8), zero-filling
+// the rest; v-aligned source and destination.
+template <int v>
+__device__ __forceinline__ void cp_async_ca(void* smem, const void* gmem,
+                                            int bytes) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s),
+               "l"(gmem), "n"(v), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The feature-major copy (codes_T, K2's layout; see K2 above): (P, n, d)
+// uint8 codes -> (P, d, n). A plain transpose: it reads and writes n * d
+// bytes a matrix and computes nothing, so memory bounds it (2 n d bytes
+// at 3.35 TB/s: 0.18 ms at the HIGGS sweep's 11M x 28). The design, for
+// each of the three phases of a tile of kTransRows rows x up to
+// kTransFeats features:
+// - Load. Where one feature tile covers the row (d <= kTransFeats: the
+//   HIGGS sweep, tune and pod shapes), a tile is one contiguous span of
+//   rows * d bytes, copied into shared memory as the 16-B aligned chunks
+//   that cover it, each a 16-B cp.async (the span's head before an
+//   unaligned matrix base byte by byte, its tail past the matrix end
+//   zero-filled: stage_rows). Wider rows are strided: each row's slice
+//   of the tile's features is copied with the widest cp.async (16, 8 or
+//   4 B) that the base and the row stride d allow, else byte by byte.
+//   All of a block's copies are issued before any is waited for: 28 KB a
+//   block at d = 28, several blocks an SM (kTransThreads threads each),
+//   which keeps well over the ~25 KB an SM that 3.35 TB/s x ~1 us of
+//   latency over 132 SMs asks in flight.
+// - Transpose. A thread takes a unit of 16 rows x 4 features: it reads
+//   each row's 4 features as one 32-bit shared word (two words and a
+//   funnel shift where the staged rows are not word-aligned: d not a
+//   multiple of 4, or a base off a 4-B boundary), and turns each 4 x 4
+//   byte block into 4 words of 4 rows of one feature with 8 byte permutes
+//   (PRMT). No byte is read from shared memory on its own. A warp's
+//   lanes take 32 consecutive 16-row groups of one feature group. Staged
+//   rows are pitch bytes apart (d on the span path, kTransFeats strided),
+//   so a 16-row group is pitch chunks whatever the base's alignment; a
+//   16-B pad after every group where pitch is even puts the groups an
+//   odd number of chunks (pitch + pad) apart, so any 8 consecutive
+//   lanes read 8 different 16-B bank quads: 4-way bank conflicts, the
+//   least a layout placed chunk by chunk gives 32 lanes' word reads.
+// - Store. One 16-B store a lane, 16 consecutive rows of one feature:
+//   a warp writes 512 contiguous bytes. Where a feature's output row is
+//   not 16-B aligned (n not a multiple of 16), the 16-B aligned blocks
+//   straddle two lanes' groups, so each lane takes the next lane's 16
+//   bytes by shuffle and stores the aligned block that starts in its own
+//   group; only the bytes before a warp's first block and after its last,
+//   and a ragged last group, are stored a byte at a time.
+// One launch serves a stack of P matrices (grid.z a matrix), so a
+// population's bin matrices (models/tune.py) take one launch and no
+// stacking copy.
+constexpr int kTransThreads = 256;
+constexpr int kTransRows = 1024;
+constexpr int kTransFeats = 32;
+// Rows of a unit (one 16-B store a feature; a unit's 4 features are one
+// shared word), and units of a tile's feature group.
+constexpr int kTransGroup = 16;
+constexpr int kTransGroups = kTransRows / kTransGroup;
+
+// Bytes a staged row takes, and the 16-B pads after each 16-row group.
+__device__ __host__ __forceinline__ int trans_pitch(int d) {
+  return d <= kTransFeats ? d : kTransFeats;
+}
+
+__device__ __host__ __forceinline__ int trans_pad(int pitch) {
+  return (pitch & 1) ^ 1;
+}
+
+// Shared bytes of a tile: every chunk a tile's rows can reach (its head
+// offset, a second word past its last row) and the pads between them.
+__host__ __forceinline__ long long trans_tile_bytes(int d) {
+  const int pitch = trans_pitch(d);
+  return 16LL * (((long long)kTransRows * pitch + 32 + 15) / 16 +
+                 trans_pad(pitch) * (kTransGroups + 3));
+}
+
+// Stage rows [r0, r0 + rows) of a strided tile, features [f0, f0 + F) of
+// each, row r at byte r * kTransFeats + 16 * (r / 16) of dst (pitch
+// kTransFeats, one pad a group), with v-byte copies.
+template <int v>
+__device__ __forceinline__ void stage_strided(uint8_t* dst,
+                                              const uint8_t* codes,
+                                              long long r0, int rows, int d,
+                                              int f0, int F) {
+  const int per_row = (F + v - 1) / v;
+  for (int c = threadIdx.x; c < rows * per_row; c += blockDim.x) {
+    const int r = c / per_row;
+    const int j = (c - r * per_row) * v;
+    const uint8_t* src = codes + (r0 + r) * d + f0 + j;
+    uint8_t* s = dst + r * kTransFeats + 16 * (r / kTransGroup) + j;
+    const int bytes = min(v, F - j);
+    if constexpr (v == 16) {
+      cp_async16(s, src, bytes);
+    } else if constexpr (v >= 4) {
+      cp_async_ca<v>(s, src, bytes);
+    } else {
+      *s = *src;
+    }
+  }
+}
+
+// The staged word of a 16-row group at local byte position u (counted
+// from the group's first chunk; u % 4 == 0): chunks past the group's
+// pitch chunks lie beyond its pad.
+__device__ __forceinline__ uint32_t group_word(const uint8_t* grp, int u,
+                                               int pitch, int pad) {
+  const int t = u >> 4;
+  const int e = (t >= pitch) + (t >= 2 * pitch);
+  return *reinterpret_cast<const uint32_t*>(grp + u + 16 * pad * e);
+}
+
+// Bytes [p0, p1) of a 16-row group (y: its four words, row 4i in byte 0
+// of word i), each stored on its own.
+__device__ __forceinline__ void store_group_bytes(uint8_t* dst,
+                                                  const uint32_t (&y)[4],
+                                                  int p0, int p1) {
+#pragma unroll
+  for (int p = 0; p < kTransGroup; ++p)
+    if (p >= p0 && p < p1) dst[p] = (uint8_t)(y[p >> 2] >> (8 * (p & 3)));
+}
+
+// Grid (row tiles x feature tiles, 1, P matrices): block x is row tile x /
+// feat_tiles and feature tile x % feat_tiles of matrix blockIdx.z, whose
+// codes start code_stride bytes after the previous matrix's and whose
+// output is out + z * d * n. Dynamic shared memory: trans_tile_bytes(d).
+__global__ void __launch_bounds__(kTransThreads) feature_major_kernel(
+    const uint8_t* __restrict__ codes, long long code_stride,
+    uint8_t* __restrict__ out, int n, int d, int feat_tiles) {
+  extern __shared__ __align__(16) uint8_t s_trans[];
+  const int ft = blockIdx.x % feat_tiles;
+  const long long r0 = (long long)(blockIdx.x / feat_tiles) * kTransRows;
+  const int rows = (int)min((long long)kTransRows, (long long)n - r0);
+  codes += (long long)blockIdx.z * code_stride;
+  out += (long long)blockIdx.z * d * n;
+  const int f0 = ft * kTransFeats;
+  const int F = min(kTransFeats, d - f0);
+  const int pitch = trans_pitch(d);
+  const int pad = trans_pad(pitch);
+  // Byte offset of the tile's first row in its first staged chunk.
+  int off = 0;
+  if (d <= kTransFeats) {
+    off = (int)((reinterpret_cast<uintptr_t>(codes) + r0 * d) & 15);
+    stage_rows(s_trans, codes, (long long)n * d, r0 * d, (r0 + rows) * d,
+               pitch, pad);
+  } else {
+    const int a = (int)((reinterpret_cast<uintptr_t>(codes) + f0) | d);
+    if ((a & 15) == 0) {
+      stage_strided<16>(s_trans, codes, r0, rows, d, f0, F);
+    } else if ((a & 7) == 0) {
+      stage_strided<8>(s_trans, codes, r0, rows, d, f0, F);
+    } else if ((a & 3) == 0) {
+      stage_strided<4>(s_trans, codes, r0, rows, d, f0, F);
+    } else {
+      stage_strided<1>(s_trans, codes, r0, rows, d, f0, F);
+    }
+  }
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  // Unit (q, g): features f0 + 4q .. + 3, rows r0 + 16g .. + 15; a warp's
+  // lanes share q and take consecutive g.
+  const bool aligned = (off & 3) == 0 && (pitch & 3) == 0;
+  const int units = kTransGroups * ((F + 3) / 4);
+  for (int unit = threadIdx.x; unit < units; unit += blockDim.x) {
+    const int q = unit / kTransGroups;
+    const int g = unit % kTransGroups;
+    // A warp's lanes take groups g - lane .. g - lane + 31: the warp skips
+    // them together, so that every lane takes part in the shuffles below.
+    const int lane = threadIdx.x & 31;
+    if ((g - lane) * kTransGroup >= rows) continue;
+    const uint8_t* grp = s_trans + 16 * (pitch + pad) * g;
+    // o[j][i]: feature 4q + j of rows 4i .. 4i + 3 (row 4i in byte 0).
+    uint32_t o[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      uint32_t w[4];  // rows 4i + k, features 4q .. 4q + 3 (byte = feature)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int u = off + (4 * i + k) * pitch + 4 * q;
+        if (aligned) {
+          w[k] = group_word(grp, u, pitch, pad);
+        } else {
+          const int v = u & ~3;
+          w[k] = __funnelshift_r(group_word(grp, v, pitch, pad),
+                                 group_word(grp, v + 4, pitch, pad),
+                                 8 * (u & 3));
+        }
+      }
+      const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140);
+      const uint32_t t1 = __byte_perm(w[0], w[1], 0x7362);
+      const uint32_t t2 = __byte_perm(w[2], w[3], 0x5140);
+      const uint32_t t3 = __byte_perm(w[2], w[3], 0x7362);
+      o[0][i] = __byte_perm(t0, t2, 0x5410);
+      o[1][i] = __byte_perm(t0, t2, 0x7632);
+      o[2][i] = __byte_perm(t1, t3, 0x5410);
+      o[3][i] = __byte_perm(t1, t3, 0x7632);
+    }
+    // Rows of this lane's group, of the next lane's (every group before
+    // this one is whole).
+    const int mine = min(max(rows - g * kTransGroup, 0), kTransGroup);
+    const int next = min(max(rows - (g + 1) * kTransGroup, 0), kTransGroup);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (4 * q + j >= F) break;
+      uint8_t* dst = out + (long long)(f0 + 4 * q + j) * n + r0 +
+                     g * kTransGroup;
+      const int m = (int)(reinterpret_cast<uintptr_t>(dst) & 15);
+      if (m == 0) {
+        if (mine == kTransGroup)
+          *reinterpret_cast<uint4*>(dst) =
+              make_uint4(o[j][0], o[j][1], o[j][2], o[j][3]);
+        else
+          store_group_bytes(dst, o[j], 0, mine);
+        continue;
+      }
+      // Shifted: the aligned 16 B at dst + s are this group's bytes s..15
+      // and the next lane's 0..s-1.
+      const int s = kTransGroup - m;
+      uint32_t x[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        x[i] = o[j][i];
+        x[4 + i] = __shfl_down_sync(0xFFFFFFFFu, o[j][i], 1);
+      }
+      const bool own_block = lane < 31 && mine == kTransGroup && next >= s;
+      const bool prev_block = lane > 0 && rows >= g * kTransGroup &&
+                              mine >= s;
+      if (own_block) {
+        const int a = s >> 2;
+        uint32_t z[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const uint32_t lo = a == 0   ? x[i]
+                              : a == 1 ? x[i + 1]
+                              : a == 2 ? x[i + 2]
+                                       : x[i + 3];
+          const uint32_t hi = a == 0   ? x[i + 1]
+                              : a == 1 ? x[i + 2]
+                              : a == 2 ? x[i + 3]
+                                       : x[i + 4];
+          z[i] = __funnelshift_r(lo, hi, 8 * (s & 3));
+        }
+        *reinterpret_cast<uint4*>(dst + s) =
+            make_uint4(z[0], z[1], z[2], z[3]);
+      }
+      // What no aligned block took: a warp's two ends, a ragged tail.
+      store_group_bytes(dst, o[j], prev_block ? s : 0,
+                        own_block ? s : mine);
     }
   }
 }
@@ -952,11 +1200,15 @@ int launch_hist(const CodeT* codes, const int32_t* code_idx,
 #undef LO_HIST_CASE
   if (e) return e;
   const long long total = (long long)n_nodes * DC * S;
-  const long long all = total * G;
-  long long sum_blocks = (all + kThreads - 1) / kThreads;
-  if (sum_blocks > 65535) sum_blocks = 65535;
-  if (sum_blocks < 1) sum_blocks = 1;
-  sum_partials_kernel<<<(int)sum_blocks, kThreads, 0, stream>>>(
+  int Y = 1;
+  while (2 * Y <= B && 2 * Y <= kSumMaxSlices &&
+         total * G * 2 * Y <= kSumFill)
+    Y *= 2;
+  const int C = kSumThreads / Y;
+  long long tiles = (total * G + C - 1) / C;
+  if (tiles > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  if (tiles < 1) tiles = 1;
+  sum_partials_kernel<<<(unsigned)tiles, dim3(C, Y), 0, stream>>>(
       partial, max_abs, fixed ? nullptr : (float*)out,
       fixed ? (long long*)out : nullptr, total, (long long)n_live * DC * S,
       G, S, B);
@@ -1106,15 +1358,24 @@ int lo_tree_route(const void* codes_T, const void* code_idx, const void* rel,
   return (int)cudaGetLastError();
 }
 
-// codes (n, d) uint8 -> out (d, n) uint8, K2's feature-major codes.
-int lo_feature_major(const void* codes, void* out, int n, int d,
-                     void* stream) {
-  if (n <= 0 || d <= 0) return 0;
-  const bool words = n % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 4 == 0;
-  const dim3 grid((n + kTransRows - 1) / kTransRows,
-                  (d + kTransFeats - 1) / kTransFeats);
-  feature_major_kernel<<<grid, kDescendThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)codes, (uint8_t*)out, n, d, words);
+// codes, P matrices of (n, d) uint8 rows (d bytes apart, the matrices
+// code_stride bytes apart) -> out (P, d, n) uint8, K2's feature-major
+// codes, in one launch. The plan (ops/tree_kernels.py
+// feature_major_plan): feat_tiles feature tiles of kTransFeats,
+// row_tiles of kTransRows rows, and smem_bytes of dynamic shared memory
+// a block.
+int lo_feature_major(const void* codes, long long code_stride, void* out,
+                     int n, int d, int P, int feat_tiles, int row_tiles,
+                     int smem_bytes, void* stream) {
+  if (n < 1 || d < 1 || P < 1 || P > 65535 ||
+      feat_tiles != (d + kTransFeats - 1) / kTransFeats ||
+      row_tiles != (n + kTransRows - 1) / kTransRows ||
+      (long long)feat_tiles * row_tiles > 0x7FFFFFFFLL ||
+      smem_bytes < trans_tile_bytes(d) || smem_bytes > kDefaultSmem)
+    return (int)cudaErrorInvalidValue;
+  feature_major_kernel<<<dim3(feat_tiles * row_tiles, 1, P), kTransThreads,
+                         smem_bytes, (cudaStream_t)stream>>>(
+      (const uint8_t*)codes, code_stride, (uint8_t*)out, n, d, feat_tiles);
   return (int)cudaGetLastError();
 }
 

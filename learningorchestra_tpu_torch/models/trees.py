@@ -86,9 +86,10 @@ def validate_n_bins(n_bins: int) -> None:
 
 
 def _route_codes(B: torch.Tensor) -> Optional[torch.Tensor]:
-    """The routing kernel's feature-major copy of a bin matrix on the
-    card, made once and shared by every level of every tree fitted on it;
-    None on the CPU, where routing reads B itself."""
+    """The routing kernel's feature-major copy of a bin matrix, or of a
+    population's (P, n, d) stack of them in one launch, on the card: made
+    once and shared by every level of every tree fitted on it; None on
+    the CPU, where routing reads B itself."""
     return tree_kernels.feature_major(B) if B.is_cuda else None
 
 
@@ -732,12 +733,6 @@ def _bin_features_pop(X, edges_pop):
     for p, e in enumerate(edges_pop):
         out[p] = bin_features(X, e)
     return out
-
-
-def _pop_codes_T(B):
-    """The routing kernel's feature-major stack of a population's bin
-    matrices on the card; None on the CPU."""
-    return torch.stack([_route_codes(b) for b in B]) if B.is_cuda else None
 
 
 def _fit_forest_pop_batch(B, code_idx, y, w_pop, draws, bin_mask,

@@ -286,7 +286,7 @@ class _TreePopulation(_Population):
                 e[:, :nb_c - 1] = trees.quantile_edges(sample, nb_c)
             edges.append(runtime.replicate(e))
         self.B = trees._bin_features_pop(self.X_dev, edges)
-        self.codes_T = trees._pop_codes_T(self.B)
+        self.codes_T = trees._route_codes(self.B)
         self.code_idx = list(self.rep([mats.index(b) for b in nbins]))
         bmask = np.zeros((len(configs), self.n_bins), np.float32)
         lallow = np.zeros((len(configs), self.max_depth), bool)

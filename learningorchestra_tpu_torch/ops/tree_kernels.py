@@ -39,7 +39,8 @@ can show which kernels it went through: a one-slice launch under the
 kernel's name, a launch of more slices under ``<name>_slices``.
 Public layouts are the JAX package's: histograms (n_nodes, d, n_bins, S),
 leaf stats (S, M), node ids int32; the routing kernel also reads a
-feature-major (d, n) copy of the codes, made once per bin matrix.
+feature-major (d, n) copy of the codes, made once per bin matrix, or
+(P, d, n) for a stack of P matrices in one launch.
 """
 
 from __future__ import annotations
@@ -136,7 +137,7 @@ _LIB = CudaLibrary("tree_kernels", {
     "lo_tree_leaf_i32": [_P] * 5 + [_I] * 8 + [_P],
     "lo_tree_leaf_i32_fixed": [_P] * 5 + [_I] * 8 + [_P],
     "lo_tree_route": [_P] * 9 + [_I] * 5 + [_P],
-    "lo_feature_major": [_P] * 2 + [_I] * 2 + [_P],
+    "lo_feature_major": [_P, _L, _P] + [_I] * 6 + [_P],
     "lo_tree_descend": [_P] * 4 + [_L] + [_P] * 4 + [_I] * 13 + [_P],
     "lo_atoms_probe": [_I] * 3 + [_P] * 2,
 })
@@ -735,24 +736,80 @@ def check_node_features(d: int) -> None:
 # K2 — per-level routing
 # ---------------------------------------------------------------------------
 
+#: Tiles of the feature-major copy (kTransRows, kTransFeats in
+#: csrc/tree_kernels.cu): rows come in groups of TRANS_GROUP, one 16-B
+#: store a lane; rows up to TRANS_FEATS wide are staged whole, as one span.
+TRANS_ROWS = 1024
+TRANS_FEATS = 32
+TRANS_GROUP = 16
+
+
+class FeatureMajorPlan(NamedTuple):
+    """Launch shape of ``feature_major`` (``feature_major_plan``)."""
+    span: bool        # a tile's rows staged whole, as one contiguous span
+    pitch: int        # bytes a staged row takes
+    pad: int          # 16-B pads after each staged 16-row group
+    feat_tiles: int   # feature tiles a row tile
+    row_tiles: int    # row tiles a matrix
+    store: str        # "aligned": every feature's output row 16-B
+                      # aligned; "shifted": 16-B stores across two lanes
+    smem_bytes: int   # dynamic shared memory of a block
+
+
+def feature_major_plan(n: int, d: int,
+                       out_addr: int = 0) -> FeatureMajorPlan:
+    """Launch shape of ``feature_major`` for (n, d) matrices written at
+    device address ``out_addr`` (each matrix d·n bytes after the last).
+    Rows of at most TRANS_FEATS bytes are staged whole, a tile of
+    TRANS_ROWS rows as one span; wider rows in tiles of TRANS_FEATS
+    features. A staged row takes ``pitch`` bytes (d, or TRANS_FEATS), and
+    where that is even a 16-B pad follows each 16-row group, so that
+    groups lie an odd number of 16-B chunks apart (the transpose's
+    shared reads). Stores are 16 B a lane; where n is a multiple of 16
+    and the output 16-B aligned every feature's row is ("aligned"), else
+    each 16-B aligned block straddles two lanes' rows ("shifted"), and the
+    kernel finds each row's offset itself."""
+    if n < 1 or d < 1:
+        raise ValueError(f"no feature-major plan for ({n}, {d}) codes")
+    span = d <= TRANS_FEATS
+    pitch = d if span else TRANS_FEATS
+    pad = 1 - pitch % 2
+    store = "aligned" if n % 16 == 0 and out_addr % 16 == 0 else "shifted"
+    groups = TRANS_ROWS // TRANS_GROUP
+    smem = 16 * (-(-(TRANS_ROWS * pitch + 32) // 16) + pad * (groups + 3))
+    return FeatureMajorPlan(span, pitch, pad, -(-d // TRANS_FEATS),
+                            -(-n // TRANS_ROWS), store, smem)
+
+
 def feature_major_ref(codes: torch.Tensor) -> torch.Tensor:
     """Plain version of ``feature_major``."""
-    return codes.t().contiguous()
+    return codes.transpose(-1, -2).contiguous()
 
 
 def feature_major(codes: torch.Tensor) -> torch.Tensor:
-    """The (d, n) feature-major copy of (n, d) uint8 bin codes that
-    ``tree_route_level`` reads on the card: a tiled transpose kernel
-    there. Make it once per bin matrix and pass it to every level of
-    every tree."""
+    """The feature-major copy of uint8 bin codes that
+    ``tree_route_level`` reads on the card: (n, d) → (d, n), or a stack
+    (P, n, d) → (P, d, n) in one launch — a tiled transpose kernel there
+    (``feature_major_plan``). Make it once per bin matrix, or once per
+    stack, and pass it to every level of every tree."""
+    if codes.dim() not in (2, 3) or codes.dtype != torch.uint8:
+        raise ValueError(f"codes: expected uint8 (n, d) or (P, n, d), got "
+                         f"{codes.dtype} {tuple(codes.shape)}")
     if not _on_cuda(codes):
         return feature_major_ref(codes)
-    n, d = codes.shape
-    _need(codes, "codes", torch.uint8, (n, d))
-    out = torch.empty((d, n), dtype=torch.uint8, device=codes.device)
-    _check(_library().lo_feature_major(codes.data_ptr(), out.data_ptr(), n,
-                                       d, _stream(codes.device)),
-           "feature_major")
+    _need(codes, "codes", torch.uint8, tuple(codes.shape))
+    P, n, d = (1,) * (3 - codes.dim()) + tuple(codes.shape)
+    if P > 65535:
+        raise ValueError(f"{P} bin matrices exceed a launch's 65,535")
+    out = torch.empty(codes.shape[:-2] + (d, n), dtype=torch.uint8,
+                      device=codes.device)
+    if out.numel() == 0:
+        return out
+    plan = feature_major_plan(n, d, out.data_ptr())
+    _check(_library().lo_feature_major(
+        codes.data_ptr(), n * d, out.data_ptr(), n, d, P, plan.feat_tiles,
+        plan.row_tiles, plan.smem_bytes, _stream(codes.device)),
+        "feature_major")
     _count("feature_major")
     return out
 
@@ -837,8 +894,7 @@ def tree_route_level_slices(codes, code_idx, rel, active, assign, best_f,
     best_f, best_t = best_f.int().contiguous(), best_t.int().contiguous()
     split = split.bool().contiguous()
     if codes_T is None:
-        codes_T = (feature_major(codes[0])[None] if P == 1
-                   else torch.stack([feature_major(c) for c in codes]))
+        codes_T = feature_major(codes)
     dev = codes.device
     idx = slice_index(code_idx, P, dev)
     out = torch.empty((G, n), dtype=torch.int32, device=dev)

@@ -751,3 +751,254 @@ def test_hist_copies_sum_within_the_row_cap(replicas):
         plan = tk.hist_plan(n, d, nb, S, 32, 132, 24, live)
         grid = tk.hist_grid(n, d, nb, S, 32, 132, 24, live)
         assert plan.rows <= grid.replicas * tk.HIST_MAX_ROWS
+
+
+# ---------------------------------------------------------------------------
+# The feature-major copy: the stack form, its plan, the kernel's layout
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("P,n,d", [(1, 1, 1), (2, 17, 28), (3, 15, 33),
+                                   (2, 1025, 6), (4, 40, 300)])
+def test_feature_major_stack_matches_numpy(P, n, d):
+    """A (P, n, d) stack is one call: (P, d, n), numpy's transpose of the
+    last two axes, and each matrix the one-matrix copy's."""
+    codes = np.random.default_rng(20).integers(0, 256, (P, n, d)).astype(
+        np.uint8)
+    out = tk.feature_major(torch.from_numpy(codes))
+    assert out.shape == (P, d, n) and out.is_contiguous()
+    np.testing.assert_array_equal(out.numpy(), codes.transpose(0, 2, 1))
+    for p in range(P):
+        np.testing.assert_array_equal(
+            out[p].numpy(), tk.feature_major(torch.from_numpy(codes[p])))
+
+
+@pytest.mark.parametrize("bad", ["one_axis", "four_axes", "dtype", "device"])
+def test_feature_major_refuses_bad_codes(bad):
+    codes = torch.zeros((2, 16, 6), dtype=torch.uint8)
+    codes = {"one_axis": codes[0, 0], "four_axes": codes[None],
+             "dtype": codes.int(), "device": codes.to("meta")}[bad]
+    with pytest.raises(ValueError):
+        tk.feature_major(codes)
+
+
+@pytest.mark.parametrize("P,G,n,d,nb,NL", [(2, 5, 517, 28, 256, 16),
+                                           (3, 4, 1001, 6, 32, 4)])
+def test_route_slices_with_the_stack_match_pallas(P, G, n, d, nb, NL):
+    """Routing G slices over a stack of P bin matrices, given the stack's
+    feature-major copy (one call): each slice equals the Pallas kernel on
+    its own matrix, and so does the routing kernel's packed arithmetic
+    reading that matrix of the copy."""
+    rng = np.random.default_rng(21)
+    codes = rng.integers(0, nb, (P, n, d)).astype(np.uint8)
+    code_idx = [g % P for g in range(G)]
+    per = [_route_inputs(n, d, nb, NL, seed=30 + g)[1:] for g in range(G)]
+    rel, active, assign, best_f, best_t, split = (np.stack(x)
+                                                  for x in zip(*per))
+    codes_T = tk.feature_major(torch.from_numpy(codes))
+    got = tk.tree_route_level_slices(
+        torch.from_numpy(codes), code_idx,
+        *map(torch.from_numpy, (rel, active, assign, best_f, best_t, split)),
+        codes_T=codes_T).numpy()
+    for g, p in enumerate(code_idx):
+        ref = np.asarray(pk.tree_route_level(
+            *map(jnp.asarray, (codes[p], rel[g], active[g], assign[g],
+                               best_f[g], best_t[g], split[g])),
+            tile=pk.TREE_ROUTE_TILE))
+        np.testing.assert_array_equal(got[g], ref)
+        words = _pack(best_f[g], best_t[g], split[g], d)
+        np.testing.assert_array_equal(
+            _route_packed(codes_T[p].numpy(), rel[g], active[g], assign[g],
+                          words), ref)
+
+
+def _trans_reach(plan):
+    """The last shared byte a feature-major tile can touch, plus one: its
+    first row up to 15 bytes into its first chunk, a second word read
+    past its last row's last feature group, and the pads."""
+    R = tk.TRANS_ROWS
+    return R * plan.pitch + 15 + 8 + 16 * plan.pad * (R // tk.TRANS_GROUP
+                                                      + 1)
+
+
+@pytest.mark.parametrize("n", [1, 3, 15, 17, 1025, 1_000_003, 11_000_000])
+@pytest.mark.parametrize("d", [1, 6, 28, 32, 33, 128, 300, 784])
+def test_feature_major_plan_at_the_edges(n, d):
+    """Rows up to TRANS_FEATS bytes are staged whole; 16-row groups of
+    staged rows lie an odd number of 16-B chunks apart (the shared reads'
+    banks); the tile fits the default shared memory and holds every byte
+    a tile touches; the tiles cover the matrix; stores are aligned only
+    where every feature's output row is."""
+    plan = tk.feature_major_plan(n, d)
+    assert plan.span == (d <= tk.TRANS_FEATS)
+    assert plan.pitch == min(d, tk.TRANS_FEATS)
+    assert (plan.pitch + plan.pad) % 2 == 1 and plan.pad in (0, 1)
+    assert _trans_reach(plan) <= plan.smem_bytes <= 48 * 1024
+    assert plan.smem_bytes % 16 == 0
+    assert (plan.feat_tiles - 1) * tk.TRANS_FEATS < d
+    assert plan.feat_tiles * tk.TRANS_FEATS >= d
+    assert (plan.row_tiles - 1) * tk.TRANS_ROWS < n
+    assert plan.row_tiles * tk.TRANS_ROWS >= n
+    assert plan.row_tiles * plan.feat_tiles < 2 ** 31
+    assert plan.store == ("aligned" if n % 16 == 0 else "shifted")
+    for addr in (4, 8, 3):
+        assert tk.feature_major_plan(n, d, addr).store == "shifted"
+    with pytest.raises(ValueError):
+        tk.feature_major_plan(0, d)
+
+
+def _prmt(x, y, s):
+    """__byte_perm: result byte i is byte (s >> 4i) & 7 of y:x."""
+    b = int(x).to_bytes(4, "little") + int(y).to_bytes(4, "little")
+    return int.from_bytes(bytes(b[(s >> 4 * i) & 7] for i in range(4)),
+                          "little")
+
+
+def _emulate_feature_major(mem, base, n, d, P, out_addr, rng):
+    """feature_major_kernel of csrc/tree_kernels.cu, byte for byte: codes
+    at ``base`` of the byte array ``mem`` (matrices n·d bytes apart), the
+    output at device address ``out_addr``; shared memory starts as
+    noise. Each block stages its tile where the kernel does (its chunks
+    with a pad after every pitch of them, or strided rows with the
+    widest copy base and d allow), reads 32-bit words (two and a funnel
+    shift where rows are not word-aligned, asserting every read is
+    aligned and inside the tile), transposes 4 × 4 byte blocks with
+    byte permutes, and stores as a warp does: 16 B a lane, shifted
+    across two lanes where a feature's row is not 16-B aligned, bytes at
+    a warp's ends and a ragged tail. Returns (P, d, n) and how often
+    each output byte was written."""
+    plan = tk.feature_major_plan(n, d, out_addr)
+    R, FW, GR = tk.TRANS_ROWS, tk.TRANS_FEATS, tk.TRANS_GROUP
+    pitch, pad = plan.pitch, plan.pad
+    out = np.zeros(P * d * n, np.uint8)
+    writes = np.zeros(P * d * n, np.int64)
+    for z in range(P):
+        mb = base + z * n * d
+        for bx in range(plan.row_tiles * plan.feat_tiles):
+            ft, r0 = bx % plan.feat_tiles, bx // plan.feat_tiles * R
+            rows, f0 = min(R, n - r0), ft * FW
+            F = min(FW, d - f0)
+            smem = rng.integers(0, 256, plan.smem_bytes).astype(np.uint8)
+            off = 0
+            if plan.span:
+                off = (mb + r0 * d) & 15
+                g0 = (mb + r0 * d) & ~15
+                for c in range(((mb + (r0 + rows) * d + 15) & ~15) - g0 >> 4):
+                    g, ph = g0 + 16 * c, 16 * (c + pad * (c // pitch))
+                    for i in range(16):
+                        ok = mb <= g + i < mb + n * d
+                        smem[ph + i] = mem[g + i] if ok else 0
+            else:
+                a = (mb + f0) | d
+                v = next(w for w in (16, 8, 4, 1) if a % w == 0)
+                for r in range(rows):
+                    for j in range(0, F, v):
+                        src = mb + (r0 + r) * d + f0 + j
+                        s = r * FW + 16 * (r // GR) + j
+                        k = min(v, F - j)
+                        smem[s:s + k] = mem[src:src + k]
+                        smem[s + k:s + v] = 0
+            aligned = off % 4 == 0 and pitch % 4 == 0
+
+            def word(grp, u):
+                t = u >> 4
+                p = grp + u + 16 * pad * ((t >= pitch) + (t >= 2 * pitch))
+                assert p % 4 == 0 and p + 4 <= plan.smem_bytes
+                return int.from_bytes(bytes(smem[p:p + 4]), "little")
+
+            for q in range(-(-F // 4)):
+                for gb in range(0, R // GR, 32):
+                    if gb * GR >= rows:
+                        continue
+                    lanes = []
+                    for g in range(gb, gb + 32):
+                        grp = 16 * (pitch + pad) * g
+                        o = np.zeros((4, 4), np.int64)
+                        for i in range(4):
+                            w = []
+                            for k in range(4):
+                                u = off + (4 * i + k) * pitch + 4 * q
+                                if aligned:
+                                    w.append(word(grp, u))
+                                    continue
+                                lo, hi = word(grp, u & ~3), word(grp,
+                                                                 (u & ~3) + 4)
+                                w.append((hi << 32 | lo) >> 8 * (u & 3)
+                                         & 0xFFFFFFFF)
+                            t0, t1 = (_prmt(w[0], w[1], s)
+                                      for s in (0x5140, 0x7362))
+                            t2, t3 = (_prmt(w[2], w[3], s)
+                                      for s in (0x5140, 0x7362))
+                            o[:, i] = [_prmt(t0, t2, 0x5410),
+                                       _prmt(t0, t2, 0x7632),
+                                       _prmt(t1, t3, 0x5410),
+                                       _prmt(t1, t3, 0x7632)]
+                        lanes.append(o)
+                    for j in range(min(4, F - 4 * q)):
+                        ys = [np.frombuffer(b"".join(
+                            int(x).to_bytes(4, "little") for x in o[j]),
+                            np.uint8) for o in lanes]
+                        for lane in range(32):
+                            g = gb + lane
+                            mine = min(max(rows - g * GR, 0), GR)
+                            nxt = min(max(rows - (g + 1) * GR, 0), GR)
+                            dst = (z * d + f0 + 4 * q + j) * n + r0 + g * GR
+                            m = (out_addr + dst) & 15
+
+                            def put(at, data, align):
+                                assert (out_addr + at) % align == 0
+                                out[at:at + len(data)] = data
+                                writes[at:at + len(data)] += 1
+                            y = ys[lane]
+                            if m == 0:
+                                if mine == GR:
+                                    put(dst, y, 16)
+                                else:
+                                    for p in range(mine):
+                                        put(dst + p, y[p:p + 1], 1)
+                                continue
+                            s = GR - m
+                            own = lane < 31 and mine == GR and nxt >= s
+                            prev = lane > 0 and rows >= g * GR and mine >= s
+                            if own:
+                                put(dst + s, np.concatenate(
+                                    [y, ys[lane + 1]])[s:s + 16], 16)
+                            for p in range(s if prev else 0,
+                                           s if own else mine):
+                                put(dst + p, y[p:p + 1], 1)
+    return out.reshape(P, d, n), writes
+
+
+@pytest.mark.parametrize("n,d", [(1, 1), (3, 6), (15, 28), (17, 28),
+                                 (17, 33), (40, 300), (33, 784), (1025, 6),
+                                 (1025, 32)])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_feature_major_kernel_layout_transposes(n, d, offset):
+    """The kernel's staging, shared reads, byte permutes and stores,
+    emulated byte for byte (``_emulate_feature_major``), give the
+    transpose at the sweep's edge shapes from a base ``offset`` bytes off
+    a 16-B boundary, every output byte written exactly once."""
+    rng = np.random.default_rng(22)
+    codes = rng.integers(0, 256, (n, d)).astype(np.uint8)
+    base = 64 + offset
+    mem = rng.integers(0, 256, base + n * d + 64).astype(np.uint8)
+    mem[base:base + n * d] = codes.reshape(-1)
+    got, writes = _emulate_feature_major(mem, base, n, d, 1, 0, rng)
+    np.testing.assert_array_equal(got[0], codes.T)
+    assert (writes == 1).all()
+
+
+@pytest.mark.parametrize("P,n,d,offset,out_addr", [
+    (2, 17, 28, 0, 0), (3, 40, 6, 5, 0), (2, 33, 300, 0, 4),
+    (2, 64, 28, 0, 3)])
+def test_feature_major_kernel_layout_stacks(P, n, d, offset, out_addr):
+    """The emulated kernel over a stack (matrices n·d bytes apart, so
+    each may start at another alignment) and into an output that is not
+    16-B aligned."""
+    rng = np.random.default_rng(23)
+    codes = rng.integers(0, 256, (P, n, d)).astype(np.uint8)
+    base = 64 + offset
+    mem = rng.integers(0, 256, base + codes.size + 64).astype(np.uint8)
+    mem[base:base + codes.size] = codes.reshape(-1)
+    got, writes = _emulate_feature_major(mem, base, n, d, P, out_addr, rng)
+    np.testing.assert_array_equal(got, codes.transpose(0, 2, 1))
+    assert (writes == 1).all()
