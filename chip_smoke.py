@@ -74,7 +74,14 @@ Phases, one JSON line each (any failure exits non-zero):
    ``ModelBuilder.build`` of all five families (lr, dt, rf, gb, nb) at
    their defaults, then ``ModelBuilder.predict`` with the saved gb model;
    accuracies above the floors, every tree family above lr, and every
-   tree kernel launched during the run;
+   tree kernel launched during the run; then forest_batch: rf (20
+   trees) at the sweep's shape and edges fitted as ``fit_rf`` fits it
+   (four ``_build_trees`` calls of 5 slices, a slice launch a level a
+   batch) and, with the batch width set to 1 from this script, grown
+   one tree a call (the draws in the serial order), in turns (batched,
+   one tree a call, one tree a call, batched): every tree
+   bit-identical, each run's wall ms, launches and allocator peak, with
+   the card's name and power limit;
 7. streamed: the same catalog built again with ``stream_design`` set
    (the out-of-core path: the design state fitted in streaming passes,
    the design matrix fed to the card block by block through two pinned
@@ -139,8 +146,11 @@ Phases, one JSON line each (any failure exits non-zero):
    generator, 3 folds and 3 halving rungs each; per family its waves,
    halving drops, winner and mean score, seconds, the job's
    ``peak_hbm_bytes``, the allocator's peak beside the modeled wave
-   footprint, the kernels' launches (dt, rf and gb through every slice
-   form), K1's and K3's device milliseconds (a CUDA-only profile of the
+   footprint, the slices of each ``_build_trees`` call (dt and rf grow
+   a tree batch of as many live members as ``tune_max_population``
+   slices hold in one), the kernels' launches (dt, rf and gb through
+   every slice form), K1's and K3's device milliseconds (a CUDA-only
+   profile of the
    sweep) and the board (every member's fold scores, the same bits
    whichever kernels' design ran them); each winner answers
    ``ModelBuilder.predict`` and an
@@ -220,6 +230,7 @@ Then a ``{"kernels": [...]}`` line and, as the last line,
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import os
@@ -316,6 +327,10 @@ ATOMS_ROUNDS = 256
 #: Rows and launches a thread of the concurrent-launch check.
 CONCURRENT_ROWS = 1 << 16
 CONCURRENT_LAUNCHES = 10000
+#: The forest_batch check: the sweep's rf (fit_rf's defaults: 20 trees
+#: in 4 batches of 5, depth 5, 32 bins), and its tree params.
+FOREST_TREES = 20
+FOREST_PARAMS = ("feat", "thr", "internal", "leaf")
 
 
 def check(ok, what) -> None:
@@ -2630,7 +2645,7 @@ def tune_path(cfg, store, dev) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from benchmarks.workload import higgs_like_columns
-    from learningorchestra_tpu_torch.models import tune
+    from learningorchestra_tpu_torch.models import trees, tune
     from learningorchestra_tpu_torch.models.registry import get_trainer
     from learningorchestra_tpu_torch.ops import preprocess
     from learningorchestra_tpu_torch.ops import tree_kernels as tk
@@ -2662,7 +2677,8 @@ def tune_path(cfg, store, dev) -> dict:
             tk.reset_launch_counts()
             # The kernels' device time in the sweep: CUDA activity only
             # (every thread's launches), grouped by kernel.
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof, \
+                    build_slices() as slices:
                 t0 = time.time()
                 status, body = client.call("POST", "/tune", {
                     "training_filename": ds, "tune_filename": name,
@@ -2684,6 +2700,18 @@ def tune_path(cfg, store, dev) -> dict:
                   and all(np.isfinite(r["mean_score"])
                           for r in board["results"]),
                   f"{fam}: board {board}")
+            if fam in ("dt", "rf"):
+                # The first tree batch of every member, in _build_trees
+                # calls of as many members as tune_max_population holds.
+                tb = trees._forest_batch_shape(
+                    tune.forest_size(fam, configs))[0]
+                per_call = max(1, cfg.tune_max_population // tb) * tb
+                total_slices = len(configs) * TUNE_FOLDS * tb
+                first = [min(per_call, total_slices - i)
+                         for i in range(0, total_slices, per_call)]
+                check(slices[:len(first)] == first
+                      and max(slices) <= cfg.tune_max_population,
+                      f"{fam} sweep's _build_trees slices {slices}")
             if fam in ("dt", "rf", "gb"):
                 for k in tk.SLICED:
                     check(launches[f"{k}_slices"] > 0,
@@ -2725,7 +2753,8 @@ def tune_path(cfg, store, dev) -> dict:
                 "peak_hbm_bytes": peak,
                 "allocator_peak_bytes": allocator_peak,
                 "modeled_wave_bytes": members * tune._per_member_bytes(
-                    fam, n_rows, 28, 2),
+                    fam, n_rows, 28, 2, tune.forest_size(fam, configs)),
+                "build_slices": list(slices),
                 "launches": {k: v for k, v in launches.items() if v},
                 "device_ms": tune_device_ms(prof),
                 # Every member's fold scores: runs of other kernels must
@@ -3701,6 +3730,111 @@ def utilization(kind: str, n_train: int, fit_time: float,
             "card": card_line()}
 
 
+@contextlib.contextmanager
+def build_slices():
+    """The slice count of every ``trees._build_trees`` call made while
+    the block runs (from any thread): a list, filled in call order."""
+    from learningorchestra_tpu_torch.models import trees
+
+    calls = []
+    real = trees._build_trees
+
+    def counted(B, code_idx, *a, **kw):
+        calls.append(len(code_idx))
+        return real(B, code_idx, *a, **kw)
+
+    trees._build_trees = counted
+    try:
+        yield calls
+    finally:
+        trees._build_trees = real
+
+
+@contextlib.contextmanager
+def one_tree_a_call():
+    """While the block runs, dt/rf fits grow one tree a ``_build_trees``
+    call (a batch width of 1, each tree's draws taken after the last
+    tree's, as the batched fit takes them): the forest the batched fit
+    must give, bit for bit."""
+    from learningorchestra_tpu_torch.models import trees
+
+    real = trees._forest_batch_shape
+    trees._forest_batch_shape = lambda n_trees: (1, n_trees)
+    try:
+        yield
+    finally:
+        trees._forest_batch_shape = real
+
+
+def forest_batch_path(store, runtime, dev) -> None:
+    """rf at the sweep's shape, batched as ``fit_rf`` grows it against
+    one tree a call, in turns: every tree bit-identical, each run's wall
+    ms, ``_build_trees`` slices, launches and allocator peak."""
+    import torch
+
+    from learningorchestra_tpu_torch.models import trees
+    from learningorchestra_tpu_torch.ops import preprocess
+    from learningorchestra_tpu_torch.ops import tree_kernels as tk
+
+    train = store.get("train")
+    X, y, _, _ = train.memo(("design", "label", json.dumps([])),
+                            lambda: preprocess.design_matrix(
+                                train, "label", ()))
+    edges = trees._edge_prep(X)["edges"]
+    tb, nb = trees._forest_batch_shape(FOREST_TREES)
+
+    def batched():
+        params = trees.fit_rf(runtime, X, y, 2, n_trees=FOREST_TREES,
+                              edges=edges).params
+        return {k: params[k] for k in FOREST_PARAMS}
+
+    def one_tree_each():
+        with one_tree_a_call():
+            return batched()
+
+    runs, forests = [], []
+    for path, fn in (("batched", batched), ("one_tree_a_call",
+                                            one_tree_each),
+                     ("one_tree_a_call", one_tree_each),
+                     ("batched", batched)):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        tk.reset_launch_counts()
+        with build_slices() as calls:
+            t0 = time.time()
+            forest = fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.time() - t0) * 1e3
+        launches = tk.launch_counts()
+        runs.append({"path": path, "wall_ms": wall_ms,
+                     "build_calls": list(calls),
+                     "launches": {k: v for k, v in launches.items() if v},
+                     "allocated_before_bytes": before,
+                     "allocator_peak_bytes":
+                         torch.cuda.max_memory_allocated(dev)})
+        forests.append(forest)
+        levels = 5 * (nb if path == "batched" else FOREST_TREES)
+        name = "tree_histogram_slices" if path == "batched" else \
+            "tree_histogram"
+        check(calls == ([tb] * nb if path == "batched"
+                        else [1] * FOREST_TREES),
+              f"forest_batch {path}: _build_trees slices {calls}")
+        check(launches[name] == levels
+              and launches[name.replace("histogram", "route_level")]
+              == levels,
+              f"forest_batch {path}: launches {launches}")
+        del forest
+    for i, forest in enumerate(forests[1:], 1):
+        for k in FOREST_PARAMS:
+            check(torch.equal(forest[k], forests[0][k]),
+                  f"forest_batch: run {i} ({runs[i]['path']}) param {k} "
+                  "differs from the batched fit's")
+    emit({"phase": "forest_batch", "card": card_line(), "rows": len(X),
+          "trees": FOREST_TREES, "batch": [tb, nb], "runs": runs,
+          "trees_equal": True})
+
+
 def main_path(n_train: int, n_test: int, dev) -> dict:
     """The sweep, then the streamed build, the exploration path and the
     REST server in the same catalog; each path's launch counts are reset
@@ -3783,6 +3917,7 @@ def main_path(n_train: int, n_test: int, dev) -> dict:
               "predict_s": predict_s, "spans_s": spans,
               "launches_build": build_counts, "launches_total": counts,
               "peak_device_bytes": torch.cuda.max_memory_allocated(dev)})
+        forest_batch_path(store, runtime, dev)
         phases = [counts,
                   streamed_path(cfg, store, runtime, dev, acc, spans,
                                 build_s),

@@ -390,36 +390,49 @@ def _fit_cls_trees(kind, runtime, X, y, num_classes, seed, *, n_trees,
     # ones every rank draws from ``gen``.
     row_gen = _shard_generator(runtime, seed) if valid is not None else None
 
-    def one_tree(t):
+    tb, nb = _forest_batch_shape(n_trees)
+
+    def one_batch(b):
+        """Batch b's trees (``_forest_batch_shape``) grown as the slices
+        of one ``_build_trees`` call: the kernels launch once a level for
+        the batch, as the JAX package's vmapped tree batch does. Each
+        tree's draws come from the generators in the serial order, so
+        every tree is the one a one-tree build gives it."""
         if n_trees == 1:
-            stats = base_stats
-            fmask = torch.zeros((d,), dtype=torch.float32, device=dev)
+            stats = base_stats[None]
+            fmask = torch.zeros((1, d), dtype=torch.float32, device=dev)
         else:
-            if row_gen is None:
-                w, allowed = _tree_draw(n_local, d, mtry, gen, dev)
-            else:
-                w = _poisson_rows(n_local, row_gen, dev)
-                allowed = _feature_draw(d, mtry, gen, dev)
-            if weights is not None:
-                w, _ = runtime.shard_rows(
-                    np.asarray(weights[t], np.float32))
-            if feature_allowed is not None:
-                allowed = torch.as_tensor(feature_allowed[t], device=dev)
-            stats = base_stats * w[None, :]
-            fmask = torch.where(allowed.bool(), 0.0, NEG).float()
-        return _build_tree(
-            B, stats.contiguous(), fmask, max_depth=max_depth,
+            ts = range(b * tb, min((b + 1) * tb, n_trees))
+            stats = torch.empty((len(ts),) + base_stats.shape,
+                                dtype=base_stats.dtype, device=dev)
+            fmask = torch.empty((len(ts), d), dtype=torch.float32,
+                                device=dev)
+            for i, t in enumerate(ts):
+                if row_gen is None:
+                    w, allowed = _tree_draw(n_local, d, mtry, gen, dev)
+                else:
+                    w = _poisson_rows(n_local, row_gen, dev)
+                    allowed = _feature_draw(d, mtry, gen, dev)
+                if weights is not None:
+                    w, _ = runtime.shard_rows(
+                        np.asarray(weights[t], np.float32))
+                if feature_allowed is not None:
+                    allowed = torch.as_tensor(feature_allowed[t], device=dev)
+                torch.mul(base_stats, w[None, :], out=stats[i])
+                fmask[i] = torch.where(allowed.bool(), 0.0, NEG)
+        return _build_trees(
+            B[None], (0,) * len(stats), stats, fmask, max_depth=max_depth,
             n_bins=n_bins, gain_fn=_gini_gain,
             weight_fn=lambda s: s.sum(-1), min_child_weight=1.0,
-            min_gain=1e-9, codes_T=B_T, mesh=mesh)
+            min_gain=1e-9, codes_T=None if B_T is None else B_T[None],
+            mesh=mesh)
 
-    if (ckpt is not None and ckpt.enabled
-            and _forest_batch_shape(n_trees)[1] > 1):
+    if ckpt is not None and ckpt.enabled and nb > 1:
         feat, thr, internal, leaf = _run_forest_checkpointed(
-            ckpt, one_tree, gen, n_trees, dev)
+            ckpt, one_batch, gen, n_trees, dev)
     else:
-        trees = [one_tree(t) for t in range(n_trees)]
-        feat, thr, internal, leaf = (torch.stack(p) for p in zip(*trees))
+        batches = [one_batch(b) for b in range(nb)]
+        feat, thr, internal, leaf = (torch.cat(p) for p in zip(*batches))
     params = {"edges": runtime.replicate(edges), "feat": feat, "thr": thr,
               "internal": internal, "leaf": leaf}
     return TrainedModel(
@@ -430,13 +443,14 @@ def _fit_cls_trees(kind, runtime, X, y, num_classes, seed, *, n_trees,
                  "n_bins": n_bins})
 
 
-def _run_forest_checkpointed(ckpt, one_tree, gen, n_trees, dev):
-    """The forest fitted batch by batch (``_forest_batch_shape``), with a
-    checkpoint at every batch boundary but the last. Every tree draws
-    its bootstrap from the one generator, so the checkpoint carries the
-    generator's state beside the trees done, and a resume restores it:
-    the resumed trees see the draws an uninterrupted fit gives them, and
-    the stacked result is bit-identical to it."""
+def _run_forest_checkpointed(ckpt, one_batch, gen, n_trees, dev):
+    """The forest fitted batch by batch (``_forest_batch_shape``;
+    ``one_batch(b)`` grows batch b), with a checkpoint at every batch
+    boundary but the last. Every tree draws its bootstrap from the one
+    generator, so the checkpoint carries the generator's state beside
+    the trees done, and a resume restores it: the resumed trees see the
+    draws an uninterrupted fit gives them, and the stacked result is
+    bit-identical to it."""
     tb, nb = _forest_batch_shape(n_trees)
     host: dict = {}
     done = 0
@@ -448,10 +462,7 @@ def _run_forest_checkpointed(ckpt, one_tree, gen, n_trees, dev):
         host = {k: arrays[k] for k in _TREE_PARAMS}
         gen.set_state(torch.from_numpy(arrays["gen_state"].copy()))
     for b in range(done // tb, nb):
-        trees = [one_tree(t) for t in range(b * tb, min((b + 1) * tb,
-                                                        n_trees))]
-        seg = _host_params(_TREE_PARAMS, (torch.stack(p)
-                                          for p in zip(*trees)))
+        seg = _host_params(_TREE_PARAMS, one_batch(b))
         host = ({k: np.concatenate([host[k], seg[k]]) for k in _TREE_PARAMS}
                 if host else seg)
         jobs.heartbeat()
@@ -738,27 +749,37 @@ def _bin_features_pop(X, edges_pop):
 def _fit_forest_pop_batch(B, code_idx, y, w_pop, draws, bin_mask,
                           level_allow, *, num_classes, max_depth, n_bins,
                           codes_T=None):
-    """One batch of trees for the live members of a dt/rf population: for
-    each tree of the batch, one ``_build_trees`` call whose G slices are
-    the members. B (P, n, d) with member m on matrix code_idx[m]; w_pop
-    (G, n) row weights (fold membership); draws: per tree, (boot (G, n)
-    Poisson weights or None for dt, fmask (G, d)); bin_mask (G, n_bins),
-    level_allow (G, max_depth). Stats are the serial fit's: class one-hot
-    × row weights × bootstrap. Returns (feat, thr, internal, leaf) with a
-    (G, trees) leading shape."""
+    """One batch of trees for the live members of a dt/rf population, in
+    one ``_build_trees`` call whose G · T slices are each member's T
+    trees (member-major; a slice reads its member's matrix). B (P, n, d)
+    with member m on matrix code_idx[m]; w_pop (G, n) row weights (fold
+    membership); draws: per tree, (boot, fmask (G, d)) with boot None
+    for dt, else G (n,) Poisson weights, one a member (a config's folds
+    share one tensor); bin_mask (G, n_bins), level_allow (G, max_depth).
+    Stats are the serial fit's: class one-hot × row weights × bootstrap.
+    Returns (feat, thr, internal, leaf) with a (G, T) leading shape."""
+    G, T = len(code_idx), len(draws)
     classes = torch.arange(num_classes, dtype=y.dtype, device=y.device)
     base = ((y[None, None, :] == classes[None, :, None]).float()
             * w_pop[:, None, :])                                 # (G, C, n)
-    outs = []
-    for boot, fmask in draws:
-        stats = base if boot is None else base * boot[:, None, :]
-        outs.append(_build_trees(
-            B, code_idx, stats.contiguous(), fmask, max_depth=max_depth,
-            n_bins=n_bins, gain_fn=_gini_gain,
-            weight_fn=lambda s: s.sum(-1), min_child_weight=1.0,
-            min_gain=1e-9, codes_T=codes_T, bin_gain_mask=bin_mask,
-            level_allow=level_allow))
-    return tuple(torch.stack(p, dim=1) for p in zip(*outs))
+    if draws[0][0] is None:
+        stats = base
+    else:
+        stats = torch.empty((G, T) + base.shape[1:], dtype=base.dtype,
+                            device=base.device)
+        for t, (boot, _) in enumerate(draws):
+            for m in range(G):
+                torch.mul(base[m], boot[m][None, :], out=stats[m, t])
+        stats = stats.reshape((G * T,) + base.shape[1:])
+    fmask = torch.stack([f for _, f in draws], dim=1).reshape(G * T, -1)
+    out = _build_trees(
+        B, [i for i in code_idx for _ in range(T)], stats, fmask,
+        max_depth=max_depth, n_bins=n_bins, gain_fn=_gini_gain,
+        weight_fn=lambda s: s.sum(-1), min_child_weight=1.0,
+        min_gain=1e-9, codes_T=codes_T,
+        bin_gain_mask=bin_mask.repeat_interleave(T, dim=0),
+        level_allow=level_allow.repeat_interleave(T, dim=0))
+    return tuple(p.reshape((G, T) + p.shape[1:]) for p in out)
 
 
 def _pop_accuracy(B, code_idx, y, ew_pop, tables, max_depth, proba):

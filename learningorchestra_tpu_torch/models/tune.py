@@ -107,7 +107,7 @@ def validate_population(family: str, configs: Sequence[Dict[str, Any]],
     for c in configs:
         validate_hparams(family, c)
     if family == "rf":
-        if len({int(c.get("n_trees", 20)) for c in configs}) != 1:
+        if len({_n_trees(c) for c in configs}) != 1:
             raise ValueError(
                 "rf tune populations must share n_trees: the bootstrap "
                 "draws depend on the tree count, so mixed forest sizes "
@@ -125,6 +125,18 @@ def validate_population(family: str, configs: Sequence[Dict[str, Any]],
             "booster only (num_classes == 2)")
 
 
+def _n_trees(config: Dict[str, Any]) -> int:
+    """An rf config's tree count (fit_rf's default 20)."""
+    return int(config.get("n_trees", 20))
+
+
+def forest_size(family: str, configs: Sequence[Dict[str, Any]]) -> int:
+    """The trees each member of a population grows as a forest: rf its
+    configs' shared ``n_trees``, 1 for every other family (dt's one
+    tree; gb, lr and mlp grow no forest)."""
+    return _n_trees(configs[0]) if family == "rf" else 1
+
+
 def _resolve_solver(config: Dict[str, Any],
                     num_classes: Optional[int]) -> str:
     """A config's solver as far as validation can tell: d is unknown
@@ -135,21 +147,26 @@ def _resolve_solver(config: Dict[str, Any],
 
 # -- population sizing --------------------------------------------------------
 
-def _per_member_bytes(family: str, n: int, d: int,
-                      num_classes: int) -> float:
+def _per_member_bytes(family: str, n: int, d: int, num_classes: int,
+                      n_trees: int) -> float:
     """Modeled device bytes of ONE population member: its share of the
     wave's working set. Deliberately coarse — it is raised to the
     family's recorded whole-fit watermark in ``plan_waves``.
 
     Every member holds its train and eval row weights (8 B a row). A tree
-    member growing its tree holds its stats (4 B a row and class, or
+    member growing a tree holds its stats (4 B a row and class, or
     gradient and hessian), node ids, flags and the routing output (17 B
     a row), and its share of the bin matrices and their feature-major
     copies (2·d B a row: counted per member, though members of one n_bins
     share them); rf adds the bootstrap weights, gb the margin and its
-    round's probability, gradient and hessian. lr and mlp members run
-    one at a time and share one step's transients, but a wave's width
-    scales with these bytes, so each member counts them: the design's
+    round's probability, gradient and hessian. A dt/rf member grows a
+    whole tree batch at once (``trees._forest_batch_shape`` of
+    ``n_trees``, ``forest_size``: dt's batch is its one tree), so its
+    per-tree row state counts once a tree of the batch (an upper bound:
+    a call grows at most ``tune_max_population`` trees, see
+    ``_ForestDriver.run_segment``). lr and mlp members run one at a
+    time and share one step's transients, but a wave's width scales
+    with these bytes, so each member counts them: the design's
     float32 copy (standardized, 4·d B a row), its logits (4 B a row and
     class) and, for mlp, its hidden activations (the JAX package's 2 B a
     row and hidden unit, at the serial default of 256)."""
@@ -158,7 +175,8 @@ def _per_member_bytes(family: str, n: int, d: int,
     masks = 8.0 * nf
     codes = 2.0 * nf * d
     if family in ("dt", "rf"):
-        return masks + codes + 4.0 * nf * (C + 1.0) + 17.0 * nf
+        tb = trees._forest_batch_shape(n_trees)[0]
+        return masks + codes + tb * (4.0 * nf * (C + 1.0) + 17.0 * nf)
     if family == "gb":
         return masks + codes + 8.0 * nf + 16.0 * nf + 17.0 * nf + 4.0 * nf
     step = masks + 4.0 * nf * d + 4.0 * nf * C
@@ -178,7 +196,8 @@ def plan_waves(family: str, configs: Sequence[Dict[str, Any]], *, n: int,
     cap = max(1, int(cfg.tune_max_population) // max(folds, 1))
     budget = float(cfg.tune_hbm_budget_mb) * (1 << 20)
     if budget > 0:
-        per = _per_member_bytes(family, n, d, num_classes)
+        per = _per_member_bytes(family, n, d, num_classes,
+                                forest_size(family, configs))
         wm = resources.family_watermarks().get(family, {})
         per = max(per, float(wm.get("peak_hbm_bytes", 0)))
         fit = int(budget // max(per * max(folds, 1), 1.0))
@@ -323,21 +342,23 @@ class _ForestDriver(_TreePopulation):
     seeded with its seed, in the serial fit's order, so every tree of a
     member is its serial fit's; ``draws(config)`` → (weights (n_trees,
     n), allowed (n_trees, d)) replaces the draws (the parity tests feed
-    the JAX package's)."""
+    the JAX package's). ``max_slices`` caps the trees one
+    ``_build_trees`` call grows (``tune_max_population``: the most a
+    wave's one-tree calls hold)."""
 
     _names = ("feat", "thr", "internal", "leaf")
 
     def __init__(self, family, runtime, X, y, num_classes, configs,
-                 fold_ids, tr_masks, ev_masks, draws=None):
+                 fold_ids, tr_masks, ev_masks, *, max_slices, draws=None):
         super().__init__(runtime, X, y, configs, fold_ids, tr_masks,
                          ev_masks)
         self.num_classes = num_classes
+        self.max_slices = int(max_slices)
         d = self.X.shape[1]
+        self.n_trees = forest_size(family, configs)
         if family == "dt":
-            self.n_trees = 1
             self.mtries = [1] * len(configs)
         else:
-            self.n_trees = int(configs[0].get("n_trees", 20))
             self.mtries = [int(c.get("mtry") or max(1, int(np.sqrt(d))))
                            for c in configs]
         self.tb, self.nb = trees._forest_batch_shape(self.n_trees)
@@ -356,8 +377,9 @@ class _ForestDriver(_TreePopulation):
         return self.nb
 
     def _tree_draws(self, t: int, live: List[int]):
-        """Tree t's (bootstrap (L, n), feature mask (L, d)) for the live
-        members: one draw per live config, shared by its folds."""
+        """Tree t's (bootstrap, feature mask (L, d)) for the live members:
+        one draw per live config, shared by its folds; the bootstrap is
+        None for dt, else one (n,) tensor a member (its config's)."""
         d = self.X.shape[1]
         if self.n_trees == 1:
             return None, torch.zeros((len(live), d), dtype=torch.float32,
@@ -372,23 +394,32 @@ class _ForestDriver(_TreePopulation):
                 allowed = torch.as_tensor(self.draws[ci][1][t],
                                           device=self.dev).bool()
             per_cfg[ci] = (w, torch.where(allowed, 0.0, trees.NEG).float())
-        boot = torch.stack([per_cfg[m // self.nf][0] for m in live])
+        boot = [per_cfg[m // self.nf][0] for m in live]
         fmask = torch.stack([per_cfg[m // self.nf][1] for m in live])
         return boot, fmask
 
     def run_segment(self, k: int) -> None:
+        """k tree batches. A batch's trees grow in one
+        ``_fit_forest_pop_batch`` call for as many live members as
+        ``max_slices`` holds (at least one), their draws taken tree by
+        tree as each config's serial fit takes them."""
         live = self.live()
-        rows = torch.tensor(live, device=self.dev)
         for b in range(self.done_b, self.done_b + k):
-            for t in range(b * self.tb, min((b + 1) * self.tb, self.n_trees)):
+            ts = range(b * self.tb, min((b + 1) * self.tb, self.n_trees))
+            draws = [self._tree_draws(t, live) for t in ts]
+            step = max(1, self.max_slices // len(ts))
+            for i in range(0, len(live), step):
+                rows = torch.tensor(live[i:i + step], device=self.dev)
                 out = trees._fit_forest_pop_batch(
-                    self.B, self._idx(live), self.y_dev, self.w_base[rows],
-                    [self._tree_draws(t, live)], self.bin_mask[rows],
-                    self.level_allow[rows], num_classes=self.num_classes,
-                    max_depth=self.max_depth, n_bins=self.n_bins,
-                    codes_T=self.codes_T)
+                    self.B, self._idx(live[i:i + step]), self.y_dev,
+                    self.w_base[rows],
+                    [(None if boot is None else boot[i:i + step],
+                      fmask[i:i + step]) for boot, fmask in draws],
+                    self.bin_mask[rows], self.level_allow[rows],
+                    num_classes=self.num_classes, max_depth=self.max_depth,
+                    n_bins=self.n_bins, codes_T=self.codes_T)
                 for name, v in zip(self._names, out):
-                    self.t[name][rows, t] = v[:, 0]
+                    self.t[name][rows, ts.start:ts.stop] = v
             jobs.heartbeat()
         self.done_b += k
 
@@ -618,11 +649,12 @@ _DRIVERS = {"dt": _ForestDriver, "rf": _ForestDriver, "gb": _GbDriver,
 
 
 def _make_driver(family, runtime, X, y, num_classes, configs, fold_ids,
-                 tr_masks, ev_masks, draws=None):
+                 tr_masks, ev_masks, *, cfg, draws=None):
     cls = _DRIVERS[family]
     if cls is _ForestDriver:
         return cls(family, runtime, X, y, num_classes, configs, fold_ids,
-                   tr_masks, ev_masks, draws=draws)
+                   tr_masks, ev_masks, draws=draws,
+                   max_slices=cfg.tune_max_population)
     return cls(runtime, X, y, num_classes, configs, fold_ids, tr_masks,
                ev_masks)
 
@@ -705,7 +737,8 @@ def sweep(runtime, X, y, num_classes: int, family: str,
         tr = np.tile(tr_all, (nc, 1))
         ev = np.tile(ev_all, (nc, 1))
         driver = _make_driver(family, runtime, X, y, num_classes,
-                              wave_cfgs, fold_ids, tr, ev, draws=draws)
+                              wave_cfgs, fold_ids, tr, ev, cfg=cfg,
+                              draws=draws)
         units = driver.total_units()
         R = max(1, min(rungs, units))
         seg = -(-units // R)

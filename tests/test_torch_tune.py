@@ -152,7 +152,8 @@ def test_plan_waves_budget_fits_the_modeled_members(family):
     """Each wave's modeled footprint (members × per-member bytes) stays
     within the budget, and one more config would not have fitted."""
     n, d, folds = 200_000, 28, 3
-    per = tune._per_member_bytes(family, n, d, 2) * folds
+    per = tune._per_member_bytes(family, n, d, 2,
+                                 tune.forest_size(family, [{}])) * folds
     cfg = _mk_cfg(tune_hbm_budget_mb=int(5.5 * per / (1 << 20)) + 1)
     waves = tune.plan_waves(family, [{} for _ in range(12)], n=n, d=d,
                             num_classes=2, folds=folds, cfg=cfg)
