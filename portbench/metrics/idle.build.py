@@ -1,0 +1,8 @@
+"""device: percent of the traced window with no kernel or copy on the
+card."""
+
+from portbench.readers import idle_share
+
+
+def read(run):
+    return idle_share(run)
