@@ -918,11 +918,15 @@ class Dataset:
             self._consolidated = {}
             return self._consolidated
         fields = self.metadata.fields
-        loaded = [c.materialize() for c in self._chunks]
-        if len(loaded) == 1:
-            cols = loaded[0]
-        else:
-            cols = {f: _concat([lc[f] for lc in loaded]) for f in fields}
+        attrs = {"rows": sum(c.n_rows for c in self._chunks),
+                 "chunks": len(self._chunks)}
+        with tracing.span("catalog.consolidate", attrs):
+            loaded = [c.materialize() for c in self._chunks]
+            if len(loaded) == 1:
+                cols = loaded[0]
+            else:
+                cols = {f: _concat([lc[f] for lc in loaded]) for f in fields}
+            attrs["bytes"] = sum(int(a.nbytes) for a in cols.values())
         if (self._ram_budget is None
                 or self._total_bytes_locked() <= self._ram_budget):
             self._consolidated = cols

@@ -128,71 +128,70 @@ class ModelBuilder:
         rp0 = readpipe.snapshot()
 
         streamed = False
-        design_t0 = time.monotonic()
-        if preprocessor_code is not None:
-            if multi:
-                raise PermissionError(
-                    "exec preprocessing cannot run SPMD (workers rebuild "
-                    "inputs deterministically); use declarative steps")
-            if not self.cfg.allow_exec_preprocessing:
-                raise PermissionError(
-                    "exec preprocessing is disabled; enable "
-                    "LO_TPU_ALLOW_EXEC or use declarative steps")
-            X_train, y_train, X_test, y_test = preprocess.exec_preprocess(
-                preprocessor_code, train_ds, test_ds, label, cfg=self.cfg)
-            feature_fields = [f"f{i}" for i in range(X_train.shape[1])]
-        elif (self.cfg.stream_design or train_ds.over_budget
-                or test_ds.over_budget):
-            # The streamed path: the design matrix never exists whole on
-            # the host — state is fitted with streaming passes and the
-            # device tensor fills block by block (ChunkedDesign →
-            # DeviceRuntime.shard_rows). No memo: memoization
-            # consolidates, which is exactly what this path must never do.
-            streamed = True
-            fit_prof: Dict[str, Any] = {}
-            # Pass-boundary checkpoints for the streamed state fit: a
-            # retried build resumes the fitting scans instead of
-            # re-reading the dataset from pass zero.
-            design_ckpt = fitckpt.context(
-                self.cfg, dataset=train, family="design",
-                config={"label": label, "steps": list(steps)},
-                snapshot="") if ck_on else None
-            X_train, y_train, feature_fields, state = \
-                preprocess.design_matrix_streamed(train_ds, label, steps,
-                                                  profile=fit_prof,
-                                                  ckpt=design_ckpt)
-            X_test, y_test, _, _ = preprocess.design_matrix_streamed(
-                test_ds, label, steps, state=state,
-                feature_fields=feature_fields)
-            if fit_prof:
-                # The streamed fit's scan count on the job record: the
-                # fused fitting passes keep it at ~2 for the default
-                # pipeline, and a regression shows up here first.
-                jobs.record_job_profile(**fit_prof)
-        else:
-            # Memoized per dataset-snapshot: repeat builds on the same data
-            # reuse the identical X arrays, so the runtime's transfer cache
-            # keeps the device copies.
-            steps_key = json.dumps(list(steps), sort_keys=True, default=str)
-            X_train, y_train, feature_fields, state = train_ds.memo(
-                ("design", label, steps_key),
-                lambda: preprocess.design_matrix(train_ds, label, steps))
-            X_test, y_test, _, _ = test_ds.memo(
-                ("design_t", label, steps_key, tuple(feature_fields)),
-                lambda: preprocess.design_matrix(
+        design_attrs: Dict[str, Any] = {"train": train, "test": test}
+        with tracing.span("design.build", design_attrs):
+            if preprocessor_code is not None:
+                if multi:
+                    raise PermissionError(
+                        "exec preprocessing cannot run SPMD (workers rebuild "
+                        "inputs deterministically); use declarative steps")
+                if not self.cfg.allow_exec_preprocessing:
+                    raise PermissionError(
+                        "exec preprocessing is disabled; enable "
+                        "LO_TPU_ALLOW_EXEC or use declarative steps")
+                X_train, y_train, X_test, y_test = preprocess.exec_preprocess(
+                    preprocessor_code, train_ds, test_ds, label, cfg=self.cfg)
+                feature_fields = [f"f{i}" for i in range(X_train.shape[1])]
+            elif (self.cfg.stream_design or train_ds.over_budget
+                    or test_ds.over_budget):
+                # The streamed path: the design matrix never exists whole on
+                # the host — state is fitted with streaming passes and the
+                # device tensor fills block by block (ChunkedDesign →
+                # DeviceRuntime.shard_rows). No memo: memoization
+                # consolidates, which is exactly what this path must never do.
+                streamed = True
+                fit_prof: Dict[str, Any] = {}
+                # Pass-boundary checkpoints for the streamed state fit: a
+                # retried build resumes the fitting scans instead of
+                # re-reading the dataset from pass zero.
+                design_ckpt = fitckpt.context(
+                    self.cfg, dataset=train, family="design",
+                    config={"label": label, "steps": list(steps)},
+                    snapshot="") if ck_on else None
+                X_train, y_train, feature_fields, state = \
+                    preprocess.design_matrix_streamed(train_ds, label, steps,
+                                                      profile=fit_prof,
+                                                      ckpt=design_ckpt)
+                X_test, y_test, _, _ = preprocess.design_matrix_streamed(
                     test_ds, label, steps, state=state,
-                    feature_fields=feature_fields),
-                token=state)
+                    feature_fields=feature_fields)
+                if fit_prof:
+                    # The streamed fit's scan count on the job record: the
+                    # fused fitting passes keep it at ~2 for the default
+                    # pipeline, and a regression shows up here first.
+                    jobs.record_job_profile(**fit_prof)
+            else:
+                # Memoized per dataset-snapshot: repeat builds on the same data
+                # reuse the identical X arrays, so the runtime's transfer cache
+                # keeps the device copies.
+                steps_key = json.dumps(list(steps), sort_keys=True,
+                                       default=str)
+                X_train, y_train, feature_fields, state = train_ds.memo(
+                    ("design", label, steps_key),
+                    lambda: preprocess.design_matrix(train_ds, label, steps))
+                X_test, y_test, _, _ = test_ds.memo(
+                    ("design_t", label, steps_key, tuple(feature_fields)),
+                    lambda: preprocess.design_matrix(
+                        test_ds, label, steps, state=state,
+                        feature_fields=feature_fields),
+                    token=state)
+            design_attrs.update(streamed=streamed, rows=int(len(X_train)))
         # Everything needed to apply the identical pipeline to future
         # datasets when the fitted model is re-served (persistence.py);
         # exec-preprocessed models carry none.
         pp_meta = None if preprocessor_code is not None else {
             "steps": list(steps), "state": state,
             "feature_fields": feature_fields, "label": label}
-        tracing.record_span(
-            "design.build", time.monotonic() - design_t0,
-            attrs={"train": train, "test": test, "streamed": streamed,
-                   "rows": int(len(X_train))})
         if y_train is None:
             raise ValueError(f"label field {label!r} not in {train!r}")
         num_classes = int(max(int(y_train.max()) + 1,
@@ -230,14 +229,15 @@ class ModelBuilder:
 
         def prep_fit(c: str):
             """One family's host-side prep (the trainer's ``host_prep``
-            hook — tree quantile edges). Pure host work, runs OUTSIDE the
-            device gate. Returns (extra_kwargs, prep_s)."""
+            hook — tree quantile edges), the span ``fit.<c>.host_prep``.
+            Pure host work, runs OUTSIDE the device gate. Returns
+            (extra_kwargs, prep_s)."""
             trainer = get_trainer(c)
             hp = hparams.get(c, {})
-            with Timer() as tp:
+            with tracing.timing(f"fit.{c}.host_prep") as tp:
                 prep = getattr(trainer, "host_prep", None)
                 extra = prep(X_train, **hp) if prep is not None else {}
-            return extra, tp.elapsed
+            return extra, tp.seconds
 
         def dispatch_fit(c: str, extra: Dict[str, Any]):
             kw = dict(hparams.get(c, {}), **extra)
@@ -351,7 +351,6 @@ class ModelBuilder:
                     # status=error.
                     with tracing.span(f"fit.{c}", family=c):
                         extra, prep_s = prep_fit(c)   # outside the gate
-                        tracing.record_span(f"fit.{c}.host_prep", prep_s)
                         with gate:                    # device phase
                             # The fit's resource window (compile seconds,
                             # device bytes at its end); the probability
@@ -367,12 +366,9 @@ class ModelBuilder:
                         # fit_time = prep + fit + probability spans, no
                         # scheduler waits: the per-family sum estimates
                         # the serialized sweep.
-                        with Timer() as tf:
-                            report = finish_host(c, model, probs,
-                                                 pre_s + device_s,
-                                                 device_s)
-                        tracing.record_span(f"fit.{c}.finish", tf.elapsed)
-                        return report
+                        with tracing.span(f"fit.{c}.finish"):
+                            return finish_host(c, model, probs,
+                                               pre_s + device_s, device_s)
                 except Exception as exc:  # noqa: BLE001 — per-model bound
                     return fail_report(c, exc)
 
@@ -417,8 +413,7 @@ class ModelBuilder:
             for c in classifiers:           # phase 1: every fit
                 t0 = time.time()
                 try:
-                    extra, prep_s = prep_fit(c)
-                    tracing.record_span(f"fit.{c}.host_prep", prep_s)
+                    extra, _ = prep_fit(c)
                     with resources.family_phase(c):
                         model = dispatch_fit(c, extra)
                         spmd.serialize_collectives(model.params)
@@ -445,9 +440,8 @@ class ModelBuilder:
                 reports.append(fail_report(c, res))
                 continue
             try:
-                with Timer() as tf:
+                with tracing.span(f"fit.{c}.finish"):
                     reports.append(finish_host(c, *res))
-                tracing.record_span(f"fit.{c}.finish", tf.elapsed)
             except Exception as exc:  # noqa: BLE001 — per-model boundary
                 reports.append(fail_report(c, exc))
         return reports
@@ -567,22 +561,24 @@ class ModelBuilder:
             hp = dict(board["winner"]["config"])
             trainer = get_trainer(classifier)
             prep = getattr(trainer, "host_prep", None)
-            extra = prep(X_train, **hp) if prep is not None else {}
-            with timed("tune.promote"), resources.family_phase(classifier):
-                model = trainer(self.runtime, X_train, y_train,
-                                num_classes, **dict(hp, **extra))
-            if self.cfg.persist_models:
-                try:
-                    self.registry.save(
-                        out_name, model,
-                        metrics={"mean_score":
-                                 board["winner"]["mean_score"],
-                                 "tuned": True},
-                        preprocess=pp_meta)
-                    board["promoted"] = out_name
-                except Exception as exc:  # noqa: BLE001 — best-effort
-                    board["promote_error"] = (
-                        f"{type(exc).__name__}: {exc}")
+            with tracing.span("tune.promotion"):
+                extra = prep(X_train, **hp) if prep is not None else {}
+                with timed("tune.promote"), \
+                        resources.family_phase(classifier):
+                    model = trainer(self.runtime, X_train, y_train,
+                                    num_classes, **dict(hp, **extra))
+                if self.cfg.persist_models:
+                    try:
+                        self.registry.save(
+                            out_name, model,
+                            metrics={"mean_score":
+                                     board["winner"]["mean_score"],
+                                     "tuned": True},
+                            preprocess=pp_meta)
+                        board["promoted"] = out_name
+                    except Exception as exc:  # noqa: BLE001 — best-effort
+                        board["promote_error"] = (
+                            f"{type(exc).__name__}: {exc}")
 
         self.store.finish(out_name, tune=board)
         jobs.heartbeat()

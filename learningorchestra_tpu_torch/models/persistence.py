@@ -25,6 +25,7 @@ from learningorchestra_tpu_torch.catalog.store import validate_name
 from learningorchestra_tpu_torch.config import Settings
 from learningorchestra_tpu_torch.models.base import TrainedModel
 from learningorchestra_tpu_torch.models.registry import predictor_for
+from learningorchestra_tpu_torch.utils import tracing
 
 
 class ModelNotFound(KeyError):
@@ -70,58 +71,61 @@ class ModelRegistry:
              metrics: Optional[Dict[str, float]] = None,
              preprocess: Optional[Dict[str, Any]] = None) -> None:
         d = self._dir(name)
-        params = {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
-                      else np.asarray(v))
-                  for k, v in model.params.items()}
-        # Stage the whole new version in a sibling temp dir, then swap by
-        # rename: a re-save must never leave a window where the model is
-        # missing. Leading dot keeps stray dirs (crash mid-save) out of
-        # list(), which rejects names not starting with a letter or digit.
-        tmp = os.path.join(self.root, f".tmp.{name}")
-        old = os.path.join(self.root, f".old.{name}")
-        with self._lock:
-            for p in (tmp, old):
-                if os.path.isdir(p):
-                    shutil.rmtree(p)
-            os.makedirs(tmp)
-            np.savez(os.path.join(tmp, "params.npz"), **params)
-            manifest = {
-                "name": name,
-                "kind": model.kind,
-                "num_classes": model.num_classes,
-                "hparams": model.hparams,
-                "metrics": metrics or {},
-                "preprocess": preprocess,
-                "time_created": time.strftime("%Y-%m-%d %H:%M:%S"),
-            }
-            with open(os.path.join(tmp, "manifest.json"), "w") as f:
-                json.dump(manifest, f, indent=1)
-            # The swap itself: readers hold the same lock, so the brief
-            # old→aside / tmp→live two-step is invisible to them.
-            man_path = os.path.join(d, "manifest.json")
-            prev = None
-            if os.path.isdir(d):
+        attrs: Dict[str, Any] = {"name": name}
+        with tracing.span("registry.save", attrs):
+            params = {k: (v.detach().cpu().numpy()
+                          if isinstance(v, torch.Tensor) else np.asarray(v))
+                      for k, v in model.params.items()}
+            attrs["bytes"] = sum(int(a.nbytes) for a in params.values())
+            # Stage the whole new version in a sibling temp dir, then swap by
+            # rename: a re-save must never leave a window where the model is
+            # missing. Leading dot keeps stray dirs (crash mid-save) out of
+            # list(), which rejects names not starting with a letter or digit.
+            tmp = os.path.join(self.root, f".tmp.{name}")
+            old = os.path.join(self.root, f".old.{name}")
+            with self._lock:
+                for p in (tmp, old):
+                    if os.path.isdir(p):
+                        shutil.rmtree(p)
+                os.makedirs(tmp)
+                np.savez(os.path.join(tmp, "params.npz"), **params)
+                manifest = {
+                    "name": name,
+                    "kind": model.kind,
+                    "num_classes": model.num_classes,
+                    "hparams": model.hparams,
+                    "metrics": metrics or {},
+                    "preprocess": preprocess,
+                    "time_created": time.strftime("%Y-%m-%d %H:%M:%S"),
+                }
+                with open(os.path.join(tmp, "manifest.json"), "w") as f:
+                    json.dump(manifest, f, indent=1)
+                # The swap itself: readers hold the same lock, so the brief
+                # old→aside / tmp→live two-step is invisible to them.
+                man_path = os.path.join(d, "manifest.json")
+                prev = None
+                if os.path.isdir(d):
+                    try:
+                        pst = os.stat(man_path)
+                        prev = (pst.st_mtime_ns, pst.st_size)
+                    except OSError:
+                        pass
+                    os.rename(d, old)
+                os.rename(tmp, d)
+                if os.path.isdir(old):
+                    shutil.rmtree(old)
+                # version() tokens on (mtime_ns, size); on filesystems with
+                # coarse timestamps a fast re-save can land the same token.
+                # Enforce strictly-INCREASING mtime across saves (not mere
+                # inequality with the previous token — that allows an ABA
+                # collision where save3 lands save1's token).
                 try:
-                    pst = os.stat(man_path)
-                    prev = (pst.st_mtime_ns, pst.st_size)
+                    st = os.stat(man_path)
+                    if prev is not None and st.st_mtime_ns <= prev[0]:
+                        os.utime(man_path,
+                                 ns=(st.st_atime_ns, prev[0] + 1))
                 except OSError:
                     pass
-                os.rename(d, old)
-            os.rename(tmp, d)
-            if os.path.isdir(old):
-                shutil.rmtree(old)
-            # version() tokens on (mtime_ns, size); on filesystems with
-            # coarse timestamps a fast re-save can land the same token.
-            # Enforce strictly-INCREASING mtime across saves (not mere
-            # inequality with the previous token — that allows an ABA
-            # collision where save3 lands save1's token).
-            try:
-                st = os.stat(man_path)
-                if prev is not None and st.st_mtime_ns <= prev[0]:
-                    os.utime(man_path,
-                             ns=(st.st_atime_ns, prev[0] + 1))
-            except OSError:
-                pass
 
     # -- read ----------------------------------------------------------------
 

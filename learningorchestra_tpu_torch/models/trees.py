@@ -52,7 +52,7 @@ from learningorchestra_tpu_torch.ops import tree_kernels
 from learningorchestra_tpu_torch.parallel.mesh import (
     DATA_AXIS, all_gather, all_reduce_)
 from learningorchestra_tpu_torch.parallel.runtime import DeviceRuntime
-from learningorchestra_tpu_torch.utils import fitckpt
+from learningorchestra_tpu_torch.utils import fitckpt, tracing
 
 NEG = -1e30
 #: Rows per block of ``bin_features`` (bounds its (blk, d, n_bins-1)
@@ -68,14 +68,16 @@ def quantile_edges(X: np.ndarray, n_bins: int,
                    sample: int = 200_000) -> np.ndarray:
     """Per-feature bin edges from quantiles of a row sample. (d, n_bins-1)."""
     n = len(X)
-    if n > sample:
-        idx = np.random.default_rng(0).choice(n, sample, replace=False)
-        Xs = X[idx]
-    else:
-        Xs = X
-    qs = np.linspace(0, 1, n_bins + 1)[1:-1]
-    edges = np.quantile(Xs, qs, axis=0).T.astype(np.float32)  # (d, n_bins-1)
-    return np.ascontiguousarray(edges)
+    with tracing.span("tree.edges", rows_sampled=min(n, sample),
+                      n_bins=n_bins):
+        if n > sample:
+            idx = np.random.default_rng(0).choice(n, sample, replace=False)
+            Xs = X[idx]
+        else:
+            Xs = X
+        qs = np.linspace(0, 1, n_bins + 1)[1:-1]
+        edges = np.quantile(Xs, qs, axis=0).T.astype(np.float32)
+        return np.ascontiguousarray(edges)
 
 
 def validate_n_bins(n_bins: int) -> None:

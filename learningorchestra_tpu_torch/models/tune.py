@@ -258,8 +258,8 @@ class _Population:
         self.X_dev, self.n = runtime.shard_rows(self.X)
         self.dev = self.X_dev.device
         self.y_dev, _ = runtime.shard_rows(np.asarray(y, np.int32))
-        self.w_base = torch.from_numpy(np.asarray(tr_masks)).to(self.dev)
-        self.ew = torch.from_numpy(np.asarray(ev_masks)).to(self.dev)
+        self.w_base = runtime.replicate(tr_masks)
+        self.ew = runtime.replicate(ev_masks)
         self.alive = np.ones(self.Pm, np.float32)
 
     def rep(self, values) -> np.ndarray:
@@ -314,8 +314,8 @@ class _TreePopulation(_Population):
             # are forbidden (see trees._build_trees).
             bmask[i, max(nb_c - 1, 0):] = trees.NEG
             lallow[i, :dep] = True
-        self.bin_mask = torch.from_numpy(self.rep(bmask)).to(self.dev)
-        self.level_allow = torch.from_numpy(self.rep(lallow)).to(self.dev)
+        self.bin_mask = runtime.replicate(self.rep(bmask))
+        self.level_allow = runtime.replicate(self.rep(lallow))
 
     def _tables(self, count: int, leaf_shape: Tuple[int, ...]) -> dict:
         z = lambda dt, *s: torch.zeros((self.Pm, count, self.M) + s,
@@ -700,7 +700,8 @@ def sweep(runtime, X, y, num_classes: int, family: str,
             "tune sweeps need a resident design matrix; materialize the "
             "dataset (streamed designs are fit-only)")
     n = int(len(X))
-    fold_ids, tr_all, ev_all = _fold_masks(n, n, folds)
+    with tracing.span("tune.masks", rows=n, members=folds):
+        fold_ids, tr_all, ev_all = _fold_masks(n, n, folds)
     nf = len(fold_ids)
     d = int(X.shape[1])
     waves = plan_waves(family, configs, n=n, d=d, num_classes=num_classes,
@@ -734,11 +735,13 @@ def sweep(runtime, X, y, num_classes: int, family: str,
             continue          # finished wave — its results rode the meta
         wave_cfgs = [configs[i] for i in wave_idx]
         nc = len(wave_cfgs)
-        tr = np.tile(tr_all, (nc, 1))
-        ev = np.tile(ev_all, (nc, 1))
-        driver = _make_driver(family, runtime, X, y, num_classes,
-                              wave_cfgs, fold_ids, tr, ev, cfg=cfg,
-                              draws=draws)
+        with tracing.span("tune.wave", wave=w, members=nc * nf):
+            with tracing.span("tune.masks", rows=n, members=nc * nf):
+                tr = np.tile(tr_all, (nc, 1))
+                ev = np.tile(ev_all, (nc, 1))
+            driver = _make_driver(family, runtime, X, y, num_classes,
+                                  wave_cfgs, fold_ids, tr, ev, cfg=cfg,
+                                  draws=draws)
         units = driver.total_units()
         R = max(1, min(rungs, units))
         seg = -(-units // R)

@@ -27,6 +27,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from learningorchestra_tpu_torch.catalog.dataset import Dataset
+from learningorchestra_tpu_torch.utils import tracing
 
 
 class PreprocessError(ValueError):
@@ -143,27 +144,31 @@ def design_matrix(ds: Dataset, label: str,
     the docs' Titanic example preprocesses by hand.
     """
     cols = dict(ds.columns)
+    rows = ds.num_rows
     y = None
     label_state_key = "__label_vocab__"
     state = dict(state or {})
-    if label in cols:
-        lab = cols.pop(label)
-        if lab.dtype == object:
-            codes, vocab = _label_encode(lab, state.get(label_state_key))
-            state[label_state_key] = vocab
-            y = codes.astype(np.int32)
-        else:
-            y = np.asarray(lab)
-            y = np.where(np.isnan(y.astype(np.float64)), -1, y).astype(
-                np.int32) if y.dtype.kind == "f" else y.astype(np.int32)
     if not steps:
         steps = [{"op": "label_encode"}, {"op": "fillna", "strategy": "mean"}]
-    cols, state = apply_steps(cols, steps, state)
+    with tracing.span("design.steps", rows=rows,
+                      steps=[st.get("op") for st in steps]):
+        if label in cols:
+            lab = cols.pop(label)
+            if lab.dtype == object:
+                codes, vocab = _label_encode(lab, state.get(label_state_key))
+                state[label_state_key] = vocab
+                y = codes.astype(np.int32)
+            else:
+                y = np.asarray(lab)
+                y = np.where(np.isnan(y.astype(np.float64)), -1, y).astype(
+                    np.int32) if y.dtype.kind == "f" else y.astype(np.int32)
+        cols, state = apply_steps(cols, steps, state)
     if feature_fields is None:
         feature_fields = [f for f in cols if cols[f].dtype.kind in "ifub"]
-    X = np.stack([np.asarray(cols[f], np.float32) for f in feature_fields],
-                 axis=1) if feature_fields else np.zeros((ds.num_rows, 0),
-                                                         np.float32)
+    with tracing.span("design.stack", rows=rows, cols=len(feature_fields)):
+        X = np.stack([np.asarray(cols[f], np.float32)
+                      for f in feature_fields], axis=1) \
+            if feature_fields else np.zeros((rows, 0), np.float32)
     return X, y, feature_fields, state
 
 

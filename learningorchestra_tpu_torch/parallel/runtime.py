@@ -47,6 +47,7 @@ from learningorchestra_tpu_torch.config import (
     Settings, settings as global_settings)
 from learningorchestra_tpu_torch.parallel.mesh import (
     DATA_AXIS, ProcessMesh, all_gather, local_mesh)
+from learningorchestra_tpu_torch.utils import tracing
 
 
 def host_rows(x) -> np.ndarray:
@@ -234,11 +235,12 @@ class DeviceRuntime:
             # only feeds the copy below and is never written.
             warnings.filterwarnings("ignore", message=".*not writable.*")
             t = torch.from_numpy(np.ascontiguousarray(arr))
-        if self.device.type == "cuda":
-            return _track(t.to(self.device))
-        # CPU: copy, so the tensor never aliases a host array the caller
-        # may later unfreeze or that the cache finalizer tracks.
-        return _track(t.clone())
+        with tracing.span("runtime.put", bytes=t.nbytes, pinned=False):
+            if self.device.type == "cuda":
+                return _track(t.to(self.device))
+            # CPU: copy, so the tensor never aliases a host array the
+            # caller may later unfreeze or that the cache finalizer tracks.
+            return _track(t.clone())
 
     def shard_rows(self, arr) -> Tuple[torch.Tensor, int]:
         """Host array or lazy design → this rank's device tensor (all
@@ -323,76 +325,79 @@ class DeviceRuntime:
         if not ranges:
             return out, n
         cuda = self.device.type == "cuda"
-        if cuda:
-            nbuf = min(2, len(ranges))
-            bufs = [torch.empty((min(blk, stop - start),) + tail,
-                                dtype=out.dtype, pin_memory=True)
-                    for _ in range(nbuf)]
-            freed = [torch.cuda.Event() for _ in range(nbuf)]
-            stream = torch.cuda.Stream(self.device)
-            # ``out`` may reuse memory that work queued on the caller's
-            # stream still reads: the copies start after that work.
-            stream.wait_stream(torch.cuda.current_stream(self.device))
+        with tracing.span("runtime.put", bytes=out[:stop - start].nbytes,
+                          pinned=cuda):
+            if cuda:
+                nbuf = min(2, len(ranges))
+                bufs = [torch.empty((min(blk, stop - start),) + tail,
+                                    dtype=out.dtype, pin_memory=True)
+                        for _ in range(nbuf)]
+                freed = [torch.cuda.Event() for _ in range(nbuf)]
+                stream = torch.cuda.Stream(self.device)
+                # ``out`` may reuse memory that work queued on the caller's
+                # stream still reads: the copies start after that work.
+                stream.wait_stream(torch.cuda.current_stream(self.device))
 
-        def read(i: int) -> torch.Tensor:
-            a, b = ranges[i]
-            rows = np.ascontiguousarray(
-                np.asarray(design.rows(a, b), dtype))
-            if rows.shape != (b - a,) + tail:
-                raise ValueError(f"design.rows({a}, {b}) gave shape "
-                                 f"{rows.shape}")
-            host = torch.from_numpy(rows)
-            if not cuda:
-                return host
-            k = i % nbuf
-            freed[k].synchronize()     # block i-2's copy has left it
-            bufs[k][:b - a].copy_(host)
-            return bufs[k][:b - a]
+            def read(i: int) -> torch.Tensor:
+                a, b = ranges[i]
+                rows = np.ascontiguousarray(
+                    np.asarray(design.rows(a, b), dtype))
+                if rows.shape != (b - a,) + tail:
+                    raise ValueError(f"design.rows({a}, {b}) gave shape "
+                                     f"{rows.shape}")
+                host = torch.from_numpy(rows)
+                if not cuda:
+                    return host
+                k = i % nbuf
+                freed[k].synchronize()     # block i-2's copy has left it
+                bufs[k][:b - a].copy_(host)
+                return bufs[k][:b - a]
 
-        depth = readpipe.prefetch_depth(self.cfg.prefetch_chunks)
-        pool = readpipe.pool() if depth > 0 and len(ranges) > 1 else None
-        ahead = None
-        try:
-            for i, (a, b) in enumerate(ranges):
-                if pool is None:
-                    host = read(i)
-                else:
-                    fut = ahead if ahead is not None else pool.submit(read, i)
-                    ahead = (pool.submit(read, i + 1)
-                             if i + 1 < len(ranges) else None)
-                    if ahead is not None:
-                        readpipe.bump("prefetched_chunks")
-                    if not fut.done():
-                        readpipe.bump("prefetch_stalls")
-                    try:
-                        host = fut.result()
-                    except BaseException:
-                        readpipe.bump("worker_errors")
-                        raise
-                if cuda:
-                    with torch.cuda.stream(stream):
-                        out[a - start:b - start].copy_(host,
-                                                       non_blocking=True)
-                        freed[i % nbuf].record(stream)
-                else:
-                    out[a - start:b - start].copy_(host)
-        finally:
-            if ahead is not None:
-                ahead.cancel()
-                if not ahead.cancelled():
-                    try:
-                        ahead.result()
-                    except Exception:  # noqa: BLE001 — a discarded read
-                        pass
-        if cuda:
-            done = torch.cuda.Event()
-            done.record(stream)
-            torch.cuda.current_stream(self.device).wait_event(done)
-            out.record_stream(stream)
-            # The pinned buffers die with this frame: wait for their last
-            # copies (also makes the tensor whole for every thread's
-            # stream, not only the caller's).
-            done.synchronize()
+            depth = readpipe.prefetch_depth(self.cfg.prefetch_chunks)
+            pool = readpipe.pool() if depth > 0 and len(ranges) > 1 else None
+            ahead = None
+            try:
+                for i, (a, b) in enumerate(ranges):
+                    if pool is None:
+                        host = read(i)
+                    else:
+                        fut = (ahead if ahead is not None
+                               else pool.submit(read, i))
+                        ahead = (pool.submit(read, i + 1)
+                                 if i + 1 < len(ranges) else None)
+                        if ahead is not None:
+                            readpipe.bump("prefetched_chunks")
+                        if not fut.done():
+                            readpipe.bump("prefetch_stalls")
+                        try:
+                            host = fut.result()
+                        except BaseException:
+                            readpipe.bump("worker_errors")
+                            raise
+                    if cuda:
+                        with torch.cuda.stream(stream):
+                            out[a - start:b - start].copy_(host,
+                                                           non_blocking=True)
+                            freed[i % nbuf].record(stream)
+                    else:
+                        out[a - start:b - start].copy_(host)
+            finally:
+                if ahead is not None:
+                    ahead.cancel()
+                    if not ahead.cancelled():
+                        try:
+                            ahead.result()
+                        except Exception:  # noqa: BLE001 — a discarded read
+                            pass
+            if cuda:
+                done = torch.cuda.Event()
+                done.record(stream)
+                torch.cuda.current_stream(self.device).wait_event(done)
+                out.record_stream(stream)
+                # The pinned buffers die with this frame: wait for their last
+                # copies (also makes the tensor whole for every thread's
+                # stream, not only the caller's).
+                done.synchronize()
         return out, n
 
     def replicate(self, x) -> torch.Tensor:

@@ -420,7 +420,7 @@ class FrontendWorker:
                        and random.random() < self._sample))
         meta: Dict[str, Any] = {
             "rid": rid, "sid": tracing.new_id(), "sampled": sampled,
-            "t0": time.monotonic(), "t_wall": time.time(),
+            "t0": time.monotonic(), "t_wall": tracing.now(),
             "method": method, "path": path_qs.split("?", 1)[0],
             "close": (lower.get("connection") or "").lower() == "close",
         }
@@ -565,7 +565,7 @@ class FrontendWorker:
             if route:
                 attrs["route"] = route
             tracing.record_span(
-                "http.handle", time.monotonic() - meta["t0"],
+                "http.handle", tracing.now() - meta["t_wall"],
                 ctx=tracing.TraceContext(meta["rid"], meta["sid"], True),
                 span_id=meta["sid"], parent_id="",
                 t_wall=meta["t_wall"], attrs=attrs)

@@ -13,9 +13,9 @@ UIs. Here:
   derive from (a rolling sample window keeps only recent shape; the
   histogram is exact over the op's whole life at O(#buckets) memory);
 - ``timed``/``device_span`` are span-emitting: under an ambient trace
-  (utils/tracing.py) each timed region also records a span with the
-  exact measured duration, so per-request traces and aggregate metrics
-  can never disagree about the same measurement;
+  (utils/tracing.py) each timed region is also a span, open across the
+  region and of the exact measured duration, so per-request traces and
+  aggregate metrics can never disagree about the same measurement;
 - setting ``LO_TPU_PROFILE_DIR`` wraps compute jobs in a
   ``torch.profiler`` trace so every kernel launch, copy and CPU-side
   operator lands in a Chrome-trace file — the device-level view Spark's
@@ -127,14 +127,15 @@ op_timer = OpTimer()
 @contextmanager
 def timed(name: str, timer: Optional[OpTimer] = None):
     """Time a region into the op timer AND, under an ambient trace,
-    record a span of the same name with the identical duration."""
-    t0 = time.time()
+    record a span of the same name with the identical duration, open
+    across the region (spans opened inside are its children)."""
+    t = None
     try:
-        yield
+        with tracing.timing(name) as t:
+            yield
     finally:
-        dur = time.time() - t0
-        (timer or op_timer).record(name, dur)
-        tracing.record_span(name, dur)
+        if t is not None:
+            (timer or op_timer).record(name, t.seconds)
 
 
 def device_span(fn, name: Optional[str] = None, device=None,
@@ -161,10 +162,11 @@ def device_span(fn, name: Optional[str] = None, device=None,
     the job profile's ``fit_resources``. Best-effort: a sampling failure
     degrades to an unprofiled span, never a failed fit.
 
-    ``name`` additionally records a trace span (ambient context) with
-    the exact same measured duration — the builder passes
-    ``fit.<family>.device`` so a job's trace and its ``fit_device_s``
-    profile figure agree to the digit. ``attrs`` go on that span.
+    ``name`` additionally opens a trace span (ambient context) around
+    ``fn`` and its synchronise, whose duration is the returned seconds —
+    the builder passes ``fit.<family>.device`` so a job's trace and its
+    ``fit_device_s`` profile figure agree to the digit; spans ``fn``
+    opens are its children. ``attrs`` go on that span.
     """
     import torch
 
@@ -174,14 +176,11 @@ def device_span(fn, name: Optional[str] = None, device=None,
         # Timed INSIDE the sampling window so the measured duration
         # stays the pure launch-to-completion figure (the sampling reads
         # at window exit never inflate device_s).
-        t0 = time.time()
-        out = fn()
-        if device is not None and torch.device(device).type == "cuda":
-            torch.cuda.synchronize(device)
-        dur = time.time() - t0
-    if name is not None:
-        tracing.record_span(name, dur, attrs=attrs)
-    return out, dur
+        with tracing.timing(name, attrs) as t:
+            out = fn()
+            if device is not None and torch.device(device).type == "cuda":
+                torch.cuda.synchronize(device)
+    return out, t.seconds
 
 
 #: One profiler trace at a time per process; concurrent jobs that both

@@ -18,9 +18,14 @@ Design (stdlib-only, like lolint):
   (``to_wire``/``from_wire``) — workers ship their spans back over the
   channel and :func:`ingest` merges them, so ``GET /trace/{id}`` on the
   coordinator shows the whole pod;
-- **spans** record name, parent link, monotonic-clock duration, wall
-  start, attributes (dataset, model, rows, ...), status, and the
-  recording process;
+- **spans** record name, parent link, start and duration, attributes
+  (dataset, model, rows, ...), status, and the recording process;
+- every span takes both ends from :func:`now` (wall seconds on a
+  monotonic base), so a child's [start, end] lies inside its parent's;
+- a sampled span also opens ``torch.profiler.record_function(name)``
+  while a profiler runs, so a profile with CPU activity carries the
+  program's spans on the profiler's own clock beside the kernels they
+  launched;
 - spans land in a bounded **ring buffer** (``LO_TPU_TRACE_BUFFER_SPANS``,
   FIFO eviction — a long-lived server holds a recent window, never
   leaks); ``GET /traces`` lists recent root spans, ``GET /trace/{id}``
@@ -30,6 +35,34 @@ Design (stdlib-only, like lolint):
   response's ``X-Request-Id`` must always be quotable) but record
   nothing and skip all child-span bookkeeping — the bench's overhead
   A/B flips exactly this knob.
+
+The port's span names beyond the taxonomy in docs/observability.md
+(each sampled-only; attributes in parentheses):
+
+- ``catalog.consolidate`` (catalog/dataset.py; rows, chunks, bytes): a
+  dataset's chunks materialized and concatenated; a cached consolidation
+  records nothing;
+- ``design.steps`` (ops/preprocess.py; rows, steps): label handling and
+  the preprocessing steps of a resident design;
+- ``design.stack`` (ops/preprocess.py; rows, cols): the feature columns
+  stacked into the float32 design matrix;
+- ``design.build`` also in viz/service.py (parent, rows): the embed's
+  design;
+- ``runtime.put`` (parallel/runtime.py; bytes, pinned): one host→device
+  copy — a put, a lazy design's block feed, a tune driver's masks; a
+  transfer-cache hit records nothing;
+- ``tree.edges`` (models/trees.py; rows_sampled, n_bins): host quantile
+  bin edges;
+- ``registry.save`` (models/persistence.py; name, bytes): one model
+  persisted;
+- ``tune.masks`` (models/tune.py; rows, members): fold masks built on the
+  host, per sweep and per wave's tiling;
+- ``tune.wave`` (models/tune.py; wave, members): one wave's set-up, the
+  tiling through its driver (masks, edges, copies, the binning launch);
+- ``tune.promotion`` (models/builder.py): the winner's edges, its refit
+  (the ``tune.promote`` timer) and its save;
+- ``viz.edge_table`` (viz/tsne.py) is host work, a plain span; the other
+  ``viz.<stage>`` spans end when the device has finished the stage.
 
 Recording is cheap by construction: one ``os.urandom`` id + a dict and
 a deque-append under a short lock per span, no I/O, no serialization
@@ -42,6 +75,7 @@ from __future__ import annotations
 
 import os
 import random
+import sys
 import threading
 import time
 from collections import deque
@@ -50,12 +84,27 @@ from contextvars import ContextVar
 from typing import Any, Dict, Iterator, List, Optional
 
 __all__ = [
-    "TraceContext", "current", "new_id", "trace", "span", "job_trace",
+    "TraceContext", "Timing", "current", "new_id", "now", "trace", "span",
+    "timing", "job_trace",
     "attach", "record_span", "to_wire", "from_wire", "ingest",
     "spans_for", "pop_spans", "trace_tree", "recent_traces",
     "counters_snapshot", "attribution_snapshot", "recent_span_docs",
     "reset", "set_sample", "set_capacity", "set_process",
 ]
+
+
+#: The wall clock and the performance counter, read once at import: the
+#: anchors of ``now``.
+_WALL0 = time.time()
+_PERF0 = time.perf_counter()
+
+
+def now() -> float:
+    """Wall seconds on a monotonic base: ``time.time()`` at import plus
+    the performance counter's advance since. Every span takes its start
+    and its end from here, so a step of the system clock never makes a
+    child end outside its parent."""
+    return _WALL0 + (time.perf_counter() - _PERF0)
 
 
 class TraceContext:
@@ -293,6 +342,50 @@ def _record(span_obj: Span, ingested: bool = False) -> None:
         _spans.append(span_obj)
 
 
+class Timing:
+    """The two ends of a region on :func:`now`: ``start``, and
+    ``seconds`` once the region has closed."""
+
+    __slots__ = ("start", "seconds")
+
+
+def _mirror(name: str):
+    """``torch.profiler.record_function(name)``, entered, while a
+    profiler runs in this process; None otherwise (torch not loaded, or
+    no profiler on)."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.autograd._profiler_enabled():
+        return None
+    rf = torch.profiler.record_function(name)
+    rf.__enter__()
+    return rf
+
+
+@contextmanager
+def _recorded(ctx: TraceContext, parent_id: Optional[str], name: str,
+              attrs: Optional[Dict[str, Any]],
+              t: Timing) -> Iterator[TraceContext]:
+    """Make ``ctx`` ambient for the block, mirror it into a running
+    profiler, and record it as a span of ``t``'s extent. An exception
+    escaping the block records ``status="error"`` and re-raises."""
+    token = _ctx.set(ctx)
+    rf = _mirror(name)
+    t.start = now()
+    status, err = "ok", None
+    try:
+        yield ctx
+    except BaseException as exc:
+        status, err = "error", f"{type(exc).__name__}: {exc}"
+        raise
+    finally:
+        t.seconds = now() - t.start
+        if rf is not None:
+            rf.__exit__(None, None, None)
+        _ctx.reset(token)
+        _record(Span(ctx.trace_id, ctx.span_id, parent_id, name, t.start,
+                     t.seconds, attrs, status, err))
+
+
 @contextmanager
 def trace(name: str, trace_id: Optional[str] = None,
           attrs: Optional[Dict[str, Any]] = None,
@@ -310,20 +403,15 @@ def trace(name: str, trace_id: Optional[str] = None,
         _counters["traces_started"] += 1
         if not sampled:
             _counters["traces_unsampled"] += 1
-    token = _ctx.set(ctx)
-    t0 = time.monotonic()
-    t_wall = time.time()
-    status, err = "ok", None
-    try:
+    if not sampled:
+        token = _ctx.set(ctx)
+        try:
+            yield ctx
+        finally:
+            _ctx.reset(token)
+        return
+    with _recorded(ctx, None, name, attrs, Timing()):
         yield ctx
-    except BaseException as exc:
-        status, err = "error", f"{type(exc).__name__}: {exc}"
-        raise
-    finally:
-        _ctx.reset(token)
-        if sampled:
-            _record(Span(ctx.trace_id, ctx.span_id, None, name, t_wall,
-                         time.monotonic() - t0, attrs, status, err))
 
 
 @contextmanager
@@ -339,20 +427,32 @@ def span(name: str, attrs: Optional[Dict[str, Any]] = None,
         return
     if kw:
         attrs = {**(attrs or {}), **kw}
-    ctx = TraceContext(parent.trace_id, new_id(), True)
-    token = _ctx.set(ctx)
-    t0 = time.monotonic()
-    t_wall = time.time()
-    status, err = "ok", None
-    try:
+    with _recorded(TraceContext(parent.trace_id, new_id(), True),
+                   parent.span_id, name, attrs, Timing()) as ctx:
         yield ctx
-    except BaseException as exc:
-        status, err = "error", f"{type(exc).__name__}: {exc}"
-        raise
-    finally:
-        _ctx.reset(token)
-        _record(Span(ctx.trace_id, ctx.span_id, parent.span_id, name,
-                     t_wall, time.monotonic() - t0, attrs, status, err))
+
+
+@contextmanager
+def timing(name: Optional[str],
+           attrs: Optional[Dict[str, Any]] = None) -> Iterator[Timing]:
+    """Time a region on :func:`now` and, under a sampled ambient trace,
+    record it as the span ``name`` (``attrs`` on it) of the same extent,
+    open across the block so that spans opened inside are its children.
+    Yields the ``Timing``, whose ``seconds`` is set once the block exits
+    — how ``timed`` and ``device_span`` report the very duration their
+    span records. ``name=None`` only times."""
+    t = Timing()
+    parent = _ctx.get() if name is not None else None
+    if parent is None or not parent.sampled:
+        t.start = now()
+        try:
+            yield t
+        finally:
+            t.seconds = now() - t.start
+        return
+    with _recorded(TraceContext(parent.trace_id, new_id(), True),
+                   parent.span_id, name, attrs, t):
+        yield t
 
 
 @contextmanager
@@ -396,11 +496,14 @@ def record_span(name: str, duration_s: float, *,
                 attrs: Optional[Dict[str, Any]] = None,
                 status: str = "ok",
                 error: Optional[str] = None) -> Optional[str]:
-    """Record a span with an EXACT externally measured duration — how
-    instrumentation points that already time themselves (``device_span``,
-    the batcher's queue-wait bookkeeping) emit spans that agree with
-    their metrics to the digit. Returns the span id, or None when the
-    (explicit or ambient) context is absent/unsampled.
+    """Record a span with an EXACT externally measured duration, ending
+    now unless ``t_wall`` gives its start — how instrumentation points
+    that already time themselves (the batcher's queue-wait bookkeeping)
+    emit spans that agree with their metrics to the digit. Nothing
+    opened inside the measured region can be its child: a region that
+    can be a ``with`` block uses ``span`` or ``timing`` instead. Returns
+    the span id, or None when the (explicit or ambient) context is
+    absent/unsampled.
 
     ``parent_id=""`` records a ROOT span (parent None) — how the
     front-end worker's event loop emits its ``http.handle`` root after
@@ -417,7 +520,7 @@ def record_span(name: str, duration_s: float, *,
     _record(Span(c.trace_id, sid,
                  pid,
                  name,
-                 t_wall if t_wall is not None else time.time() - duration_s,
+                 t_wall if t_wall is not None else now() - duration_s,
                  duration_s, attrs, status, error))
     return sid
 

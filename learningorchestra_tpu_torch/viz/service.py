@@ -22,6 +22,7 @@ from learningorchestra_tpu_torch.config import (
     Settings, settings as global_settings)
 from learningorchestra_tpu_torch.ops.preprocess import design_matrix
 from learningorchestra_tpu_torch.parallel.runtime import DeviceRuntime
+from learningorchestra_tpu_torch.utils import tracing
 from learningorchestra_tpu_torch.viz.pca import pca_embed
 from learningorchestra_tpu_torch.viz.plotting import save_scatter
 from learningorchestra_tpu_torch.viz.tsne import tsne_embed
@@ -61,8 +62,11 @@ def embed_dataset(store: DatasetStore, runtime: DeviceRuntime, method: str,
         raise ValueError(f"label field not in dataset: {label}")
     if method not in ("pca", "tsne"):
         raise ValueError(f"unknown embedding method: {method}")
-    X, _, feature_fields, state = design_matrix(parent_ds,
-                                                label or "__none__")
+    attrs = {"parent": parent}
+    with tracing.span("design.build", attrs):
+        X, _, feature_fields, state = design_matrix(parent_ds,
+                                                    label or "__none__")
+        attrs["rows"] = int(len(X))
     with spmd.dispatch_job(store, (parent,), {
             "op": "embed", "method": method, "parent": parent,
             "label": label, "n_rows": int(len(X)),

@@ -50,6 +50,7 @@ from learningorchestra_tpu_torch.parallel.mesh import (
     DATA_AXIS, all_gather, all_reduce_)
 from learningorchestra_tpu_torch.parallel.runtime import (
     DeviceRuntime, host_rows)
+from learningorchestra_tpu_torch.utils import tracing
 from learningorchestra_tpu_torch.utils.profiling import device_span
 from learningorchestra_tpu_torch.viz.pca import pca_embed
 
@@ -266,7 +267,8 @@ def tsne_embed(runtime: DeviceRuntime, X: np.ndarray, *,
 
     Each stage records a span (``viz.pca50``, ``viz.knn``,
     ``viz.calibrate``, ``viz.edge_table``, ``viz.descent``) under the
-    ambient trace; a stage's span ends when the device has finished it.
+    ambient trace; a device stage's span ends when the device has
+    finished it, and ``viz.edge_table`` is a host stage.
     ``viz.descent`` carries the count of hub-overflow edges
     (``overflow_edges``)."""
     X = np.asarray(X, np.float32)
@@ -289,9 +291,9 @@ def tsne_embed(runtime: DeviceRuntime, X: np.ndarray, *,
         lambda: _knn(runtime.replicate(Xp), k=k, tile=tile), "viz.knn", dev)
     P, _ = device_span(lambda: _calibrate(d2k[:n_valid], perplexity),
                        "viz.calibrate", dev)
-    table, _ = device_span(lambda: _edge_table(
-        host_rows(idx)[:n_valid], host_rows(P), len(Xp), n_valid),
-        "viz.edge_table")
+    with tracing.span("viz.edge_table"):
+        table = _edge_table(host_rows(idx)[:n_valid], host_rows(P), len(Xp),
+                            n_valid)
     sym_idx, ov_src, ov_dst = (runtime.replicate(a.astype(np.int64))
                                for a in (table[0], table[2], table[3]))
     sym_w, ov_w = runtime.replicate(table[1]), runtime.replicate(table[4])
