@@ -44,8 +44,9 @@ The port's span names beyond the taxonomy in docs/observability.md
   records nothing;
 - ``design.steps`` (ops/preprocess.py; rows, steps): label handling and
   the preprocessing steps of a resident design;
-- ``design.stack`` (ops/preprocess.py; rows, cols): the feature columns
-  stacked into the float32 design matrix;
+- ``design.stack`` (ops/preprocess.py; rows, cols, blocks, threads): the
+  feature columns stacked into the float32 design matrix, in ``blocks``
+  row blocks over ``threads`` threads (1 and 1 for a small design);
 - ``design.build`` also in viz/service.py (parent, rows): the embed's
   design;
 - ``runtime.put`` (parallel/runtime.py; bytes, pinned): one host→device
