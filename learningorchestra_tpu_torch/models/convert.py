@@ -9,7 +9,8 @@ leaf statistics (T, M, S), gb leaf values and ``step_size``, bin
 mlp ``W1``/``b1``/``W2``/``b2``/``mu``/``sigma``. A tx model's nested
 pytree (``embed``, ``pos``, ``head_w``, ``head_b`` and a list of layer
 dicts) becomes the flat dict of models/transformer.py
-(``layers.<i>.<name>``).
+(``layers.<i>.<name>``). Only the encoder block converts: the JAX
+package has no ``mla_moe`` block.
 """
 
 from __future__ import annotations
@@ -51,6 +52,10 @@ def _flatten_tx(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
 def from_jax_params(kind: str, params: Dict[str, Any],
                     num_classes: int, hparams: Dict[str, Any]) -> TrainedModel:
     if kind == "tx":
+        if hparams.get("block", "encoder") != "encoder":
+            raise ValueError(
+                f"the JAX package has no tx block {hparams['block']!r}: "
+                f"only the encoder block converts")
         params = _flatten_tx(params)
         keys = dict.fromkeys(param_names(
             TxConfig(n_layers=int(hparams["n_layers"]))), np.float32)

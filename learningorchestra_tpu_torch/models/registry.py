@@ -89,6 +89,26 @@ HPARAM_SPECS: Dict[str, Dict[str, Tuple[Callable, str]]] = {
            "batch": _int_range(1, 1 << 22), "lr": _positive(),
            "causal": _boolean(), "remat": _boolean()},
 }
+#: ``tx``'s block and the ``mla_moe`` block's widths (models/transformer.py,
+#: models/moe.py), named after DeepSeek-V3's config keys. Kept apart from
+#: ``HPARAM_SPECS["tx"]``, the JAX package's table, so a request for the
+#: encoder block is told the keys the encoder takes; a request naming
+#: ``block: "mla_moe"`` is told both tables' keys.
+TX_BLOCK_SPECS: Dict[str, Tuple[Callable, str]] = {
+    "block": _choice("encoder", "mla_moe"),
+    "kv_lora_rank": _int_range(1, 8192),
+    "qk_nope_head_dim": _int_range(1, 1024),
+    "qk_rope_head_dim": _int_range(2, 1024),
+    "v_head_dim": _int_range(1, 1024),
+    "rope_theta": _positive(),
+    "n_routed_experts": _int_range(1, 1024),
+    "n_shared_experts": _int_range(0, 64),
+    "num_experts_per_tok": _int_range(1, 1024),
+    "moe_intermediate_size": _int_range(1, 65536),
+    "first_k_dense_replace": _int_range(0, 64),
+    "routed_scaling_factor": _positive(),
+    "rms_norm_eps": _positive(),
+}
 
 
 def validate_hparams(classifier: str, hparams: Any) -> None:
@@ -103,17 +123,29 @@ def validate_hparams(classifier: str, hparams: Any) -> None:
         raise ValueError(
             f"hparams for classifier {classifier!r} must be an object of "
             f"name->value, got {type(hparams).__name__}")
-    spec = HPARAM_SPECS[classifier]
+    spec = known = HPARAM_SPECS[classifier]
+    if classifier == "tx":
+        spec = dict(spec, block=TX_BLOCK_SPECS["block"])
+        if hparams.get("block") == "mla_moe":
+            spec = known = dict(spec, **TX_BLOCK_SPECS)
     for key, value in hparams.items():
+        if key not in spec and key in TX_BLOCK_SPECS:
+            raise ValueError(
+                f"hparams {sorted(set(hparams) & set(TX_BLOCK_SPECS))} for "
+                f"classifier 'tx' need block 'mla_moe'")
         if key not in spec:
             raise ValueError(
                 f"unknown hparam {key!r} for classifier {classifier!r}; "
-                f"known: {sorted(spec)}")
+                f"known: {sorted(known)}")
         check, expect = spec[key]
         if not check(value):
             raise ValueError(
                 f"hparam {key!r} for classifier {classifier!r} is out of "
                 f"range: expected {expect}, got {value!r}")
+    if classifier == "tx" and hparams.get("block") == "mla_moe":
+        # The block's cross-field limits, its defaults filling the rest.
+        sequence.check_mla(dict(sequence.MLA_HPARAMS, **{
+            k: v for k, v in hparams.items() if k in sequence.MLA_HPARAMS}))
 
 
 def get_trainer(name: str) -> Callable:

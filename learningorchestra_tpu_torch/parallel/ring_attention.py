@@ -42,8 +42,9 @@ def _scale(d: int) -> float:
 def _online_block(q, k_blk, v_blk, o, m, l, mask):
     """Fold one K/V block into the (o, m, l) online-softmax accumulators.
 
-    q: (B, Tq, H, D); k_blk/v_blk: (B, Tk, H, D); o: (B, Tq, H, D);
-    m, l: (B, Tq, H); mask: (Tq, Tk) additive (0 or -inf) or None.
+    q: (B, Tq, H, D); k_blk: (B, Tk, H, D); v_blk: (B, Tk, H, Dv); o:
+    (B, Tq, H, Dv); m, l: (B, Tq, H); mask: (Tq, Tk) additive (0 or
+    -inf) or None.
     """
     s = torch.einsum("bqhd,bkhd->bhqk", q, k_blk) * _scale(q.shape[-1])
     if mask is not None:
@@ -84,9 +85,11 @@ def ring_attention(q, k, v, *, mesh: Optional[ProcessMesh] = None,
                    kv_block: int = KV_BLOCK):
     """Exact multi-head attention with sequence sharded over ``axis``.
 
-    Per-rank shapes: q, k, v — (B, T_local, H, D). Returns (B, T_local,
-    H, D). With a size-1 axis (or no mesh) this is blockwise single-device
-    attention: each block folds through the online softmax in
+    Per-rank shapes: q, k — (B, T_local, H, D); v — (B, T_local, H, Dv),
+    whose width may differ from the scores' (latent attention's 128
+    against its 192). Returns (B, T_local, H, Dv); the scores are scaled
+    by 1/sqrt(D). With a size-1 axis (or no mesh) this is blockwise
+    single-device attention: each block folds through the online softmax in
     ``kv_block``-sized chunks, so memory stays O(T·kv_block) at any length
     (ragged tails pad the block and mask the padded keys).
     """
@@ -98,7 +101,7 @@ def ring_attention(q, k, v, *, mesh: Optional[ProcessMesh] = None,
     grad = torch.is_grad_enabled()
 
     qf = q.to(torch.float32)
-    o = torch.zeros_like(qf)
+    o = qf.new_zeros((B, Tq, H, v.shape[-1]))
     m = torch.full((B, Tq, H), -torch.inf, dtype=torch.float32, device=dev)
     l = torch.zeros((B, Tq, H), dtype=torch.float32, device=dev)
 
