@@ -52,12 +52,19 @@ def _label_encode(col: np.ndarray, vocab: Optional[Dict] = None):
 
 def apply_steps(columns: Dict[str, np.ndarray],
                 steps: Sequence[Dict[str, Any]],
-                state: Optional[Dict] = None) -> Tuple[Dict[str, np.ndarray],
-                                                       Dict]:
+                state: Optional[Dict] = None,
+                counts: Optional[Dict[str, int]] = None
+                ) -> Tuple[Dict[str, np.ndarray], Dict]:
     """Apply a step list. ``state`` carries fitted statistics (vocab, means)
-    so the same pipeline applies identically to train and test datasets."""
+    so the same pipeline applies identically to train and test datasets.
+    ``counts``, when given, has ``fill_one_read`` and ``fill_full`` added
+    to: the float columns whose fillna fill was fitted by one read
+    (``_one_read_means``), and those fitted the full way."""
     cols = dict(columns)
     state = dict(state or {})
+    counts = {} if counts is None else counts
+    counts.setdefault("fill_one_read", 0)
+    counts.setdefault("fill_full", 0)
     for i, step in enumerate(steps):
         op = step.get("op")
         key = f"{i}:{op}"
@@ -82,10 +89,19 @@ def apply_steps(columns: Dict[str, np.ndarray],
             strategy = step.get("strategy", "mean")
             fitted = key in state      # applying train-fitted stats to test
             fill = state.get(key, {})
+            means = {} if fitted or strategy != "mean" else _one_read_means(
+                {f: c for f, c in cols.items()
+                 if c.dtype.kind == "f" and f not in fill})
             for f, c in cols.items():
                 if c.dtype.kind != "f":
                     continue
+                if f in means:
+                    # A finite sum: no NaN in the column, nothing to fill.
+                    fill[f] = means[f]
+                    counts["fill_one_read"] += 1
+                    continue
                 if not fitted and f not in fill:
+                    counts["fill_full"] += 1
                     # Fit the statistic for EVERY float column (even ones
                     # with no NaN here) so the test pass never computes its
                     # own — fit-on-train, apply-to-test.
@@ -153,8 +169,8 @@ def design_matrix(ds: Dataset, label: str,
     state = dict(state or {})
     if not steps:
         steps = [{"op": "label_encode"}, {"op": "fillna", "strategy": "mean"}]
-    with tracing.span("design.steps", rows=rows,
-                      steps=[st.get("op") for st in steps]):
+    step_attrs = {"rows": rows, "steps": [st.get("op") for st in steps]}
+    with tracing.span("design.steps", step_attrs):
         if label in cols:
             lab = cols.pop(label)
             if lab.dtype == object:
@@ -165,7 +181,7 @@ def design_matrix(ds: Dataset, label: str,
                 y = np.asarray(lab)
                 y = np.where(np.isnan(y.astype(np.float64)), -1, y).astype(
                     np.int32) if y.dtype.kind == "f" else y.astype(np.int32)
-        cols, state = apply_steps(cols, steps, state)
+        cols, state = apply_steps(cols, steps, state, counts=step_attrs)
     if feature_fields is None:
         feature_fields = [f for f in cols if cols[f].dtype.kind in "ifub"]
     attrs = {"rows": rows, "cols": len(feature_fields)}
@@ -284,6 +300,63 @@ def _stack_design(columns: Sequence[Any],
                     for t in range(threads)]:
             fut.result()
     return out, len(starts), threads
+
+
+# -- fillna(mean)'s fit in one read ------------------------------------------
+#
+# ``np.nanmean(c)`` reads a column about five times beside the fit's own
+# ``isnan`` passes: a NaN mask, a copy with the NaNs zeroed, a count of
+# the mask and the copy's sum. On a column with no NaN the copy holds the
+# column's values, and NumPy sums a contiguous aligned array in the same
+# pairwise order wherever it starts, so ``np.sum(c)`` is the copy's sum
+# bit for bit. A sum is finite only where the column holds no NaN and no
+# infinity, so one read settles both the mean (``nanmean``'s own
+# ``dtype.type(tot / count)``) and that nothing needs filling. A column
+# whose sum is not finite takes the full fit. Columns of at least a stack
+# tile are read on the stack's threads (NumPy releases the interpreter
+# lock in a long sum); shorter ones, where the lock sets the pace, on the
+# calling thread.
+
+
+def _one_read_mean(c: np.ndarray) -> Optional[float]:
+    """``float(np.nanmean(c))`` where ``c``'s sum is finite, else None.
+    The sum's own float errors are nobody's: a column that raises one
+    goes on to the full fit, under the caller's error handling."""
+    with np.errstate(all="ignore"):
+        tot = np.sum(c)
+    if not np.isfinite(tot):
+        return None
+    return float(c.dtype.type(tot / np.intp(len(c))))
+
+
+def _one_read_means_of(cols: Sequence[np.ndarray]) -> List[Optional[float]]:
+    return [_one_read_mean(c) for c in cols]
+
+
+def _one_read_means(cols: Dict[str, np.ndarray]) -> Dict[str, float]:
+    """The fill of each column of ``cols`` that one read settles: 1-D,
+    C-contiguous and aligned float32 or float64 of at least one row, with
+    a finite sum."""
+    names = [f for f, c in cols.items()
+             if type(c) is np.ndarray and c.ndim == 1 and len(c)
+             and c.flags.c_contiguous and c.flags.aligned
+             and c.dtype in (np.float32, np.float64)]
+    big = [f for f in names if cols[f].nbytes >= _STACK_TILE_BYTES]
+    threads = min(_STACK_MAX_THREADS, len(big),
+                  len(os.sched_getaffinity(0)))
+    got: Dict[str, Optional[float]] = {}
+    if threads > 1:
+        # Thread t takes columns t, t + threads, ...
+        parts = [big[t::threads] for t in range(threads)]
+        pool = _stack_executor()
+        futs = [pool.submit(_one_read_means_of, [cols[f] for f in part])
+                for part in parts]
+        for part, fut in zip(parts, futs):
+            got.update(zip(part, fut.result()))
+    for f in names:
+        if f not in got:
+            got[f] = _one_read_mean(cols[f])
+    return {f: m for f, m in got.items() if m is not None}
 
 
 # -- shard-local streamed design path ----------------------------------------

@@ -42,8 +42,10 @@ The port's span names beyond the taxonomy in docs/observability.md
 - ``catalog.consolidate`` (catalog/dataset.py; rows, chunks, bytes): a
   dataset's chunks materialized and concatenated; a cached consolidation
   records nothing;
-- ``design.steps`` (ops/preprocess.py; rows, steps): label handling and
-  the preprocessing steps of a resident design;
+- ``design.steps`` (ops/preprocess.py; rows, steps, fill_one_read,
+  fill_full): label handling and the preprocessing steps of a resident
+  design; the float columns whose fillna fill was fitted by one read, and
+  the full way;
 - ``design.stack`` (ops/preprocess.py; rows, cols, blocks, threads): the
   feature columns stacked into the float32 design matrix, in ``blocks``
   row blocks over ``threads`` threads (1 and 1 for a small design);

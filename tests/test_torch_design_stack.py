@@ -273,6 +273,22 @@ def _mixed_columns(n, seed):
             "label": rng.integers(0, 3, size=n).astype(np.int64)}
 
 
+def _fill_columns(n, seed):
+    """``_mixed_columns`` with NaN-free float32 and float64 columns (their
+    fill fitted by one read), an all-NaN column and columns holding +inf
+    and -inf (fitted the full way)."""
+    rng = np.random.default_rng(seed)
+    cols = _mixed_columns(n, seed)
+    inf = rng.normal(size=n).astype(np.float32)
+    inf[3] = np.inf
+    ninf = rng.normal(size=n)
+    ninf[n // 2] = -np.inf
+    cols.update({"clean32": rng.normal(size=n).astype(np.float32),
+                 "clean64": rng.normal(size=n) * 1e3,
+                 "void": np.full(n, np.nan), "inf": inf, "ninf": ninf})
+    return cols
+
+
 @pytest.mark.parametrize("split", [False, True], ids=["one", "split"])
 @pytest.mark.parametrize("steps", [
     (), [{"op": "label_encode"}, {"op": "fillna", "strategy": "mean"},
@@ -280,8 +296,12 @@ def _mixed_columns(n, seed):
 def test_design_matrix_matches_the_jax_package(tmp_path, monkeypatch, split,
                                                steps):
     if split:
+        # The stack in blocks on threads, and every float column, of
+        # 10,000 bytes or more, fitted on the stack's threads.
         _split(monkeypatch)
-    cols = _mixed_columns(2500, 7)
+        monkeypatch.setattr(preprocess.os, "sched_getaffinity",
+                            lambda pid: set(range(4)))
+    cols = _fill_columns(2500, 7)
     jstore = JaxStore(_cfg(JaxSettings, tmp_path / "j"))
     tstore = DatasetStore(_cfg(Settings, tmp_path / "t"))
     jstore.create("d", columns=dict(cols), finished=True)
