@@ -613,10 +613,6 @@ class Dataset:
                             attrs={"records": len(records),
                                    "dataset": self.metadata.name})
 
-    def _flush_chunk_locked(self, chunk: _Chunk) -> None:
-        """Write + journal-commit one chunk (eviction path)."""
-        self._commit_records_locked([self._write_chunk_file_locked(chunk)])
-
     def flush_new_chunks(self) -> List[str]:
         """Flush every not-yet-persisted chunk (store.save's incremental
         commit). All chunk files are written first, then journaled with a
@@ -697,11 +693,6 @@ class Dataset:
             # Prompt byte-reclaim only — cache keys are CRC-pinned, so a
             # stale entry could never be served wrongly, just held.
             readpipe.invalidate_files(removed)
-
-    @property
-    def rewrite_needed(self) -> bool:
-        with self._data_lock:
-            return self._rewrite_needed
 
     def journal_snapshot(self, gen: Optional[int] = None,
                          offset: int = 0) -> tuple:
@@ -1277,15 +1268,6 @@ def _write_arrow_table(path: str, table) -> None:
 
     with ipc.new_file(path, table.schema) as writer:
         writer.write_table(table)
-
-
-def write_chunk_parquet(path: str, cols: Columns,
-                        fields: List[str]) -> None:
-    """Columns → parquet (legacy chunk format; kept for tooling/tests that
-    exercise the .parquet read fallback)."""
-    import pyarrow.parquet as pq
-
-    pq.write_table(_cols_to_arrow_table(cols, fields), path)
 
 
 def read_chunk_file(path: str,

@@ -52,10 +52,10 @@ def _flatten_tx(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
 def from_jax_params(kind: str, params: Dict[str, Any],
                     num_classes: int, hparams: Dict[str, Any]) -> TrainedModel:
     if kind == "tx":
-        if hparams.get("block", "encoder") != "encoder":
+        if hparams.get("block", TxConfig.block) != TxConfig.block:
             raise ValueError(
                 f"the JAX package has no tx block {hparams['block']!r}: "
-                f"only the encoder block converts")
+                f"only the {TxConfig.block} block converts")
         params = _flatten_tx(params)
         keys = dict.fromkeys(param_names(
             TxConfig(n_layers=int(hparams["n_layers"]))), np.float32)

@@ -15,6 +15,7 @@ from typing import Any, Callable, Dict, Tuple
 
 from learningorchestra_tpu_torch.models import (
     logistic, mlp, naive_bayes, sequence, trees)
+from learningorchestra_tpu_torch.models.transformer import BLOCKS
 
 CLASSIFIERS: Dict[str, Callable] = {
     "lr": logistic.fit,
@@ -89,13 +90,13 @@ HPARAM_SPECS: Dict[str, Dict[str, Tuple[Callable, str]]] = {
            "batch": _int_range(1, 1 << 22), "lr": _positive(),
            "causal": _boolean(), "remat": _boolean()},
 }
-#: ``tx``'s block and the ``mla_moe`` block's widths (models/transformer.py,
-#: models/moe.py), named after DeepSeek-V3's config keys. Kept apart from
-#: ``HPARAM_SPECS["tx"]``, the JAX package's table, so a request for the
-#: encoder block is told the keys the encoder takes; a request naming
-#: ``block: "mla_moe"`` is told both tables' keys.
+#: ``tx``'s block (a key of ``transformer.BLOCKS``) and the ``mla_moe``
+#: block's widths (models/transformer.py, models/moe.py), named after
+#: DeepSeek-V3's config keys. Kept apart from ``HPARAM_SPECS["tx"]``, the
+#: JAX package's table, so a request for the encoder block is told the
+#: keys the encoder takes; one naming a block with fields, its fields too.
 TX_BLOCK_SPECS: Dict[str, Tuple[Callable, str]] = {
-    "block": _choice("encoder", "mla_moe"),
+    "block": _choice(*BLOCKS),
     "kv_lora_rank": _int_range(1, 8192),
     "qk_nope_head_dim": _int_range(1, 1024),
     "qk_rope_head_dim": _int_range(2, 1024),
@@ -124,15 +125,20 @@ def validate_hparams(classifier: str, hparams: Any) -> None:
             f"hparams for classifier {classifier!r} must be an object of "
             f"name->value, got {type(hparams).__name__}")
     spec = known = HPARAM_SPECS[classifier]
+    blk = None
     if classifier == "tx":
         spec = dict(spec, block=TX_BLOCK_SPECS["block"])
-        if hparams.get("block") == "mla_moe":
-            spec = known = dict(spec, **TX_BLOCK_SPECS)
+        blk = next((b for name, b in BLOCKS.items()
+                    if name == hparams.get("block")), None)
+        if blk is not None and blk.fields:
+            spec = known = dict(spec, **{k: TX_BLOCK_SPECS[k]
+                                         for k in blk.fields})
     for key, value in hparams.items():
-        if key not in spec and key in TX_BLOCK_SPECS:
+        owners = [n for n, b in BLOCKS.items() if key in b.fields]
+        if key not in spec and owners and classifier == "tx":
             raise ValueError(
                 f"hparams {sorted(set(hparams) & set(TX_BLOCK_SPECS))} for "
-                f"classifier 'tx' need block 'mla_moe'")
+                f"classifier 'tx' need block {owners[0]!r}")
         if key not in spec:
             raise ValueError(
                 f"unknown hparam {key!r} for classifier {classifier!r}; "
@@ -142,10 +148,9 @@ def validate_hparams(classifier: str, hparams: Any) -> None:
             raise ValueError(
                 f"hparam {key!r} for classifier {classifier!r} is out of "
                 f"range: expected {expect}, got {value!r}")
-    if classifier == "tx" and hparams.get("block") == "mla_moe":
+    if blk is not None:
         # The block's cross-field limits, its defaults filling the rest.
-        sequence.check_mla(dict(sequence.MLA_HPARAMS, **{
-            k: v for k, v in hparams.items() if k in sequence.MLA_HPARAMS}))
+        blk.check(dict(blk.fields, **hparams))
 
 
 def get_trainer(name: str) -> Callable:

@@ -25,21 +25,13 @@ import torch
 from learningorchestra_tpu_torch.models import moe
 from learningorchestra_tpu_torch.models.base import TrainedModel
 from learningorchestra_tpu_torch.models.transformer import (
-    MLA_FIELDS, ONE_RANK, TxConfig, adam_init, forward_shard, gather_params,
-    init_params, init_params_mla, shard_params, train_step)
+    BLOCKS, ONE_RANK, TxConfig, adam_init, forward_shard, gather_params,
+    round_up, train_step)
 from learningorchestra_tpu_torch.parallel.mesh import (
     DATA_AXIS, MODEL_AXIS, SEQ_AXIS)
 from learningorchestra_tpu_torch.parallel.runtime import DeviceRuntime
 from learningorchestra_tpu_torch.utils import regions, tracing
 
-
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
-
-
-#: The ``mla_moe`` block's hparams, named after DeepSeek-V3's config
-#: keys, and their defaults: Moonlight-16B-A3B's published values.
-MLA_HPARAMS = {k: getattr(TxConfig, k) for k in MLA_FIELDS}
 
 _lock = threading.Lock()
 #: The last fit's step losses (``fit_losses``).
@@ -53,37 +45,25 @@ def fit_losses() -> List[float]:
         return list(_losses)
 
 
-def check_mla(hp: dict) -> None:
-    """The ``mla_moe`` block's cross-field limits (each field's own range
-    is ``registry.HPARAM_SPECS``'s)."""
-    if hp["qk_rope_head_dim"] % 2:
-        raise ValueError("hparam 'qk_rope_head_dim' for classifier 'tx' "
-                         "must be even (RoPE rotates pairs), got "
-                         f"{hp['qk_rope_head_dim']!r}")
-    if hp["num_experts_per_tok"] > hp["n_routed_experts"]:
-        raise ValueError(
-            "hparam 'num_experts_per_tok' for classifier 'tx' must be at "
-            f"most n_routed_experts ({hp['n_routed_experts']}), got "
-            f"{hp['num_experts_per_tok']!r}")
-
-
 def fit(runtime: DeviceRuntime, X: np.ndarray, y: np.ndarray,
         num_classes: int, seed: int = 0, *, d_model: int = 64,
         n_heads: int = 4, n_layers: int = 2, d_ff: int = 128,
         vocab: int = 0, train_steps: int = 300, batch: int = 1024,
         lr: float = 1e-3, causal: bool = False,
-        remat: bool = False, block: str = "encoder",
-        **mla) -> TrainedModel:
+        remat: bool = False, block: str = TxConfig.block,
+        **fields) -> TrainedModel:
     """Token-column design matrix → fitted transformer classifier.
 
     The feature columns ARE the sequence: column j holds token id at
     position j (the design matrix arrives float32; values cast back to
     int). ``vocab=0`` infers the vocabulary from the data. ``block``
-    picks the encoder (the default) or ``mla_moe``, whose widths are the
-    keyword arguments of ``MLA_HPARAMS`` (its defaults where absent).
+    names an entry of ``transformer.BLOCKS`` (the encoder by default);
+    the block's own widths are keyword arguments (its ``fields``, whose
+    defaults fill the rest).
     """
-    if block not in ("encoder", "mla_moe") or (block == "encoder" and mla):
-        raise ValueError(f"tx block {block!r} with hparams {sorted(mla)}")
+    blk = BLOCKS.get(block)
+    if blk is None or set(fields) - set(blk.fields):
+        raise ValueError(f"tx block {block!r} with hparams {sorted(fields)}")
     mesh = runtime.mesh
     dev = runtime.device
     tokens_all = np.maximum(np.asarray(X, np.float32), 0.0).astype(np.int32)
@@ -101,37 +81,22 @@ def fit(runtime: DeviceRuntime, X: np.ndarray, y: np.ndarray,
     S = mesh.size(SEQ_AXIS)
     Dax = mesh.size(DATA_AXIS)
     M = mesh.size(MODEL_AXIS)
-    T_pad = _round_up(T, S)
+    T_pad = round_up(T, S)
     if T_pad > T:
         tokens_all = np.pad(tokens_all, ((0, 0), (0, T_pad - T)))
-    n_heads = _round_up(max(n_heads, 1), M)
-    d_ff = _round_up(max(d_ff, 1), M)
-    if block == "encoder":
-        d_model = _round_up(max(d_model, n_heads), n_heads)
-    else:
-        mla = dict(MLA_HPARAMS, **mla)
-        check_mla(mla)
-        mla["moe_intermediate_size"] = _round_up(
-            mla["moe_intermediate_size"], M)
-    batch = min(_round_up(batch, Dax), _round_up(n, Dax))
+    n_heads = round_up(max(n_heads, 1), M)
+    d_ff = round_up(max(d_ff, 1), M)
+    widths = dict(blk.fields, d_model=d_model, n_heads=n_heads, d_ff=d_ff,
+                  **fields)
+    blk.resolve(widths, M)
+    batch = min(round_up(batch, Dax), round_up(n, Dax))
 
-    cfg = TxConfig(vocab=vocab, d_model=d_model, n_heads=n_heads,
-                   n_layers=n_layers, d_ff=d_ff, n_classes=num_classes,
+    cfg = TxConfig(vocab=vocab, n_layers=n_layers, n_classes=num_classes,
                    max_len=T_pad, causal=causal, remat=remat, block=block,
-                   **({} if block == "encoder" else mla))
+                   **widths)
     init_attrs = {}
     with tracing.span("tx.init", init_attrs):
-        if block == "encoder":
-            whole = init_params(torch.Generator().manual_seed(int(seed)),
-                                cfg)
-            params = {k: v.to(dev) for k, v in
-                      shard_params(whole, cfg, mesh).items()}
-            del whole
-        else:
-            # Drawn on the device: billions of host normals and their copy
-            # would outweigh the fit.
-            gen = torch.Generator(device=dev).manual_seed(int(seed))
-            params = init_params_mla(gen, cfg, mesh)
+        params = blk.init(seed, cfg, mesh, dev)
         init_attrs.update(
             params=sum(v.numel() for v in params.values()),
             bytes=sum(v.numel() * v.element_size() for v in params.values()))
@@ -152,21 +117,21 @@ def fit(runtime: DeviceRuntime, X: np.ndarray, y: np.ndarray,
         bl = torch.from_numpy(y_all[sel]).to(dev)
         attrs = {"tokens": int(bt.numel())}
         with tracing.span("tx.step", attrs) as sp:
-            aux = None if block == "encoder" else {}
-            if (aux is not None and sp is not None and sp.sampled
-                    and dev.type == "cuda"):
+            aux = {}
+            if sp is not None and sp.sampled and dev.type == "cuda":
                 aux["timer"] = regions.RegionTimer()
             params, opt_state, loss = train_step(
                 params, opt_state, bt, bl, cfg=cfg, mesh=mesh, lr=lr,
                 aux=aux)
             # The step's one read-back: the loss, once the step's work,
-            # the Adam update and the bias update included, is done.
+            # the Adam update and the block's after-step included, is done.
             attrs["loss"] = value = float(loss)
-            if aux is not None and "timer" in aux:
-                dt = aux["timer"].seconds()
-                attrs["mla_ms"] = 1e3 * dt.get("mla", 0.0)
-                attrs["moe_ms"] = 1e3 * dt.get("moe", 0.0)
-            if aux is not None:
+            # The device time of each region the block marked
+            # (``mla_ms``, ``moe_ms``), and the expert loads, if any.
+            if "timer" in aux:
+                attrs.update((f"{r}_ms", 1e3 * s)
+                             for r, s in aux["timer"].seconds().items())
+            if aux.get("loads"):
                 loads = moe.counts()["loads"]
                 attrs["load_ratio"] = max(
                     (b / m for b, m in loads.values()), default=0.0)
@@ -177,12 +142,12 @@ def fit(runtime: DeviceRuntime, X: np.ndarray, y: np.ndarray,
     # on any topology, and saving stays a process-local numpy write.
     del opt_state
     params = gather_params(params, cfg, mesh)
-    hp = {"vocab": vocab, "d_model": d_model, "n_heads": n_heads,
-          "n_layers": n_layers, "d_ff": d_ff, "n_classes": num_classes,
-          "max_len": T_pad, "causal": causal, "train_steps": train_steps,
-          "lr": lr}
-    if block != "encoder":
-        hp.update(block=block, **mla)
+    hp = dict({k: getattr(cfg, k) for k in SAVED_WIDTHS}, causal=causal,
+              train_steps=train_steps, lr=lr)
+    # A model of the default block keeps the JAX package's hparams, with
+    # no ``block`` key: models saved before blocks existed load as it.
+    if blk is not BLOCKS[TxConfig.block]:
+        hp.update(block=block, **{k: getattr(cfg, k) for k in blk.fields})
     return TrainedModel(kind="tx", params=params,
                         predict_proba_fn=predictor(hp),
                         num_classes=num_classes, hparams=hp)
@@ -197,38 +162,26 @@ def row_bytes(cfg: TxConfig) -> int:
     """An upper estimate of one row's float32 activations at once in the
     no-grad forward: the residual stream and norms, the attention's
     projections and one key chunk's scores, and the feed-forward's (or
-    the experts' k rows a token) widest layer."""
+    the experts' k rows a token) widest layer (the block's
+    ``token_floats``)."""
     from learningorchestra_tpu_torch.parallel.ring_attention import KV_BLOCK
 
-    T, d, H = cfg.max_len, cfg.d_model, cfg.n_heads
-    chunk = min(KV_BLOCK, T)
-    if cfg.block == "encoder":
-        hd = d // max(H, 1)
-        per_token = 6 * d + 5 * H * hd + 3 * H * chunk + 2 * cfg.d_ff
-    else:
-        qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
-        k, I = cfg.num_experts_per_tok, cfg.moe_intermediate_size
-        per_token = (6 * d + cfg.kv_lora_rank + 3 * H * qk
-                     + 3 * H * cfg.v_head_dim + 3 * H * chunk
-                     + max(3 * cfg.d_ff, k * (3 * d + 4 * I)
-                           + 3 * cfg.n_shared_experts * I))
-    return 4 * T * per_token
+    T = cfg.max_len
+    return 4 * T * BLOCKS[cfg.block].token_floats(cfg, min(KV_BLOCK, T))
+
+
+#: The ``TxConfig`` widths a saved tx model's hparams hold, beside
+#: ``causal``, ``train_steps``, ``lr`` and a block's own fields.
+SAVED_WIDTHS = ("vocab", "d_model", "n_heads", "n_layers", "d_ff",
+                "n_classes", "max_len")
 
 
 def config_from_hparams(hparams: dict) -> TxConfig:
     """The TxConfig a (possibly restored) tx model's hparams describe."""
-    extra = {}
-    if hparams.get("block", "encoder") != "encoder":
-        extra = {k: type(v)(hparams[k]) for k, v in MLA_HPARAMS.items()}
-        extra["block"] = hparams["block"]
-    return TxConfig(vocab=int(hparams["vocab"]),
-                    d_model=int(hparams["d_model"]),
-                    n_heads=int(hparams["n_heads"]),
-                    n_layers=int(hparams["n_layers"]),
-                    d_ff=int(hparams["d_ff"]),
-                    n_classes=int(hparams["n_classes"]),
-                    max_len=int(hparams["max_len"]),
-                    causal=bool(hparams.get("causal", False)), **extra)
+    block = hparams.get("block", TxConfig.block)
+    return TxConfig(causal=bool(hparams.get("causal", False)), block=block,
+                    **{k: type(getattr(TxConfig, k))(hparams[k]) for k in
+                       SAVED_WIDTHS + tuple(BLOCKS[block].fields)})
 
 
 def predictor(hparams: dict):

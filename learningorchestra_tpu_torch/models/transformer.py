@@ -21,12 +21,13 @@ the data and seq axes each rank's gradient is its share, summed after
 ``head_w`` and ``head_b`` act on the pooled features, which the seq
 ``psum`` already made whole, so they are summed over data only.
 
-Parameters are a flat dict of float32 tensors: ``embed``, ``pos``,
-``head_w``, ``head_b`` and ``layers.<i>.<name>`` — what ``TrainedModel``
-and ``persistence`` take. The optimizer is ``logistic.adam_update``
-(optax's Adam, written out).
+Parameters are a flat dict of float32 tensors: ``embed``, the block's
+other top-level leaves, ``head_w``, ``head_b`` and ``layers.<i>.<name>``
+— what ``TrainedModel`` and ``persistence`` take. The optimizer is
+``logistic.adam_update`` (optax's Adam, written out).
 
-Two blocks (``TxConfig.block``):
+``TxConfig.block`` names an entry of ``BLOCKS``, which holds all that the
+trainer, the registry and the predictor need of a block; two exist:
 
 - ``encoder`` (the default, the JAX package's): learned absolute
   positions, pre-LayerNorm, full multi-head attention with one head
@@ -41,11 +42,11 @@ Two blocks (``TxConfig.block``):
   ``first_k_dense_replace`` layers a SwiGLU MLP of width ``d_ff``, the
   rest the expert layer of models/moe.py; a final RMSNorm, then the same
   mean-pooled head. No position table. Its parameters are drawn on the
-  device from a seeded generator (``init_params_mla``). On the model
-  axis the heads split ``wq``, ``wkv_b`` and ``wo``, the SwiGLU widths
-  split the dense and expert weights; ``wkv_a``, the norms and the
-  router are replicated. The loss adds the experts' sequence-wise
-  balance loss, and each step ends with the correction-bias update.
+  device from a seeded generator. On the model axis the heads split
+  ``wq``, ``wkv_b`` and ``wo``, the SwiGLU widths split the dense and
+  expert weights; ``wkv_a``, the norms and the router are replicated.
+  The loss adds the experts' sequence-wise balance loss, and each step
+  ends with the correction-bias update.
 """
 
 from __future__ import annotations
@@ -83,9 +84,9 @@ class TxConfig:
     #: (``torch.utils.checkpoint``): live activation memory O(1) in depth,
     #: the long-context lever (32k tokens on one card needs it).
     remat: bool = False
-    #: ``encoder`` or ``mla_moe`` (the module docstring); the fields
-    #: below are the ``mla_moe`` block's, named after DeepSeek-V3's
-    #: config keys, at Moonlight-16B-A3B's published values.
+    #: A key of ``BLOCKS``; the fields below are the ``mla_moe`` block's,
+    #: named after DeepSeek-V3's config keys, at Moonlight-16B-A3B's
+    #: published values.
     block: str = "encoder"
     kv_lora_rank: int = 512
     qk_nope_head_dim: int = 128
@@ -101,187 +102,62 @@ class TxConfig:
     rms_norm_eps: float = 1e-5
 
 
-#: The ``mla_moe`` block's fields, its hparams (their defaults above).
-MLA_FIELDS = ("kv_lora_rank", "qk_nope_head_dim", "qk_rope_head_dim",
-              "v_head_dim", "rope_theta", "n_routed_experts",
-              "n_shared_experts", "num_experts_per_tok",
-              "moe_intermediate_size", "first_k_dense_replace",
-              "routed_scaling_factor", "rms_norm_eps")
-
 #: A mesh of one rank with no process group: every collective is the
 #: identity and the ring is blockwise attention on one device.
 ONE_RANK = ProcessMesh((1, 1, 1))
 
-#: Per-layer leaves, in the order of the JAX package's layer dict.
-LAYER_LEAVES = ("ln1_g", "ln1_b", "wqkv", "wo", "ln2_g", "ln2_b", "w1",
-                "b1", "w2", "b2")
 #: Leaves that act on the pooled features (replicated over seq).
 POOLED_LEAVES = ("head_w", "head_b")
-
-
-#: The ``mla_moe`` block's leaves: every layer's attention leaves, then
-#: the dense SwiGLU's (the first ``first_k_dense_replace`` layers) or the
-#: expert layer's (models/moe.py).
-MLA_LEAVES = ("attn_norm", "wq", "wkv_a", "kv_norm", "wkv_b", "wo",
-              "ffn_norm")
-DENSE_LEAVES = ("w1", "w3", "w2")
 #: Leaves no gradient reaches: the experts' correction biases.
 FROZEN_LEAVES = ("e_bias",)
 
 
-def layer_leaves(cfg: TxConfig, i: int) -> tuple:
-    """Layer ``i``'s leaf names, in order."""
-    if cfg.block == "encoder":
-        return LAYER_LEAVES
-    if i < cfg.first_k_dense_replace:
-        return MLA_LEAVES + DENSE_LEAVES
-    return (MLA_LEAVES + moe.ROUTER_LEAVES + moe.EXPERT_LEAVES
-            + (moe.SHARED_LEAVES if cfg.n_shared_experts else ()))
+def round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
 
 
-def moe_layers(cfg: TxConfig) -> List[int]:
-    """The indices of the expert layers (none in the encoder block)."""
-    if cfg.block == "encoder":
-        return []
-    return list(range(cfg.first_k_dense_replace, cfg.n_layers))
+def _leaf(name: str) -> str:
+    return name.rsplit(".", 1)[-1]
+
+
+def param_shapes(cfg: TxConfig) -> Dict[str, tuple]:
+    """The whole (unsharded) leaf shapes, in the fixed leaf order: the
+    top-level leaves, then ``layers.<i>.<name>``."""
+    top, layer = BLOCKS[cfg.block].shapes(cfg)
+    return dict(top, **{f"layers.{i}.{n}": v for i in range(cfg.n_layers)
+                        for n, v in layer(i).items()})
 
 
 def param_names(cfg: TxConfig) -> List[str]:
     """The flat parameter keys in the fixed leaf order."""
-    top = (["embed", "pos", "head_w", "head_b"] if cfg.block == "encoder"
-           else ["embed", "final_norm", "head_w", "head_b"])
-    return top + [f"layers.{i}.{n}" for i in range(cfg.n_layers)
-                  for n in layer_leaves(cfg, i)]
-
-
-def trainable(name: str) -> bool:
-    return name.rsplit(".", 1)[-1] not in FROZEN_LEAVES
-
-
-def param_shapes(cfg: TxConfig) -> Dict[str, tuple]:
-    """The ``mla_moe`` block's whole (unsharded) leaf shapes, in order."""
-    d, H, E = cfg.d_model, cfg.n_heads, cfg.n_routed_experts
-    r, R = cfg.kv_lora_rank, cfg.qk_rope_head_dim
-    n, dv = cfg.qk_nope_head_dim, cfg.v_head_dim
-    I, S = cfg.moe_intermediate_size, cfg.n_shared_experts
-    leaf = {"attn_norm": (d,), "wq": (d, H, n + R), "wkv_a": (d, r + R),
-            "kv_norm": (r,), "wkv_b": (r, H, n + dv), "wo": (H, dv, d),
-            "ffn_norm": (d,), "w1": (d, cfg.d_ff), "w3": (d, cfg.d_ff),
-            "w2": (cfg.d_ff, d), "router": (d, E), "e_bias": (E,),
-            "experts_w1": (E, d, I), "experts_w3": (E, d, I),
-            "experts_w2": (E, I, d), "shared_w1": (d, S * I),
-            "shared_w3": (d, S * I), "shared_w2": (S * I, d)}
-    top = {"embed": (cfg.vocab, d), "final_norm": (d,),
-           "head_w": (d, cfg.n_classes), "head_b": (cfg.n_classes,)}
-    out = {}
-    for k in param_names(cfg):
-        out[k] = top[k] if k in top else leaf[k.rsplit(".", 1)[-1]]
-    return out
-
-
-#: Standard deviation of the ``mla_moe`` block's normal draws (the
-#: DeepSeek-V3 modeling code's ``initializer_range`` default, 0.02; the
-#: Moonlight config gives none).
-INIT_STD = 0.02
-
-
-def init_leaf(name: str, shape: tuple, gen: torch.Generator) -> torch.Tensor:
-    """One ``mla_moe`` leaf: ones for a norm's scale, zeros for the
-    correction bias and the head's bias, else a normal draw of std
-    ``INIT_STD`` from ``gen`` on its device."""
-    leaf = name.rsplit(".", 1)[-1]
-    if leaf.endswith("_norm"):
-        return torch.ones(shape, dtype=torch.float32, device=gen.device)
-    if leaf in ("e_bias", "head_b"):
-        return torch.zeros(shape, dtype=torch.float32, device=gen.device)
-    return torch.randn(shape, generator=gen, dtype=torch.float32,
-                       device=gen.device).mul_(INIT_STD)
-
-
-def init_params_mla(gen: torch.Generator, cfg: TxConfig,
-                    mesh: Optional[ProcessMesh] = None
-                    ) -> Dict[str, torch.Tensor]:
-    """The ``mla_moe`` block's params drawn on ``gen``'s device, leaf by
-    leaf in ``param_names`` order; with a mesh, each leaf is cut to this
-    rank's model-axis shard as soon as it is drawn."""
-    specs = param_specs(cfg)
-    out = {}
-    for k, shape in param_shapes(cfg).items():
-        v = init_leaf(k, shape, gen)
-        dim = specs[k]
-        if mesh is not None and dim is not None:
-            M, mi = mesh.size(MODEL_AXIS), mesh.index(MODEL_AXIS)
-            w = v.shape[dim] // M
-            v = v.narrow(dim, mi * w, w).contiguous()
-        out[k] = v
-    return out
-
-
-def init_params(gen: torch.Generator, cfg: TxConfig) -> Dict[str, torch.Tensor]:
-    """The JAX package's shapes and scales, drawn from ``gen`` (a CPU
-    generator) in its order."""
-    hd = cfg.d_model // cfg.n_heads
-
-    def dense(*shape, scale=None):
-        scale = scale or 1.0 / np.sqrt(shape[0])
-        return torch.randn(shape, generator=gen, dtype=torch.float32) * scale
-
-    def ones(n):
-        return torch.ones(n, dtype=torch.float32)
-
-    def zeros(n):
-        return torch.zeros(n, dtype=torch.float32)
-
-    params = {
-        "embed": dense(cfg.vocab, cfg.d_model, scale=0.02),
-        "pos": dense(cfg.max_len, cfg.d_model, scale=0.02),
-        "head_w": dense(cfg.d_model, cfg.n_classes),
-        "head_b": zeros(cfg.n_classes),
-    }
-    for i in range(cfg.n_layers):
-        layer = {
-            "ln1_g": ones(cfg.d_model), "ln1_b": zeros(cfg.d_model),
-            "wqkv": dense(cfg.d_model, 3, cfg.n_heads, hd),
-            "wo": dense(cfg.n_heads, hd, cfg.d_model,
-                        scale=1.0 / np.sqrt(cfg.d_model)),
-            "ln2_g": ones(cfg.d_model), "ln2_b": zeros(cfg.d_model),
-            "w1": dense(cfg.d_model, cfg.d_ff),
-            "b1": zeros(cfg.d_ff),
-            "w2": dense(cfg.d_ff, cfg.d_model),
-            "b2": zeros(cfg.d_model),
-        }
-        params.update({f"layers.{i}.{k}": v for k, v in layer.items()})
-    return params
-
-
-#: The model-axis split of each per-layer leaf (the dimension sharded;
-#: heads and the FFN hidden dimension), the JAX ``param_specs``; every
-#: other leaf is replicated.
-_MODEL_DIM = {"wqkv": 2, "wo": 0, "w1": 1, "b1": 0, "w2": 0,
-              # the mla_moe block: heads, the dense and expert widths
-              "wq": 1, "wkv_b": 1, "w3": 1, "experts_w1": 2,
-              "experts_w3": 2, "experts_w2": 1, "shared_w1": 1,
-              "shared_w3": 1, "shared_w2": 0}
+    return list(param_shapes(cfg))
 
 
 def param_specs(cfg: TxConfig) -> Dict[str, Optional[int]]:
-    """The model-axis dimension of each leaf, None for a replicated one."""
-    return {k: _MODEL_DIM.get(k.rsplit(".", 1)[-1]) for k in param_names(cfg)}
+    """The model-axis dimension of each leaf, None for a replicated one
+    (the JAX ``param_specs``: heads and the FFN hidden dimension)."""
+    split = BLOCKS[cfg.block].split
+    return {k: split.get(_leaf(k)) for k in param_shapes(cfg)}
+
+
+def trainable(name: str) -> bool:
+    return _leaf(name) not in FROZEN_LEAVES
+
+
+def _shard(v: torch.Tensor, dim: Optional[int], mesh: ProcessMesh):
+    """This rank's model-axis slice of a whole leaf."""
+    if dim is None:
+        return v
+    w = v.shape[dim] // mesh.size(MODEL_AXIS)
+    return v.narrow(dim, mesh.index(MODEL_AXIS) * w, w)
 
 
 def shard_params(params: Dict[str, torch.Tensor], cfg: TxConfig,
                  mesh: ProcessMesh) -> Dict[str, torch.Tensor]:
     """This rank's model-axis shard of whole params (no communication:
     every rank holds the whole params)."""
-    M, mi = mesh.size(MODEL_AXIS), mesh.index(MODEL_AXIS)
-    out = {}
-    for k, dim in param_specs(cfg).items():
-        v = params[k]
-        if dim is not None:
-            w = v.shape[dim] // M
-            v = v.narrow(dim, mi * w, w)
-        out[k] = v.contiguous()
-    return out
+    return {k: _shard(params[k], dim, mesh).contiguous()
+            for k, dim in param_specs(cfg).items()}
 
 
 def gather_params(local: Dict[str, torch.Tensor], cfg: TxConfig,
@@ -290,6 +166,57 @@ def gather_params(local: Dict[str, torch.Tensor], cfg: TxConfig,
     return {k: (local[k] if dim is None
                 else all_gather(local[k], mesh, MODEL_AXIS, dim))
             for k, dim in param_specs(cfg).items()}
+
+
+class Block:
+    """One ``tx`` block: all that the trainer, the registry and the
+    predictor ask of it (``BLOCKS``), so that none of them names a block.
+
+    ``shapes(cfg)`` gives the top-level leaves' whole shapes and
+    ``i ↦`` layer i's, in order; ``split`` each split leaf's model-axis
+    dimension. ``resolve(hp, M)`` checks ``hp`` (``d_model``, ``n_heads``
+    and ``d_ff``, the last two rounded to the model axis's size ``M``, and
+    the ``fields``) and rounds its widths. ``init(seed, cfg, mesh,
+    device)`` draws this rank's shard; ``forward(params, tokens, *, cfg,
+    mesh, aux)`` gives the hidden states before the pooling,
+    ``reference(params, tokens, *, cfg)`` one device's logits, and
+    ``token_floats(cfg, chunk)`` a token's float32 activations at once
+    in the no-grad forward.
+    """
+    fields: Dict[str, object] = {}  # hparams beyond the encoder's: defaults
+
+    def check(self, hp: dict) -> None:
+        """Raise a ``ValueError`` where the fields do not fit together."""
+
+    def after_step(self, params, cfg: TxConfig, aux: dict, mesh) -> None:
+        """The end of a training step, after the Adam update."""
+
+
+# --- the encoder block (the JAX package's) -----------------------------------
+
+#: Per-layer leaves, in the order of the JAX package's layer dict.
+LAYER_LEAVES = ("ln1_g", "ln1_b", "wqkv", "wo", "ln2_g", "ln2_b", "w1",
+                "b1", "w2", "b2")
+
+
+def init_params(gen: torch.Generator, cfg: TxConfig) -> Dict[str, torch.Tensor]:
+    """The encoder's params at the JAX package's shapes and scales, drawn
+    from ``gen`` (a CPU generator) in its order: gains one, biases zero,
+    normals scaled by 0.02 for the tables, by 1/sqrt(d_model) for ``wo``
+    and by 1/sqrt(fan-in) for the other weights."""
+    out = {}
+    for k, shape in param_shapes(cfg).items():
+        leaf = _leaf(k)
+        if leaf.endswith("_g"):
+            out[k] = torch.ones(shape, dtype=torch.float32)
+        elif leaf.endswith("_b") or leaf.startswith("b"):
+            out[k] = torch.zeros(shape, dtype=torch.float32)
+        else:
+            scale = (0.02 if leaf in ("embed", "pos") else 1.0 / np.sqrt(
+                cfg.d_model if leaf == "wo" else shape[0]))
+            out[k] = torch.randn(shape, generator=gen,
+                                 dtype=torch.float32) * scale
+    return out
 
 
 def _ln(x, g, b, eps=1e-5):
@@ -317,7 +244,81 @@ def _layers(params, cfg: TxConfig):
         yield {n: params[f"layers.{i}.{n}"] for n in LAYER_LEAVES}
 
 
+class EncoderBlock(Block):
+    split = {"wqkv": 2, "wo": 0, "w1": 1, "b1": 0, "w2": 0}
+
+    def resolve(self, hp: dict, M: int) -> None:
+        hp["d_model"] = round_up(max(hp["d_model"], hp["n_heads"]),
+                                 hp["n_heads"])
+
+    def shapes(self, cfg: TxConfig):
+        d, H, f = cfg.d_model, cfg.n_heads, cfg.d_ff
+        layer = {"ln1_g": (d,), "ln1_b": (d,), "wqkv": (d, 3, H, d // H),
+                 "wo": (H, d // H, d), "ln2_g": (d,), "ln2_b": (d,),
+                 "w1": (d, f), "b1": (f,), "w2": (f, d), "b2": (d,)}
+        return {"embed": (cfg.vocab, d), "pos": (cfg.max_len, d),
+                "head_w": (d, cfg.n_classes),
+                "head_b": (cfg.n_classes,)}, lambda i: layer
+
+    def init(self, seed: int, cfg: TxConfig, mesh: ProcessMesh, device):
+        # Drawn whole on the host, in the JAX package's order, then sharded.
+        whole = init_params(torch.Generator().manual_seed(int(seed)), cfg)
+        return {k: v.to(device)
+                for k, v in shard_params(whole, cfg, mesh).items()}
+
+    def forward(self, params, tokens, *, cfg: TxConfig, mesh: ProcessMesh,
+                aux: Optional[dict]):
+        Tl, dev = tokens.shape[1], tokens.device
+        tokens = tokens.long()
+        pos = mesh.index(SEQ_AXIS) * Tl + torch.arange(Tl, device=dev)
+        x = params["embed"][tokens] + params["pos"][pos][None, :, :]
+        layer_fn = partial(_layer, cfg=cfg, mesh=mesh)
+        for lyr in _layers(params, cfg):
+            if cfg.remat and torch.is_grad_enabled():
+                x = checkpoint(layer_fn, x, lyr, use_reentrant=False)
+            else:
+                x = layer_fn(x, lyr)
+        return x
+
+    def reference(self, params, tokens, *, cfg: TxConfig):
+        Tl = tokens.shape[1]
+        if Tl > cfg.max_len:
+            raise ValueError(f"sequence length {Tl} exceeds max_len "
+                             f"{cfg.max_len}")
+        tokens = tokens.long()
+        x = (params["embed"][tokens]
+             + params["pos"][torch.arange(Tl, device=tokens.device)][None])
+        for lyr in _layers(params, cfg):
+            h = _ln(x, lyr["ln1_g"], lyr["ln1_b"])
+            qkv = torch.einsum("btd,dkhe->btkhe", h, lyr["wqkv"])
+            attn = reference_attention(qkv[:, :, 0], qkv[:, :, 1],
+                                       qkv[:, :, 2], causal=cfg.causal)
+            x = x + torch.einsum("bthe,hed->btd", attn, lyr["wo"])
+            h = _ln(x, lyr["ln2_g"], lyr["ln2_b"])
+            x = x + F.gelu(h @ lyr["w1"] + lyr["b1"],
+                           approximate="tanh") @ lyr["w2"] + lyr["b2"]
+        pool = x.mean(dim=1)
+        return pool @ params["head_w"] + params["head_b"]
+
+    def token_floats(self, cfg: TxConfig, chunk: int) -> int:
+        d, H = cfg.d_model, cfg.n_heads
+        hd = d // max(H, 1)
+        return 6 * d + 5 * H * hd + 3 * H * chunk + 2 * cfg.d_ff
+
+
 # --- the mla_moe block -------------------------------------------------------
+
+#: Every layer's attention leaves, then the dense SwiGLU's (the first
+#: ``first_k_dense_replace`` layers) or the expert layer's (models/moe.py).
+MLA_LEAVES = ("attn_norm", "wq", "wkv_a", "kv_norm", "wkv_b", "wo",
+              "ffn_norm")
+DENSE_LEAVES = ("w1", "w3", "w2")
+
+#: Standard deviation of the block's normal draws (the DeepSeek-V3
+#: modeling code's ``initializer_range`` default, 0.02; the Moonlight
+#: config gives none).
+INIT_STD = 0.02
+
 
 def _rms(x, w, eps):
     return x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + eps) * w
@@ -375,31 +376,118 @@ def _mla_layer(x, lyr, *, cfg: TxConfig, mesh: ProcessMesh, pos, i: int,
     return x + mark(out, timer, "moe", CLOSE), bal, load
 
 
-def _forward_mla(params, tokens, *, cfg: TxConfig, mesh: ProcessMesh,
-                 aux: Optional[dict]):
-    seq_idx, seq_size = mesh.index(SEQ_AXIS), mesh.size(SEQ_AXIS)
-    Tl = tokens.shape[1]
-    pos = seq_idx * Tl + torch.arange(Tl, device=tokens.device)
-    x = params["embed"][tokens.long()]
-    timer = aux.get("timer") if aux is not None else None
-    for i in range(cfg.n_layers):
-        lyr = {n: params[f"layers.{i}.{n}"] for n in layer_leaves(cfg, i)}
-        fn = partial(_mla_layer, cfg=cfg, mesh=mesh, pos=pos, i=i,
-                     timer=timer, balance=aux is not None)
-        if cfg.remat and torch.is_grad_enabled():
-            # A whole recompute: every region mark is met again, in
-            # pairs (utils/regions.py).
-            with set_checkpoint_early_stop(False):
-                x, bal, load = checkpoint(fn, x, lyr, use_reentrant=False)
-        else:
-            x, bal, load = fn(x, lyr)
-        if aux is not None and load is not None:
-            aux.setdefault("balance", []).append(bal)
-            aux.setdefault("loads", []).append(load)
-    x = _rms(x, params["final_norm"], cfg.rms_norm_eps)
-    pool = psum(x.sum(dim=1), mesh, SEQ_AXIS) / (Tl * seq_size)
-    return pool @ params["head_w"] + params["head_b"]
+class MlaMoeBlock(Block):
+    fields = {k: getattr(TxConfig, k) for k in (
+        "kv_lora_rank", "qk_nope_head_dim", "qk_rope_head_dim",
+        "v_head_dim", "rope_theta", "n_routed_experts", "n_shared_experts",
+        "num_experts_per_tok", "moe_intermediate_size",
+        "first_k_dense_replace", "routed_scaling_factor", "rms_norm_eps")}
+    split = {"wq": 1, "wkv_b": 1, "wo": 0, "w1": 1, "w3": 1, "w2": 0,
+             "experts_w1": 2, "experts_w3": 2, "experts_w2": 1,
+             "shared_w1": 1, "shared_w3": 1, "shared_w2": 0}
 
+    def layer(self, cfg: TxConfig, i: int) -> tuple:
+        """Layer ``i``'s leaf names, in order."""
+        if i < cfg.first_k_dense_replace:
+            return MLA_LEAVES + DENSE_LEAVES
+        return (MLA_LEAVES + moe.ROUTER_LEAVES + moe.EXPERT_LEAVES
+                + (moe.SHARED_LEAVES if cfg.n_shared_experts else ()))
+
+    def check(self, hp: dict) -> None:
+        # Each field's own range is ``registry.HPARAM_SPECS``'s.
+        if hp["qk_rope_head_dim"] % 2:
+            raise ValueError("hparam 'qk_rope_head_dim' for classifier 'tx' "
+                             "must be even (RoPE rotates pairs), got "
+                             f"{hp['qk_rope_head_dim']!r}")
+        if hp["num_experts_per_tok"] > hp["n_routed_experts"]:
+            raise ValueError(
+                "hparam 'num_experts_per_tok' for classifier 'tx' must be at "
+                f"most n_routed_experts ({hp['n_routed_experts']}), got "
+                f"{hp['num_experts_per_tok']!r}")
+
+    def resolve(self, hp: dict, M: int) -> None:
+        self.check(hp)
+        I = round_up(hp["moe_intermediate_size"], M)
+        hp["moe_intermediate_size"] = I
+
+    def shapes(self, cfg: TxConfig):
+        d, H, E = cfg.d_model, cfg.n_heads, cfg.n_routed_experts
+        r, R = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+        n, dv = cfg.qk_nope_head_dim, cfg.v_head_dim
+        I, S = cfg.moe_intermediate_size, cfg.n_shared_experts
+        leaf = {"attn_norm": (d,), "wq": (d, H, n + R), "wkv_a": (d, r + R),
+                "kv_norm": (r,), "wkv_b": (r, H, n + dv), "wo": (H, dv, d),
+                "ffn_norm": (d,), "w1": (d, cfg.d_ff), "w3": (d, cfg.d_ff),
+                "w2": (cfg.d_ff, d), "router": (d, E), "e_bias": (E,),
+                "experts_w1": (E, d, I), "experts_w3": (E, d, I),
+                "experts_w2": (E, I, d), "shared_w1": (d, S * I),
+                "shared_w3": (d, S * I), "shared_w2": (S * I, d)}
+        return ({"embed": (cfg.vocab, d), "final_norm": (d,),
+                 "head_w": (d, cfg.n_classes), "head_b": (cfg.n_classes,)},
+                lambda i: {k: leaf[k] for k in self.layer(cfg, i)})
+
+    def init(self, seed: int, cfg: TxConfig, mesh: ProcessMesh, device):
+        """Drawn on the device leaf by leaf in ``param_names`` order, each
+        cut to this rank's model-axis shard as soon as it is drawn
+        (billions of host normals and their copy would outweigh the fit):
+        ones for a norm's scale, zeros for the correction bias and the
+        head's bias, else a normal draw of std ``INIT_STD``."""
+        gen = torch.Generator(device=device).manual_seed(int(seed))
+        specs, out, dev = param_specs(cfg), {}, gen.device
+        for k, shape in param_shapes(cfg).items():
+            leaf = _leaf(k)
+            if leaf.endswith("_norm"):
+                v = torch.ones(shape, dtype=torch.float32, device=dev)
+            elif leaf in ("e_bias", "head_b"):
+                v = torch.zeros(shape, dtype=torch.float32, device=dev)
+            else:
+                v = torch.randn(shape, generator=gen, dtype=torch.float32,
+                                device=dev).mul_(INIT_STD)
+            out[k] = _shard(v, specs[k], mesh).contiguous()
+        return out
+
+    def forward(self, params, tokens, *, cfg: TxConfig, mesh: ProcessMesh,
+                aux: Optional[dict]):
+        Tl, dev = tokens.shape[1], tokens.device
+        pos = mesh.index(SEQ_AXIS) * Tl + torch.arange(Tl, device=dev)
+        x = params["embed"][tokens.long()]
+        timer = aux.get("timer") if aux is not None else None
+        for i in range(cfg.n_layers):
+            lyr = {n: params[f"layers.{i}.{n}"] for n in self.layer(cfg, i)}
+            fn = partial(_mla_layer, cfg=cfg, mesh=mesh, pos=pos, i=i,
+                         timer=timer, balance=aux is not None)
+            if cfg.remat and torch.is_grad_enabled():
+                # A whole recompute: every region mark is met again, in
+                # pairs (utils/regions.py).
+                with set_checkpoint_early_stop(False):
+                    x, bal, load = checkpoint(fn, x, lyr,
+                                              use_reentrant=False)
+            else:
+                x, bal, load = fn(x, lyr)
+            if aux is not None and load is not None:
+                aux.setdefault("balance", []).append(bal)
+                aux.setdefault("loads", []).append(load)
+        return _rms(x, params["final_norm"], cfg.rms_norm_eps)
+
+    def reference(self, params, tokens, *, cfg: TxConfig):
+        return forward_shard(params, tokens, cfg=cfg, mesh=ONE_RANK)
+
+    def after_step(self, params, cfg, aux, mesh):
+        # The correction-bias update from the step's expert loads.
+        moe.update_bias(params, range(cfg.first_k_dense_replace, cfg.n_layers),
+                        aux.get("loads", []), mesh)
+
+    def token_floats(self, cfg: TxConfig, chunk: int) -> int:
+        d, H = cfg.d_model, cfg.n_heads
+        qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+        k, I = cfg.num_experts_per_tok, cfg.moe_intermediate_size
+        return (6 * d + cfg.kv_lora_rank + 3 * H * qk
+                + 3 * H * cfg.v_head_dim + 3 * H * chunk
+                + max(3 * cfg.d_ff, k * (3 * d + 4 * I)
+                      + 3 * cfg.n_shared_experts * I))
+
+
+# --- the step ----------------------------------------------------------------
 
 def forward_shard(params, tokens, *, cfg: TxConfig, mesh: ProcessMesh,
                   aux: Optional[dict] = None):
@@ -409,24 +497,15 @@ def forward_shard(params, tokens, *, cfg: TxConfig, mesh: ProcessMesh,
     and loads are appended to ``aux["balance"]`` and ``aux["loads"]``,
     and ``aux["timer"]`` (a ``regions.RegionTimer``) marks the attention
     and expert regions."""
-    seq_idx, seq_size = mesh.index(SEQ_AXIS), mesh.size(SEQ_AXIS)
+    seq_size = mesh.size(SEQ_AXIS)
     Tl = tokens.shape[1]
     if Tl * seq_size > cfg.max_len:
         # An out-of-range position would index past the table.
         raise ValueError(
             f"sequence length {Tl * seq_size} exceeds max_len "
             f"{cfg.max_len}")
-    if cfg.block != "encoder":
-        return _forward_mla(params, tokens, cfg=cfg, mesh=mesh, aux=aux)
-    tokens = tokens.long()
-    pos = seq_idx * Tl + torch.arange(Tl, device=tokens.device)
-    x = params["embed"][tokens] + params["pos"][pos][None, :, :]
-    layer_fn = partial(_layer, cfg=cfg, mesh=mesh)
-    for lyr in _layers(params, cfg):
-        if cfg.remat and torch.is_grad_enabled():
-            x = checkpoint(layer_fn, x, lyr, use_reentrant=False)
-        else:
-            x = layer_fn(x, lyr)
+    x = BLOCKS[cfg.block].forward(params, tokens, cfg=cfg, mesh=mesh,
+                                  aux=aux)
     # Mean-pool over the (sharded) sequence, then classify.
     pool = psum(x.sum(dim=1), mesh, SEQ_AXIS) / (Tl * seq_size)
     return pool @ params["head_w"] + params["head_b"]
@@ -474,9 +553,10 @@ def train_step(params, opt_state, tokens, labels, *, cfg: TxConfig,
                mesh: ProcessMesh, lr: float, aux: Optional[dict] = None):
     """One Adam step on this rank's shard of params and of the batch.
     Returns (params, opt_state, loss); params and state are updated in
-    place of their dict entries. The ``mla_moe`` block's step ends with
-    the correction-bias update from the step's expert loads (``aux``, if
-    given, keeps them, and its ``timer`` the region events)."""
+    place of their dict entries. The block's ``after_step`` ends the step
+    (``mla_moe``'s correction-bias update from the step's expert loads);
+    ``aux``, if given, keeps what the forward put in it, and its
+    ``timer`` the region events."""
     names = [k for k in params if trainable(k)]
     leaves = [params[k].detach().requires_grad_(True) for k in names]
     full = dict(params)
@@ -487,34 +567,18 @@ def train_step(params, opt_state, tokens, labels, *, cfg: TxConfig,
     reduce_grads(grads, mesh)
     with torch.no_grad():
         adam_update(params, grads, opt_state, lr)
-    if cfg.block != "encoder":
-        moe.update_bias(params, moe_layers(cfg), aux["loads"], mesh)
+    BLOCKS[cfg.block].after_step(params, cfg, aux, mesh)
     return params, opt_state, loss.detach()
 
 
-# --- single-device numerics oracle (tests, predict) ------------------------
-
 def forward_reference(params, tokens, *, cfg: TxConfig):
     """Unsharded forward: same math, no mesh — must match forward_shard.
-    The ``mla_moe`` block's is ``forward_shard`` on a one-rank mesh (its
+    The encoder's is the JAX package's oracle, written out; the
+    ``mla_moe`` block's is ``forward_shard`` on a one-rank mesh (its
     attention blockwise)."""
-    if cfg.block != "encoder":
-        return forward_shard(params, tokens, cfg=cfg, mesh=ONE_RANK)
-    Tl = tokens.shape[1]
-    if Tl > cfg.max_len:
-        raise ValueError(f"sequence length {Tl} exceeds max_len "
-                         f"{cfg.max_len}")
-    tokens = tokens.long()
-    x = (params["embed"][tokens]
-         + params["pos"][torch.arange(Tl, device=tokens.device)][None])
-    for lyr in _layers(params, cfg):
-        h = _ln(x, lyr["ln1_g"], lyr["ln1_b"])
-        qkv = torch.einsum("btd,dkhe->btkhe", h, lyr["wqkv"])
-        attn = reference_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
-                                   causal=cfg.causal)
-        x = x + torch.einsum("bthe,hed->btd", attn, lyr["wo"])
-        h = _ln(x, lyr["ln2_g"], lyr["ln2_b"])
-        x = x + F.gelu(h @ lyr["w1"] + lyr["b1"],
-                       approximate="tanh") @ lyr["w2"] + lyr["b2"]
-    pool = x.mean(dim=1)
-    return pool @ params["head_w"] + params["head_b"]
+    return BLOCKS[cfg.block].reference(params, tokens, cfg=cfg)
+
+
+#: Every ``tx`` block by its ``TxConfig.block`` name.
+BLOCKS: Dict[str, Block] = {"encoder": EncoderBlock(),
+                            "mla_moe": MlaMoeBlock()}

@@ -375,9 +375,10 @@ def _one_read_means(cols: Dict[str, np.ndarray]) -> Dict[str, float]:
 #      so the default label_encode+fillna+standardize pipeline costs 2
 #      dataset scans where the step-at-a-time fit cost ~5. The label
 #      vocab (read from the raw label column, which no step ever sees)
-#      folds into the first pass. The unfused step-at-a-time fit is kept
-#      as ``_fit_design_state_unfused`` — the semantics oracle the fused
-#      path is regression-tested against.
+#      folds into the first pass. The fused fit is held against the JAX
+#      package's streamed fit, passes counted, by
+#      tests/test_torch_streamed.py's
+#      ``test_streamed_state_and_matrix_match_jax``.
 #   2. ``ChunkedDesign`` — once fitted, every step is row-local, so any
 #      row range of the design matrix can be materialized independently.
 #      The mesh runtime builds each device shard from exactly its own row
@@ -412,16 +413,6 @@ def _iter_blocks(snap, n_rows: int, fields=None):
             return
 
 
-def _apply_prefix_blocks(snap, n_rows: int, label: str,
-                         prefix_steps, state):
-    """Stream blocks with the (already fully fitted) step prefix applied —
-    what the next fitting step's statistics are computed over."""
-    for cols in _iter_blocks(snap, n_rows):
-        cols.pop(label, None)
-        out, _ = apply_steps(cols, prefix_steps, state)
-        yield out
-
-
 def _encode_label_block(lab: np.ndarray, state: Dict) -> np.ndarray:
     """One block of the label column → int32 codes, mirroring the resident
     ``design_matrix`` label handling exactly (vocab must be pre-fitted)."""
@@ -442,103 +433,6 @@ def _fit_label_vocab(snap, label: str, n_rows: int) -> Dict[str, int]:
     for cols in _iter_blocks(snap, n_rows, [label]):
         uniq.update("\0none" if v is None else str(v) for v in cols[label])
     return {v: i for i, v in enumerate(sorted(uniq))}
-
-
-def _fit_design_state_unfused(snap, fields, label: str, steps,
-                              n_rows: int) -> Dict:
-    """Step-at-a-time streaming fit — one pass per fitting step (plus two
-    for standardize, plus one for the label vocab). Superseded by the
-    fused :func:`_fit_design_state` for the live path; kept as the
-    semantics oracle its regression tests compare against.
-
-    Semantics match the resident fit per step: label vocab = sorted
-    distinct keyed values (np.unique's order), fillna means = nanmean,
-    standardize = two-pass mean/Σ(x−μ)² over finite values (the same
-    two-pass form the resident path uses — the one-pass E[x²]−E[x]² form
-    catastrophically cancels, see models/logistic._device_stats)."""
-    state: Dict[str, Any] = {}
-    if label in fields and n_rows:
-        probe = snap.read([label], 0, 1)[label]
-        if probe.dtype == object:
-            state["__label_vocab__"] = _fit_label_vocab(snap, label, n_rows)
-    for i, step in enumerate(steps):
-        op = step.get("op")
-        key = f"{i}:{op}"
-        prefix = steps[:i]
-        if op == "label_encode":
-            want = set(step.get("fields") or ())
-            vocab_sets: Dict[str, set] = {}
-            for cols in _apply_prefix_blocks(snap, n_rows, label, prefix,
-                                             state):
-                for f, c in cols.items():
-                    if c.dtype == object and (not want or f in want):
-                        vocab_sets.setdefault(f, set()).update(
-                            "\0none" if v is None else str(v) for v in c)
-            state[key] = {f: {v: j for j, v in enumerate(sorted(s))}
-                          for f, s in vocab_sets.items()}
-        elif op == "fillna":
-            strategy = step.get("strategy", "mean")
-            if strategy == "mean":
-                sums: Dict[str, float] = {}
-                cnts: Dict[str, int] = {}
-                for cols in _apply_prefix_blocks(snap, n_rows, label, prefix,
-                                                 state):
-                    for f, c in cols.items():
-                        if c.dtype.kind != "f":
-                            continue
-                        m = ~np.isnan(c)
-                        sums[f] = sums.get(f, 0.0) + float(
-                            c[m].sum(dtype=np.float64))
-                        cnts[f] = cnts.get(f, 0) + int(m.sum())
-                state[key] = {f: (sums[f] / cnts[f] if cnts[f] else 0.0)
-                              for f in sums}
-            elif strategy in ("zero", "value"):
-                val = 0.0 if strategy == "zero" else step["value"]
-                fill = {}
-                for cols in _apply_prefix_blocks(snap, n_rows, label, prefix,
-                                                 state):
-                    fill.update({f: val for f, c in cols.items()
-                                 if c.dtype.kind == "f" and f not in fill})
-                    break       # dtypes are globally unified; one block
-                state[key] = fill
-            else:
-                raise PreprocessError(
-                    f"unknown fillna strategy {strategy!r}")
-        elif op == "standardize":
-            sums, cnts = {}, {}
-            for cols in _apply_prefix_blocks(snap, n_rows, label, prefix,
-                                             state):
-                for f, c in cols.items():
-                    if c.dtype.kind not in "if":
-                        continue
-                    c64 = c.astype(np.float64)
-                    fin = np.isfinite(c64)
-                    sums[f] = sums.get(f, 0.0) + float(c64[fin].sum())
-                    cnts[f] = cnts.get(f, 0) + int(fin.sum())
-            mus = {f: (sums[f] / cnts[f] if cnts[f] else 0.0) for f in sums}
-            sq = {f: 0.0 for f in sums}
-            for cols in _apply_prefix_blocks(snap, n_rows, label, prefix,
-                                             state):
-                for f, c in cols.items():
-                    if f not in sq:
-                        continue
-                    c64 = c.astype(np.float64)
-                    fin = np.isfinite(c64)
-                    d = c64[fin] - mus[f]
-                    sq[f] += float((d * d).sum())
-            stats = {}
-            for f in sums:
-                if cnts[f]:
-                    mu = mus[f]
-                    sd = float(np.sqrt(sq[f] / cnts[f]))
-                else:
-                    mu, sd = 0.0, 1.0
-                if not np.isfinite(sd) or sd == 0.0:
-                    sd = 1.0
-                stats[f] = (mu, sd)
-            state[key] = stats
-        # select / drop / cast fit nothing
-    return state
 
 
 #: Ops whose fit reads data (everything else — select/drop/cast — fits
@@ -733,8 +627,9 @@ def _fit_design_state(snap, fields, label: str, steps, n_rows: int,
                       profile: Optional[Dict] = None,
                       ckpt=None) -> Dict:
     """Fused streaming fit over ONE pinned chunk snapshot; returns the
-    fitted state (same contract and — to fp-accumulation order — same
-    values as :func:`_fit_design_state_unfused`).
+    fitted state (held against the JAX package's streamed fit by
+    tests/test_torch_streamed.py's
+    ``test_streamed_state_and_matrix_match_jax``).
 
     Independent fitting steps share a pass (``_fusion_groups``); each
     group streams blocks with the group's fully-fitted step prefix

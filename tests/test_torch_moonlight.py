@@ -12,7 +12,9 @@ plain reference ``tests/ref_moonlight.py`` (a copy of
 - the ring with a value width other than the scores', on one rank and
   over the seq axis;
 - the blockwise predictor against full attention (today's block) and
-  against one chunk, persistence, conversion, validation and REST.
+  against one chunk, persistence, conversion, validation and REST;
+- every block of ``transformer.BLOCKS`` (this one and the encoder)
+  against the contract the trainer, registry and predictor rely on.
 
 Every tolerance below is two float32 programs that sum in different
 orders: the program folds attention online and sums a batch at once,
@@ -42,7 +44,8 @@ from learningorchestra_tpu_torch.config import Settings
 from learningorchestra_tpu_torch.models import moe, sequence
 from learningorchestra_tpu_torch.models import transformer as ttx
 from learningorchestra_tpu_torch.parallel.mesh import (
-    DATA_AXIS, MODEL_AXIS, SEQ_AXIS, all_gather, local_mesh, psum)
+    DATA_AXIS, MODEL_AXIS, SEQ_AXIS, ProcessMesh, all_gather, local_mesh,
+    psum)
 from learningorchestra_tpu_torch.parallel.ring_attention import (
     reference_attention, ring_attention)
 from learningorchestra_tpu_torch.parallel.runtime import DeviceRuntime
@@ -51,13 +54,14 @@ from learningorchestra_tpu_torch.utils import regions
 REPO = Path(__file__).resolve().parents[1]
 #: The small block: 4 heads, rope 8, nope 16, v 16, latent 32, 8 experts,
 #: 2 a token, 1 shared, one dense layer and two expert layers.
-MLA = dict(sequence.MLA_HPARAMS, kv_lora_rank=32, qk_nope_head_dim=16,
-           qk_rope_head_dim=8, v_head_dim=16, n_routed_experts=8,
-           num_experts_per_tok=2, n_shared_experts=1,
+MLA = dict(ttx.BLOCKS["mla_moe"].fields, kv_lora_rank=32,
+           qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16,
+           n_routed_experts=8, num_experts_per_tok=2, n_shared_experts=1,
            moe_intermediate_size=24, first_k_dense_replace=1)
 SMALL = dict(vocab=40, d_model=64, n_heads=4, n_layers=3, d_ff=96,
              n_classes=3, max_len=16, causal=True, block="mla_moe", **MLA)
 B, T, SEED, STEPS, LR = 4, 16, 5, 3, 1e-3
+CPU = torch.device("cpu")
 LAYOUTS = ("1,2,2", "2,1,2")
 SPAWN_TIMEOUT_S = 120
 #: Logits and losses: measured ≤ 5e-8 apart.
@@ -144,7 +148,8 @@ def _rank_work(shape: str, inp: dict) -> dict:
         with torch.no_grad():
             bal = psum(sum(aux["balance"]).detach(), mesh, DATA_AXIS) / B
             out[f"balance_{remat}"] = bal.numpy()
-            for i, load in zip(ttx.moe_layers(cr), aux["loads"]):
+            for i, load in zip(range(cr.first_k_dense_replace, cr.n_layers),
+                               aux["loads"]):
                 load = load.to(torch.float32)
                 load = psum(psum(load, mesh, DATA_AXIS), mesh, SEQ_AXIS)
                 out[f"load_{remat}.{i}"] = load.numpy()
@@ -157,7 +162,7 @@ def _rank_work(shape: str, inp: dict) -> dict:
         if "bias_after_1" not in out:
             out["bias_after_1"] = np.stack([
                 local[f"layers.{i}.e_bias"].numpy()
-                for i in ttx.moe_layers(c)])
+                for i in range(c.first_k_dense_replace, c.n_layers)])
     out["train_losses"] = np.asarray(losses)
     for n, v in ttx.gather_params(local, c, mesh).items():
         out[f"trained.{n}"] = v.numpy()
@@ -295,7 +300,7 @@ def test_reference_imports_nothing_of_the_program():
 def test_initial_draws_are_the_references():
     """Drawn leaf by leaf in one order from one seeded generator, the
     program's parameters are the reference's, bit for bit."""
-    mine = ttx.init_params_mla(torch.Generator().manual_seed(SEED), _cfg())
+    mine = ttx.BLOCKS["mla_moe"].init(SEED, _cfg(), ttx.ONE_RANK, CPU)
     theirs = ref.init_params(_rcfg(), SEED, "cpu")
     assert list(mine) == list(theirs) == ttx.param_names(_cfg())
     for k in mine:
@@ -666,7 +671,7 @@ def test_region_marks_pair_up_in_a_remat_step():
 
     timer.record = record
     c = _cfg(remat=True)
-    params = ttx.init_params_mla(torch.Generator().manual_seed(1), c)
+    params = ttx.BLOCKS["mla_moe"].init(1, c, ttx.ONE_RANK, CPU)
     tokens, labels = _inputs()
     ttx.train_step(params, ttx.adam_init(params), tokens, labels, cfg=c,
                    mesh=ttx.ONE_RANK, lr=LR, aux={"timer": timer})
@@ -675,6 +680,89 @@ def test_region_marks_pair_up_in_a_remat_step():
         closes = sum(1 for r, e in events if r == region and e < 0)
         # Forward, the recomputation and the backward pass.
         assert opens == closes == 3 * layers, (region, events)
+
+
+# ---------------------------------------------------------------------------
+# Every block's contract
+# ---------------------------------------------------------------------------
+
+#: A small config of each block of ``transformer.BLOCKS``: a new block
+#: adds its entry here, and the contract test runs on it.
+BLOCK_CFGS = {
+    "encoder": dict(vocab=30, d_model=32, n_heads=4, n_layers=2, d_ff=64,
+                    n_classes=3, max_len=16),
+    "mla_moe": SMALL,
+}
+
+
+@pytest.mark.parametrize("block", list(ttx.BLOCKS))
+def test_every_block_keeps_the_contract(block, tmp_path):
+    """Leaf names, shapes and model-axis splits agree with the drawn
+    params; two model ranks draw (or cut) their slices of the whole and
+    one rank gathers it back; the sharded forward on one rank is the
+    oracle's; a saved model's hparams give the config back; the
+    predictor's row estimate is positive; and a block's fields are
+    refused under any other block, and with its name under another
+    family."""
+    from learningorchestra_tpu_torch.models.persistence import ModelRegistry
+    from learningorchestra_tpu_torch.models.registry import validate_hparams
+
+    hp = dict(BLOCK_CFGS[block], block=block)
+    c, blk = ttx.TxConfig(**hp), ttx.BLOCKS[block]
+    names, shapes = ttx.param_names(c), ttx.param_shapes(c)
+    specs = ttx.param_specs(c)
+    assert list(shapes) == list(specs) == names
+    whole = blk.init(SEED, c, ttx.ONE_RANK, CPU)
+    assert {k: tuple(v.shape) for k, v in whole.items()} == shapes
+    assert list(whole) == names
+    ranks = [ProcessMesh((1, 2, 1), rank=r) for r in range(2)]
+    shards = [ttx.shard_params(whole, c, m) for m in ranks]
+    for m, shard in zip(ranks, shards):
+        drawn = blk.init(SEED, c, m, CPU)
+        assert all(torch.equal(drawn[k], shard[k]) for k in names)
+    for k in names:
+        got = (shards[0][k] if specs[k] is None
+               else torch.cat([sh[k] for sh in shards], dim=specs[k]))
+        assert torch.equal(got, whole[k]), k
+    back = ttx.gather_params(ttx.shard_params(whole, c, ttx.ONE_RANK), c,
+                             ttx.ONE_RANK)
+    assert all(torch.equal(back[k], whole[k]) for k in names)
+
+    tokens = torch.randint(0, c.vocab, (B, c.max_len),
+                           generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        got = ttx.forward_shard(whole, tokens, cfg=c, mesh=ttx.ONE_RANK)
+        want = ttx.forward_reference(whole, tokens, cfg=c)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **LOGIT_TOL)
+
+    X = np.random.default_rng(0).integers(0, c.vocab, (12, c.max_len))
+    y = np.random.default_rng(1).integers(0, c.n_classes, 12)
+    kw = {k: v for k, v in hp.items() if k not in ("n_classes", "max_len")}
+    model = sequence.fit(DeviceRuntime(device="cpu"), X.astype(np.float32),
+                         y, c.n_classes, train_steps=1, batch=4, **kw)
+    assert ("block" in model.hparams) == (block != ttx.TxConfig.block)
+    cfg = Settings()
+    cfg.store_root = str(tmp_path)
+    ModelRegistry(cfg).save("m", model, metrics={"accuracy": 1.0})
+    man, again = ModelRegistry(cfg).load("m")
+    assert man["hparams"] == model.hparams
+    assert sequence.config_from_hparams(again.hparams) == c
+    assert sequence.row_bytes(c) > 0
+
+    validate_hparams("tx", dict(blk.fields, block=block))
+    for f, v in dict(blk.fields, block=block).items():
+        with pytest.raises(ValueError, match=f"unknown hparam '{f}' for "
+                                             "classifier 'lr'"):
+            validate_hparams("lr", {f: v})
+    for other, o in ttx.BLOCKS.items():
+        if other == block:
+            continue
+        for f, v in o.fields.items():
+            with pytest.raises(ValueError, match=f"need block '{other}'"):
+                validate_hparams("tx", {"block": block, f: v})
+        for f, v in blk.fields.items():
+            with pytest.raises(ValueError, match=f"need block '{block}'"):
+                validate_hparams("tx", {"block": other, f: v})
 
 
 # ---------------------------------------------------------------------------
