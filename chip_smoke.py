@@ -1821,13 +1821,12 @@ def check_tsne_small_reference(dev) -> None:
     Xc = torch.from_numpy(X[:, :50].copy())
     d2k, idx = tt._knn(Xc, k=90, tile=1024)
     P = tt._calibrate(d2k, 30.0)
-    table = tt._edge_table(idx.numpy(), P.numpy(), n, n)
+    table = [a.numpy() for a in tt._edge_table(idx, P, n, n)]
     rng = np.random.default_rng(2)
     state = [rng.normal(scale=1e-2, size=(n, 2)).astype(np.float32),
              rng.normal(scale=1e-3, size=(n, 2)).astype(np.float32),
              rng.uniform(0.5, 2.0, size=(n, 2)).astype(np.float32)]
-    args = [*state, *(a.astype(np.int64) if a.dtype == np.int32 else a
-                      for a in table)]
+    args = [*state, *table]
 
     def one_step(rt):
         on = [rt.replicate(a) for a in args]

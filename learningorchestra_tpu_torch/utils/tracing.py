@@ -64,8 +64,10 @@ The port's span names beyond the taxonomy in docs/observability.md
   tiling through its driver (masks, edges, copies, the binning launch);
 - ``tune.promotion`` (models/builder.py): the winner's edges, its refit
   (the ``tune.promote`` timer) and its save;
-- ``viz.edge_table`` (viz/tsne.py) is host work, a plain span; the other
-  ``viz.<stage>`` spans end when the device has finished the stage.
+- ``viz.edge_table`` (viz/tsne.py; edges, in_cols, overflow_edges,
+  device): the descent's edge table, built on the device that holds the
+  kNN; like the other ``viz.<stage>`` spans it ends when the device has
+  finished the stage.
 
 Recording is cheap by construction: one ``os.urandom`` id + a dict and
 a deque-append under a short lock per span, no I/O, no serialization

@@ -10,7 +10,7 @@ row to one Spark node, and runs single-core sklearn ``TSNE().fit_transform``
   neighbours; per-row bandwidths are bisected to the target perplexity
   for all rows at once.
 - **Symmetrized sparse attraction**: the directed kNN edge set is flipped
-  once on the host into a padded incoming-edge table (``_edge_table``),
+  once on the device into a padded incoming-edge table (``_edge_table``),
   so each step's attraction is one gather and a dense reduction; edges of
   hubs past the table's cap are summed per destination row exactly (an
   int64 fixed-point running sum), so two embeds give the same bits.
@@ -50,7 +50,6 @@ from learningorchestra_tpu_torch.parallel.mesh import (
     DATA_AXIS, all_gather, all_reduce_)
 from learningorchestra_tpu_torch.parallel.runtime import (
     DeviceRuntime, host_rows)
-from learningorchestra_tpu_torch.utils import tracing
 from learningorchestra_tpu_torch.utils.profiling import device_span
 from learningorchestra_tpu_torch.viz.pca import pca_embed
 
@@ -114,11 +113,11 @@ def _calibrate(d2k: torch.Tensor, perplexity: float) -> torch.Tensor:
     return P
 
 
-def _edge_table(idx: np.ndarray, P: np.ndarray, n_pad: int,
+def _edge_table(idx: torch.Tensor, P: torch.Tensor, n_pad: int,
                 n_valid: int) -> tuple:
-    """Flip the directed kNN edge set into one padded gather table
-    (host-side, once per embed; the structure is static across all
-    descent iterations).
+    """Flip the directed kNN edge set (``idx``, ``P``: (n, k)) into one
+    padded gather table, on the device that holds them, once per embed
+    (the structure is static across all descent iterations).
 
     Every directed edge (i → j, p) exerts w·q·(y_i − y_j) on i and the
     opposite on j, with w = p / (2n) — the exact symmetrization a
@@ -133,39 +132,46 @@ def _edge_table(idx: np.ndarray, P: np.ndarray, n_pad: int,
     handled by a small sorted scatter-add — the same forces, just a
     different summation route for the hub tail.
 
-    Returns (sym_idx (n_pad, K) int32, sym_w (n_pad, K) float32,
-    ov_src (m,) int32, ov_dst (m,) int32, ov_w (m,) float32).
+    The table is the JAX package's host-built one bit for bit, on any
+    device, and two builds give the same bits (a pod's ranks each build
+    their own): the sort is stable, the in-edge ranks come from
+    ``searchsorted``, each scatter writes distinct positions, and the
+    weights are a true float32 division, by a tensor (CUDA turns a
+    division by a Python number into a product with its reciprocal,
+    which rounds differently). One scalar comes back to the host: the
+    largest in-degree, which sets the table's width.
+
+    Returns (sym_idx (n_pad, K) int64, sym_w (n_pad, K) float32,
+    ov_src (m,) int64, ov_dst (m,) int64, ov_w (m,) float32) on that
+    device, the overflow edges in destination order.
     """
+    dev = idx.device
     n, k = idx.shape
     cap = 2 * k
-    wmat = (P / (2.0 * max(n_valid, 1))).astype(np.float32)
+    wmat = (P / torch.tensor(2.0 * max(n_valid, 1), dtype=P.dtype,
+                             device=dev)).float()
     # kNN should never select a padding row (they sit at distance ~1e14),
     # but a zero weight makes that a guarantee rather than an assumption.
-    wmat[idx >= n_valid] = 0.0
-    src = np.repeat(np.arange(n, dtype=np.int64), k)
-    dst = idx.reshape(-1).astype(np.int64)
-    w = wmat.reshape(-1)
-    keep = dst < n_valid
-    src, dst, w = src[keep], dst[keep], w[keep]
-    order = np.argsort(dst, kind="stable")
-    src, dst, w = src[order], dst[order], w[order]
-    starts = np.searchsorted(dst, np.arange(n_pad))
-    rank = np.arange(len(dst)) - starts[dst]
-    counts = np.bincount(dst, minlength=n_pad) if len(dst) else \
-        np.zeros(n_pad, np.int64)
-    in_cols = int(min(counts.max(), cap)) if len(dst) else 0
+    wmat.masked_fill_(idx >= n_valid, 0.0)
+    dst = idx.reshape(-1).long()
+    keep = torch.nonzero(dst < n_valid).squeeze(1)
+    src = torch.arange(n, device=dev).repeat_interleave(k)[keep]
+    dst, order = torch.sort(dst[keep], stable=True)
+    src, w = src[order], wmat.reshape(-1)[keep][order]
+    bounds = torch.searchsorted(dst, torch.arange(n_pad + 1, device=dev))
+    rank = torch.arange(dst.shape[0], device=dev) - bounds[dst]
+    in_cols = min(int(bounds.diff().max()), cap)
     K = k + in_cols
-    sym_idx = np.tile(np.arange(n_pad, dtype=np.int32)[:, None], (1, K)) \
-        if K else np.zeros((n_pad, 0), np.int32)
-    sym_w = np.zeros((n_pad, K), np.float32)
+    sym_idx = torch.arange(n_pad, device=dev)[:, None].repeat(1, K)
+    sym_w = torch.zeros((n_pad, K), dtype=torch.float32, device=dev)
     sym_idx[:n, :k] = idx
     sym_w[:n, :k] = wmat
-    dense = rank < in_cols
-    sym_idx[dst[dense], k + rank[dense]] = src[dense].astype(np.int32)
-    sym_w[dst[dense], k + rank[dense]] = w[dense]
-    ov = ~dense
-    return (sym_idx, sym_w, src[ov].astype(np.int32),
-            dst[ov].astype(np.int32), w[ov])
+    dense = torch.nonzero(rank < in_cols).squeeze(1)
+    rows, cols = dst[dense], k + rank[dense]
+    sym_idx[rows, cols] = src[dense]
+    sym_w[rows, cols] = w[dense]
+    ov = torch.nonzero(rank >= in_cols).squeeze(1)
+    return sym_idx, sym_w, src[ov], dst[ov], w[ov]
 
 
 def _repulsion(Y, valid, mesh=None):
@@ -267,10 +273,11 @@ def tsne_embed(runtime: DeviceRuntime, X: np.ndarray, *,
 
     Each stage records a span (``viz.pca50``, ``viz.knn``,
     ``viz.calibrate``, ``viz.edge_table``, ``viz.descent``) under the
-    ambient trace; a device stage's span ends when the device has
-    finished it, and ``viz.edge_table`` is a host stage.
-    ``viz.descent`` carries the count of hub-overflow edges
-    (``overflow_edges``)."""
+    ambient trace, which ends when the device has finished the stage.
+    ``viz.edge_table`` carries the directed edges kept (``edges``), the
+    table's incoming columns (``in_cols``), the hub-overflow edges
+    (``overflow_edges``) and the type of the device that built it
+    (``device``); ``viz.descent`` carries ``overflow_edges`` too."""
     X = np.asarray(X, np.float32)
     n, d = X.shape
     dev = runtime.device
@@ -291,13 +298,19 @@ def tsne_embed(runtime: DeviceRuntime, X: np.ndarray, *,
         lambda: _knn(runtime.replicate(Xp), k=k, tile=tile), "viz.knn", dev)
     P, _ = device_span(lambda: _calibrate(d2k[:n_valid], perplexity),
                        "viz.calibrate", dev)
-    with tracing.span("viz.edge_table"):
-        table = _edge_table(host_rows(idx)[:n_valid], host_rows(P), len(Xp),
-                            n_valid)
-    sym_idx, ov_src, ov_dst = (runtime.replicate(a.astype(np.int64))
-                               for a in (table[0], table[2], table[3]))
-    sym_w, ov_w = runtime.replicate(table[1]), runtime.replicate(table[4])
-    ov_seg = _overflow_segments(ov_dst) if len(table[3]) else None
+    table_attrs = {"device": idx.device.type}
+
+    def edge_table():
+        table = _edge_table(idx[:n_valid], P, len(Xp), n_valid)
+        table_attrs.update(
+            edges=int((idx[:n_valid] < n_valid).sum()),
+            in_cols=table[0].shape[1] - k, overflow_edges=table[3].shape[0])
+        return table
+
+    table, _ = device_span(edge_table, "viz.edge_table", dev,
+                           attrs=table_attrs)
+    sym_idx, sym_w, ov_src, ov_dst, ov_w = table
+    ov_seg = _overflow_segments(ov_dst) if ov_dst.shape[0] else None
 
     rng = np.random.default_rng(seed)
     Y0 = runtime.replicate(
@@ -316,5 +329,5 @@ def tsne_embed(runtime: DeviceRuntime, X: np.ndarray, *,
         return state[0]
 
     Y, _ = device_span(descend, "viz.descent", dev,
-                       attrs={"overflow_edges": int(len(table[3]))})
+                       attrs={"overflow_edges": ov_dst.shape[0]})
     return host_rows(Y)[:n_valid]

@@ -133,14 +133,48 @@ def _hub_edges(n, n_pad, k, seed):
     return idx, P
 
 
-@pytest.mark.parametrize("n,n_pad,k", [(300, 320, 5), (256, 256, 8)])
-def test_edge_table_identical(n, n_pad, k):
+def _table_case(n, n_pad, k, case):
+    """kNN indices and P of one edge-table case: ``hubs`` (overflow edges
+    exist), ``ring`` (every in-degree k: no overflow), ``padding`` (hubs,
+    and neighbours at or past ``n``, which are dropped at weight 0),
+    ``empty`` (k = 0, as for one row)."""
+    if case == "ring":
+        idx = ((np.arange(n)[:, None] + np.arange(1, k + 1)) % n
+               ).astype(np.int32)
+        return idx, np.full((n, k), 1.0 / k, np.float32)
+    if case == "empty":
+        return np.zeros((n, 0), np.int32), np.zeros((n, 0), np.float32)
     idx, P = _hub_edges(n, n_pad, k, seed=3)
-    out = tt._edge_table(idx, P, n_pad, n)
+    if case == "padding":
+        idx[::7, 2] = n_pad - 1
+        idx[::5, 1] = n
+    return idx, P
+
+
+@pytest.mark.parametrize("n,n_pad,k,case", [
+    pytest.param(300, 320, 5, "hubs", id="300-320-5"),
+    pytest.param(256, 256, 8, "hubs", id="256-256-8"),
+    pytest.param(300, 320, 5, "ring", id="no-overflow"),
+    pytest.param(300, 320, 5, "padding", id="padding-neighbours"),
+    pytest.param(1, 8, 0, "empty", id="k0"),
+])
+def test_edge_table_identical(n, n_pad, k, case):
+    """The table built from CPU tensors equals the JAX package's host
+    table: every index, and every weight's bits; int64 indices and
+    float32 weights."""
+    idx, P = _table_case(n, n_pad, k, case)
+    out = tt._edge_table(torch.from_numpy(idx), torch.from_numpy(P), n_pad,
+                         n)
     ref = jt._edge_table(idx, P, n_pad, n)
-    assert len(out[2]) > 0                       # overflow COO non-empty
-    for a, b in zip(out, ref):
-        assert a.dtype == b.dtype
+    assert (len(out[2]) > 0) == (case in ("hubs", "padding"))
+    if case == "padding":
+        assert (idx >= n).any()
+    for i, (a, b) in enumerate(zip(out, ref)):
+        want = torch.float32 if i in (1, 4) else torch.int64
+        assert a.dtype == want and a.shape == b.shape
+        a = a.numpy()
+        if i in (1, 4):
+            a, b = a.view(np.int32), b.view(np.int32)
         np.testing.assert_array_equal(a, b)
 
 
