@@ -37,6 +37,18 @@ Balancing, as DeepSeek-V3 trains (its technical report, §2.1.2):
   the sequence's tokens of ``s_i / Σ_j s_j``; the loss adds its mean
   over the batch's sequences, for every expert layer.
 
+An expert share (``experts_held``, ``expert_share``; Kimi Linear's cell):
+the layer holds experts ``[share·held, (share + 1)·held)`` of the
+router's ``n_routed_experts``, as one of the ranks of an expert-parallel
+deployment does. The router, its correction bias, the top-k and the
+gates stay over all experts; only the pairs whose expert is held are
+gathered and computed, and the shared experts are added as before. The
+loads, the balance loss and the bias update stay over all experts. A
+pair sent to an expert held elsewhere is no drop: the counters
+``pairs_held`` and ``pairs_elsewhere`` count the pairs each way. With
+every expert held (``experts_held`` 0, the default) the layer is the
+whole layer.
+
 On the model axis the router is replicated and every expert's (and the
 shared experts') intermediate width is split: the token rows and gates
 enter the split region through ``pvary`` and the partial outputs leave
@@ -67,7 +79,8 @@ BALANCE_ALPHA = 1e-4
 BIAS_STEP = 1e-3
 
 _lock = threading.Lock()
-_counts = {"tokens_routed": 0, "tokens_dropped": 0, "bias_updates": 0}
+_counts = {"tokens_routed": 0, "tokens_dropped": 0, "bias_updates": 0,
+           "pairs_held": 0, "pairs_elsewhere": 0}
 #: Each expert layer's (busiest expert's rows, mean rows) at its last
 #: forward, by layer index.
 _loads: Dict[int, tuple] = {}
@@ -78,8 +91,10 @@ _route_observer: Optional[Callable] = None
 
 def counts() -> dict:
     """Tokens routed (each token once a layer), tokens dropped (a token
-    with a pair no expert took, ``dispatch``'s count), bias updates, and
-    each layer's last loads as ``{layer: (busiest, mean)}``."""
+    with a pair no expert took, ``dispatch``'s count), bias updates, the
+    (token, expert) pairs whose expert this layer holds and those held
+    elsewhere (an expert share's), and each layer's last loads as
+    ``{layer: (busiest, mean)}``."""
     with _lock:
         return dict(_counts, loads=dict(_loads))
 
@@ -113,31 +128,35 @@ def route(x: torch.Tensor, router: torch.Tensor, bias: torch.Tensor, k: int,
 
 def dispatch(x: torch.Tensor, idx: torch.Tensor, g: torch.Tensor,
              loads: List[int], w1: torch.Tensor, w3: torch.Tensor,
-             w2: torch.Tensor):
-    """(``Σ_j g[t, j] E_{idx[t, j]}(x[t])`` for every row t, the rows
-    short of an expert): the (row, expert) pairs sorted by expert, each
-    expert's rows through its SwiGLU, the results back in pair order and
-    summed over a row's k. ``loads`` are the experts' pair counts (host
-    integers); a pair past the rows they give adds nothing, and its row
-    is counted (read back only then)."""
+             w2: torch.Tensor, first: int = 0):
+    """(``Σ_j g[t, j] E_{idx[t, j]}(x[t])`` over the held experts for every
+    row t, the rows short of an expert): the (row, expert) pairs sorted
+    by expert, each held expert's rows through its SwiGLU, the results
+    back in pair order and summed over a row's k. ``loads`` are every
+    expert's pair counts (host integers); ``w1``/``w3``/``w2`` stack the
+    held experts ``first``, ``first + 1``, …, whose pairs lie between
+    the counts of the experts before and after them. Holding every
+    expert, a pair past the rows the counts give adds nothing, and its
+    row is counted (read back only then)."""
     N, k = idx.shape
+    held = w1.shape[0]
     order = torch.argsort(idx.reshape(-1), stable=True)
+    pairs = order[sum(loads[:first]):N * k - sum(loads[first + held:])]
     # Each row repeated k times, then permuted: both backward passes are
     # a sum over k and a permutation, with no colliding adds.
-    xs = x[:, None, :].expand(N, k, x.shape[1]).reshape(N * k, -1)[order]
-    gs = g.reshape(-1)[order]
+    xs = x[:, None, :].expand(N, k, x.shape[1]).reshape(N * k, -1)[pairs]
+    gs = g.reshape(-1)[pairs]
     w1s, w3s, w2s = w1.unbind(0), w3.unbind(0), w2.unbind(0)
     outs, start = [], 0
-    for e, c in enumerate(loads):
+    for e, c in enumerate(loads[first:first + held]):
         if c:
             outs.append(swiglu(xs[start:start + c], w1s[e], w3s[e], w2s[e]))
             start += c
-    taken = order[:start]
-    ys = torch.cat(outs) * gs[:start, None]
-    out = ys.new_zeros((N * k, ys.shape[1]))
-    out.index_copy_(0, taken, ys)
-    short = (0 if start == N * k
-             else int(torch.unique(order[start:] // k).numel()))
+    out = x.new_zeros((N * k, w2.shape[-1]))
+    if outs:
+        out.index_copy_(0, pairs[:start], torch.cat(outs) * gs[:start, None])
+    short = (0 if start == pairs.numel()
+             else int(torch.unique(pairs[start:] // k).numel()))
     return out.view(N, k, -1).sum(dim=1), short
 
 
@@ -174,14 +193,19 @@ def moe_layer(h: torch.Tensor, lyr: Dict[str, torch.Tensor], *, cfg,
                       cfg.routed_scaling_factor)
     load = torch.bincount(idx.reshape(-1), minlength=s.shape[1])
     loads = load.tolist()
+    held = lyr["experts_w1"].shape[0]
+    first = cfg.expert_share * held
     xv = pvary(x, mesh, MODEL_AXIS)
     out, short = dispatch(xv, idx, pvary(g, mesh, MODEL_AXIS), loads,
                           lyr["experts_w1"], lyr["experts_w3"],
-                          lyr["experts_w2"])
+                          lyr["experts_w2"], first=first)
     if torch._C._current_graph_task_id() == -1:
+        pairs = sum(loads[first:first + held])
         with _lock:
             _counts["tokens_routed"] += x.shape[0]
             _counts["tokens_dropped"] += short
+            _counts["pairs_held"] += pairs
+            _counts["pairs_elsewhere"] += x.shape[0] * k - pairs
             _loads[layer] = (max(loads), sum(loads) / len(loads))
         if _route_observer is not None:
             _route_observer(layer, idx.detach())

@@ -92,7 +92,9 @@ HPARAM_SPECS: Dict[str, Dict[str, Tuple[Callable, str]]] = {
 }
 #: ``tx``'s block (a key of ``transformer.BLOCKS``) and the ``mla_moe``
 #: block's widths (models/transformer.py, models/moe.py), named after
-#: DeepSeek-V3's config keys. Kept apart from ``HPARAM_SPECS["tx"]``, the
+#: DeepSeek-V3's config keys, then the ``kda_mla_moe`` block's own
+#: (models/kda.py; Kimi Linear's keys) and its expert share
+#: (``experts_held`` 0: every expert). Kept apart from ``HPARAM_SPECS["tx"]``, the
 #: JAX package's table, so a request for the encoder block is told the
 #: keys the encoder takes; one naming a block with fields, its fields too.
 TX_BLOCK_SPECS: Dict[str, Tuple[Callable, str]] = {
@@ -109,6 +111,12 @@ TX_BLOCK_SPECS: Dict[str, Tuple[Callable, str]] = {
     "first_k_dense_replace": _int_range(0, 64),
     "routed_scaling_factor": _positive(),
     "rms_norm_eps": _positive(),
+    "linear_num_heads": _int_range(1, 256),
+    "linear_head_dim": _int_range(1, 1024),
+    "short_conv_kernel_size": _int_range(1, 64),
+    "full_attn_every": _int_range(1, 64),
+    "experts_held": _int_range(0, 1024),
+    "expert_share": _int_range(0, 1023),
 }
 
 
@@ -138,7 +146,8 @@ def validate_hparams(classifier: str, hparams: Any) -> None:
         if key not in spec and owners and classifier == "tx":
             raise ValueError(
                 f"hparams {sorted(set(hparams) & set(TX_BLOCK_SPECS))} for "
-                f"classifier 'tx' need block {owners[0]!r}")
+                "classifier 'tx' need block "
+                + " or ".join(repr(o) for o in owners))
         if key not in spec:
             raise ValueError(
                 f"unknown hparam {key!r} for classifier {classifier!r}; "

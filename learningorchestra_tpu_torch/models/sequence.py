@@ -117,7 +117,7 @@ def fit(runtime: DeviceRuntime, X: np.ndarray, y: np.ndarray,
         bl = torch.from_numpy(y_all[sel]).to(dev)
         attrs = {"tokens": int(bt.numel())}
         with tracing.span("tx.step", attrs) as sp:
-            aux = {}
+            aux, held = {}, moe.counts()["pairs_held"]
             if sp is not None and sp.sampled and dev.type == "cuda":
                 aux["timer"] = regions.RegionTimer()
             params, opt_state, loss = train_step(
@@ -127,14 +127,17 @@ def fit(runtime: DeviceRuntime, X: np.ndarray, y: np.ndarray,
             # the Adam update and the block's after-step included, is done.
             attrs["loss"] = value = float(loss)
             # The device time of each region the block marked
-            # (``mla_ms``, ``moe_ms``), and the expert loads, if any.
+            # (``kda_ms``, ``mla_ms``, ``moe_ms``), the expert loads and
+            # the (token, expert) pairs the held experts computed, if any.
             if "timer" in aux:
                 attrs.update((f"{r}_ms", 1e3 * s)
                              for r, s in aux["timer"].seconds().items())
             if aux.get("loads"):
-                loads = moe.counts()["loads"]
+                counts = moe.counts()
                 attrs["load_ratio"] = max(
-                    (b / m for b, m in loads.values()), default=0.0)
+                    (b / m for b, m in counts["loads"].values()),
+                    default=0.0)
+                attrs["pairs_held"] = counts["pairs_held"] - held
         with _lock:
             _losses.append(value)
 

@@ -27,7 +27,7 @@ other top-level leaves, ``head_w``, ``head_b`` and ``layers.<i>.<name>``
 ``logistic.adam_update`` (optax's Adam, written out).
 
 ``TxConfig.block`` names an entry of ``BLOCKS``, which holds all that the
-trainer, the registry and the predictor need of a block; two exist:
+trainer, the registry and the predictor need of a block; three exist:
 
 - ``encoder`` (the default, the JAX package's): learned absolute
   positions, pre-LayerNorm, full multi-head attention with one head
@@ -46,7 +46,16 @@ trainer, the registry and the predictor need of a block; two exist:
   ``wq``, ``wkv_b`` and ``wo``, the SwiGLU widths split the dense and
   expert weights; ``wkv_a``, the norms and the router are replicated.
   The loss adds the experts' sequence-wise balance loss, and each step
-  ends with the correction-bias update.
+  ends with the correction-bias update;
+- ``kda_mla_moe``, Kimi Linear's hybrid block at Kimi-Linear-48B-A3B's
+  widths by default: ``mla_moe``'s layers, but for the attention of every
+  layer i with (i + 1) mod ``full_attn_every`` ≠ 0, which is Kimi Delta
+  Attention (models/kda.py), and latent attention without positions
+  (``rope = False``: no rotation, the ``qk_rope_head_dim``-wide part of
+  q and k kept); the expert layer may hold a share of the experts
+  (``experts_held``, ``expert_share``; models/moe.py). No seq axis: the
+  recurrent state is not passed between seq ranks. See
+  ``KdaMlaMoeBlock`` for its departures from the published model.
 """
 
 from __future__ import annotations
@@ -60,7 +69,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
-from learningorchestra_tpu_torch.models import moe
+from learningorchestra_tpu_torch.models import kda, moe
 from learningorchestra_tpu_torch.models.logistic import adam_update
 from learningorchestra_tpu_torch.parallel.mesh import (
     DATA_AXIS, MODEL_AXIS, SEQ_AXIS, ProcessMesh, all_gather, all_reduce_,
@@ -100,6 +109,15 @@ class TxConfig:
     first_k_dense_replace: int = 1
     routed_scaling_factor: float = 2.446
     rms_norm_eps: float = 1e-5
+    #: The ``kda_mla_moe`` block's own fields (Kimi Linear's config keys;
+    #: ``KdaMlaMoeBlock.fields`` holds its defaults) and the expert share,
+    #: 0 experts held meaning all of them.
+    linear_num_heads: int = 32
+    linear_head_dim: int = 128
+    short_conv_kernel_size: int = 4
+    full_attn_every: int = 4
+    experts_held: int = 0
+    expert_share: int = 0
 
 
 #: A mesh of one rank with no process group: every collective is the
@@ -339,18 +357,22 @@ def rope(x, pos, theta: float):
                        dim=-1).flatten(-2)
 
 
-def _mla(x, lyr, *, cfg: TxConfig, mesh: ProcessMesh, pos, timer):
-    """Latent attention on this rank's heads, whole over the model axis."""
+def _mla(x, lyr, *, cfg: TxConfig, mesh: ProcessMesh, pos, timer,
+         rope_pe: bool = True):
+    """Latent attention on this rank's heads, whole over the model axis;
+    without ``rope_pe`` no rotation."""
     n, R, eps = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.rms_norm_eps
     h = mark(_rms(x, lyr["attn_norm"], eps), timer, "mla", OPEN)
     # Replicated over the model axis: the latent and the shared k_pe.
     c, k_pe = (h @ lyr["wkv_a"]).split([cfg.kv_lora_rank, R], dim=-1)
     c = _rms(c, lyr["kv_norm"], eps)
-    k_pe = rope(k_pe, pos, cfg.rope_theta)
+    if rope_pe:
+        k_pe = rope(k_pe, pos, cfg.rope_theta)
     h, c, k_pe = (pvary(t, mesh, MODEL_AXIS) for t in (h, c, k_pe))
     q = torch.einsum("btd,dhe->bthe", h, lyr["wq"])
-    q = torch.cat([q[..., :n], rope(q[..., n:], pos, cfg.rope_theta)],
-                  dim=-1)
+    if rope_pe:
+        q = torch.cat([q[..., :n], rope(q[..., n:], pos, cfg.rope_theta)],
+                      dim=-1)
     kv = torch.einsum("btc,che->bthe", c, lyr["wkv_b"])
     k = torch.cat([kv[..., :n],
                    k_pe[:, :, None, :].expand(-1, -1, q.shape[2], -1)],
@@ -360,11 +382,21 @@ def _mla(x, lyr, *, cfg: TxConfig, mesh: ProcessMesh, pos, timer):
     return mark(psum(out, mesh, MODEL_AXIS), timer, "mla", CLOSE)
 
 
+def _kda(x, lyr, *, cfg: TxConfig, mesh: ProcessMesh, pos, timer):
+    """Kimi Delta Attention on this rank's heads, whole over the model
+    axis."""
+    h = mark(_rms(x, lyr["attn_norm"], cfg.rms_norm_eps), timer, "kda",
+             OPEN)
+    return mark(kda.attention(h, lyr, cfg=cfg, mesh=mesh), timer, "kda",
+                CLOSE)
+
+
 def _mla_layer(x, lyr, *, cfg: TxConfig, mesh: ProcessMesh, pos, i: int,
-               timer, balance: bool):
-    """One ``mla_moe`` layer: (x, this rank's balance-loss sum or None,
-    the local expert loads or None)."""
-    x = x + _mla(x, lyr, cfg=cfg, mesh=mesh, pos=pos, timer=timer)
+               timer, balance: bool, attn=_mla):
+    """One ``mla_moe`` layer, or with ``attn`` another attention's: (x,
+    this rank's balance-loss sum or None, the local expert loads or
+    None)."""
+    x = x + attn(x, lyr, cfg=cfg, mesh=mesh, pos=pos, timer=timer)
     h = _rms(x, lyr["ffn_norm"], cfg.rms_norm_eps)
     if i < cfg.first_k_dense_replace:
         h = pvary(h, mesh, MODEL_AXIS)
@@ -377,6 +409,9 @@ def _mla_layer(x, lyr, *, cfg: TxConfig, mesh: ProcessMesh, pos, i: int,
 
 
 class MlaMoeBlock(Block):
+    #: Whether the latent attention rotates its ``qk_rope_head_dim``-wide
+    #: part (RoPE, ``rope_theta``).
+    rope = True
     fields = {k: getattr(TxConfig, k) for k in (
         "kv_lora_rank", "qk_nope_head_dim", "qk_rope_head_dim",
         "v_head_dim", "rope_theta", "n_routed_experts", "n_shared_experts",
@@ -395,7 +430,7 @@ class MlaMoeBlock(Block):
 
     def check(self, hp: dict) -> None:
         # Each field's own range is ``registry.HPARAM_SPECS``'s.
-        if hp["qk_rope_head_dim"] % 2:
+        if self.rope and hp["qk_rope_head_dim"] % 2:
             raise ValueError("hparam 'qk_rope_head_dim' for classifier 'tx' "
                              "must be even (RoPE rotates pairs), got "
                              f"{hp['qk_rope_head_dim']!r}")
@@ -411,20 +446,28 @@ class MlaMoeBlock(Block):
         hp["moe_intermediate_size"] = I
 
     def shapes(self, cfg: TxConfig):
+        leaf = self.leaf_shapes(cfg)
+        return ({"embed": (cfg.vocab, cfg.d_model),
+                 "final_norm": (cfg.d_model,),
+                 "head_w": (cfg.d_model, cfg.n_classes),
+                 "head_b": (cfg.n_classes,)},
+                lambda i: {k: leaf[k] for k in self.layer(cfg, i)})
+
+    def leaf_shapes(self, cfg: TxConfig) -> dict:
+        """Every layer leaf's shape by its name; the expert stacks hold
+        ``experts_held`` experts (0: all)."""
         d, H, E = cfg.d_model, cfg.n_heads, cfg.n_routed_experts
         r, R = cfg.kv_lora_rank, cfg.qk_rope_head_dim
         n, dv = cfg.qk_nope_head_dim, cfg.v_head_dim
         I, S = cfg.moe_intermediate_size, cfg.n_shared_experts
-        leaf = {"attn_norm": (d,), "wq": (d, H, n + R), "wkv_a": (d, r + R),
+        held = cfg.experts_held or E
+        return {"attn_norm": (d,), "wq": (d, H, n + R), "wkv_a": (d, r + R),
                 "kv_norm": (r,), "wkv_b": (r, H, n + dv), "wo": (H, dv, d),
                 "ffn_norm": (d,), "w1": (d, cfg.d_ff), "w3": (d, cfg.d_ff),
                 "w2": (cfg.d_ff, d), "router": (d, E), "e_bias": (E,),
-                "experts_w1": (E, d, I), "experts_w3": (E, d, I),
-                "experts_w2": (E, I, d), "shared_w1": (d, S * I),
+                "experts_w1": (held, d, I), "experts_w3": (held, d, I),
+                "experts_w2": (held, I, d), "shared_w1": (d, S * I),
                 "shared_w3": (d, S * I), "shared_w2": (S * I, d)}
-        return ({"embed": (cfg.vocab, d), "final_norm": (d,),
-                 "head_w": (d, cfg.n_classes), "head_b": (cfg.n_classes,)},
-                lambda i: {k: leaf[k] for k in self.layer(cfg, i)})
 
     def init(self, seed: int, cfg: TxConfig, mesh: ProcessMesh, device):
         """Drawn on the device leaf by leaf in ``param_names`` order, each
@@ -432,22 +475,33 @@ class MlaMoeBlock(Block):
         (billions of host normals and their copy would outweigh the fit):
         ones for a norm's scale, zeros for the correction bias and the
         head's bias, else a normal draw of std ``INIT_STD``."""
+        self.on_mesh(mesh)
         gen = torch.Generator(device=device).manual_seed(int(seed))
-        specs, out, dev = param_specs(cfg), {}, gen.device
+        specs, out = param_specs(cfg), {}
         for k, shape in param_shapes(cfg).items():
-            leaf = _leaf(k)
-            if leaf.endswith("_norm"):
-                v = torch.ones(shape, dtype=torch.float32, device=dev)
-            elif leaf in ("e_bias", "head_b"):
-                v = torch.zeros(shape, dtype=torch.float32, device=dev)
-            else:
-                v = torch.randn(shape, generator=gen, dtype=torch.float32,
-                                device=dev).mul_(INIT_STD)
-            out[k] = _shard(v, specs[k], mesh).contiguous()
+            out[k] = _shard(self.draw(_leaf(k), shape, gen), specs[k],
+                            mesh).contiguous()
         return out
+
+    def draw(self, leaf: str, shape, gen: torch.Generator):
+        dev = gen.device
+        if leaf.endswith("_norm"):
+            return torch.ones(shape, dtype=torch.float32, device=dev)
+        if leaf in ("e_bias", "head_b"):
+            return torch.zeros(shape, dtype=torch.float32, device=dev)
+        return torch.randn(shape, generator=gen, dtype=torch.float32,
+                           device=dev).mul_(INIT_STD)
+
+    def on_mesh(self, mesh: ProcessMesh) -> None:
+        """Raise a ``ValueError`` on a mesh the block cannot run on."""
+
+    def attention(self, cfg: TxConfig, i: int):
+        """Layer ``i``'s attention function."""
+        return _mla if self.rope else partial(_mla, rope_pe=False)
 
     def forward(self, params, tokens, *, cfg: TxConfig, mesh: ProcessMesh,
                 aux: Optional[dict]):
+        self.on_mesh(mesh)
         Tl, dev = tokens.shape[1], tokens.device
         pos = mesh.index(SEQ_AXIS) * Tl + torch.arange(Tl, device=dev)
         x = params["embed"][tokens.long()]
@@ -455,7 +509,8 @@ class MlaMoeBlock(Block):
         for i in range(cfg.n_layers):
             lyr = {n: params[f"layers.{i}.{n}"] for n in self.layer(cfg, i)}
             fn = partial(_mla_layer, cfg=cfg, mesh=mesh, pos=pos, i=i,
-                         timer=timer, balance=aux is not None)
+                         timer=timer, balance=aux is not None,
+                         attn=self.attention(cfg, i))
             if cfg.remat and torch.is_grad_enabled():
                 # A whole recompute: every region mark is met again, in
                 # pairs (utils/regions.py).
@@ -478,13 +533,94 @@ class MlaMoeBlock(Block):
                         aux.get("loads", []), mesh)
 
     def token_floats(self, cfg: TxConfig, chunk: int) -> int:
+        return self.attn_floats(cfg, chunk) + self.ffn_floats(cfg)
+
+    def attn_floats(self, cfg: TxConfig, chunk: int) -> int:
         d, H = cfg.d_model, cfg.n_heads
         qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
-        k, I = cfg.num_experts_per_tok, cfg.moe_intermediate_size
         return (6 * d + cfg.kv_lora_rank + 3 * H * qk
-                + 3 * H * cfg.v_head_dim + 3 * H * chunk
-                + max(3 * cfg.d_ff, k * (3 * d + 4 * I)
-                      + 3 * cfg.n_shared_experts * I))
+                + 3 * H * cfg.v_head_dim + 3 * H * chunk)
+
+    def ffn_floats(self, cfg: TxConfig) -> int:
+        k, I = cfg.num_experts_per_tok, cfg.moe_intermediate_size
+        return max(3 * cfg.d_ff, k * (3 * cfg.d_model + 4 * I)
+                   + 3 * cfg.n_shared_experts * I)
+
+
+# --- the kda_mla_moe block ---------------------------------------------------
+
+#: A KDA layer's attention leaves (models/kda.py), between the two norms.
+KDA_LEAVES = ("attn_norm",) + kda.LEAVES + ("ffn_norm",)
+
+
+class KdaMlaMoeBlock(MlaMoeBlock):
+    """Kimi Linear's hybrid block (``mla_moe``'s layers with KDA in three
+    layers of four), at Kimi-Linear-48B-A3B's published widths by
+    default. Departures from the published model, beside ``mla_moe``'s
+    (the ``tx`` head for the LM head, Adam): the layer pattern is by
+    period, layer i full attention where (i + 1) mod ``full_attn_every``
+    = 0 (the published list, 4, 8, …, 24 and 27 counted from 1, agrees
+    on layers 1–26); the q/k L2 norm's ε is 1e-6,
+    flash-linear-attention's; A_log, dt_bias and the gate's bias are
+    drawn as ``kda.draw`` says, every other matrix and convolution weight
+    normal(0, 0.02), norms one, biases zero."""
+    rope = False
+    fields = dict({k: v for k, v in MlaMoeBlock.fields.items()
+                   if k != "rope_theta"},
+                  n_routed_experts=256, n_shared_experts=1,
+                  num_experts_per_tok=8, moe_intermediate_size=1024,
+                  linear_num_heads=32, linear_head_dim=128,
+                  short_conv_kernel_size=4, full_attn_every=4,
+                  experts_held=0, expert_share=0)
+    split = dict(MlaMoeBlock.split, **kda.SPLIT)
+
+    @staticmethod
+    def full(cfg: TxConfig, i: int) -> bool:
+        return (i + 1) % cfg.full_attn_every == 0
+
+    def layer(self, cfg: TxConfig, i: int) -> tuple:
+        names = super().layer(cfg, i)
+        if self.full(cfg, i):
+            return names
+        return KDA_LEAVES + names[len(MLA_LEAVES):]
+
+    def check(self, hp: dict) -> None:
+        super().check(hp)
+        E, held = hp["n_routed_experts"], hp["experts_held"]
+        if held and E % held:
+            raise ValueError(
+                "hparam 'experts_held' for classifier 'tx' must divide "
+                f"n_routed_experts ({E}), got {held!r}")
+        shares = E // held if held else 1
+        if hp["expert_share"] >= shares:
+            raise ValueError(
+                "hparam 'expert_share' for classifier 'tx' must be below "
+                f"the number of shares ({shares}), got "
+                f"{hp['expert_share']!r}")
+
+    def resolve(self, hp: dict, M: int) -> None:
+        super().resolve(hp, M)
+        hp["linear_num_heads"] = round_up(hp["linear_num_heads"], M)
+
+    def leaf_shapes(self, cfg: TxConfig) -> dict:
+        return dict(super().leaf_shapes(cfg), **kda.shapes(cfg))
+
+    def draw(self, leaf: str, shape, gen: torch.Generator):
+        v = kda.draw(leaf, shape, gen)
+        return super().draw(leaf, shape, gen) if v is None else v
+
+    def on_mesh(self, mesh: ProcessMesh) -> None:
+        if mesh.size(SEQ_AXIS) > 1:
+            raise ValueError(
+                "tx block 'kda_mla_moe' needs a seq axis of 1 (its "
+                "recurrent state is not passed between seq ranks), got "
+                f"{mesh.size(SEQ_AXIS)}")
+
+    def attention(self, cfg: TxConfig, i: int):
+        return super().attention(cfg, i) if self.full(cfg, i) else _kda
+
+    def attn_floats(self, cfg: TxConfig, chunk: int) -> int:
+        return max(super().attn_floats(cfg, chunk), kda.token_floats(cfg))
 
 
 # --- the step ----------------------------------------------------------------
@@ -581,4 +717,5 @@ def forward_reference(params, tokens, *, cfg: TxConfig):
 
 #: Every ``tx`` block by its ``TxConfig.block`` name.
 BLOCKS: Dict[str, Block] = {"encoder": EncoderBlock(),
-                            "mla_moe": MlaMoeBlock()}
+                            "mla_moe": MlaMoeBlock(),
+                            "kda_mla_moe": KdaMlaMoeBlock()}

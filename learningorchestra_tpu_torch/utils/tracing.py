@@ -67,7 +67,21 @@ The port's span names beyond the taxonomy in docs/observability.md
 - ``viz.edge_table`` (viz/tsne.py; edges, in_cols, overflow_edges,
   device): the descent's edge table, built on the device that holds the
   kNN; like the other ``viz.<stage>`` spans it ends when the device has
-  finished the stage.
+  finished the stage;
+- ``tx.init`` (models/sequence.py; params, bytes): a tx fit's parameters
+  drawn; ``tx.predict`` (rows): one predict chunk;
+- ``tx.step`` (models/sequence.py; tokens, loss, load_ratio, pairs_held,
+  kda_ms, mla_ms, moe_ms): one training step, ending when its loss has
+  been read back. ``<region>_ms`` is the device time of a region the
+  block marks (utils/regions.py: CUDA events at the region's boundaries,
+  forward, recomputation and backward; on a card only): ``kda`` the Kimi
+  Delta Attention layers (models/kda.py), ``mla`` the latent attention,
+  ``moe`` the expert layers. ``load_ratio`` is the busiest expert's
+  pairs over the mean, the largest over the expert layers;
+  ``pairs_held`` the (token, expert) pairs the experts this rank holds
+  computed in the step — the expert layer's counters
+  (``moe.counts()``: tokens_routed, tokens_dropped, bias_updates,
+  pairs_held, pairs_elsewhere) count them over the process.
 
 Recording is cheap by construction: one ``os.urandom`` id + a dict and
 a deque-append under a short lock per span, no I/O, no serialization

@@ -692,6 +692,11 @@ BLOCK_CFGS = {
     "encoder": dict(vocab=30, d_model=32, n_heads=4, n_layers=2, d_ff=64,
                     n_classes=3, max_len=16),
     "mla_moe": SMALL,
+    "kda_mla_moe": dict({k: v for k, v in SMALL.items()
+                         if k != "rope_theta"},
+                        block="kda_mla_moe", n_layers=4,
+                        linear_num_heads=4, linear_head_dim=8,
+                        experts_held=4, expert_share=1),
 }
 
 
@@ -757,12 +762,17 @@ def test_every_block_keeps_the_contract(block, tmp_path):
     for other, o in ttx.BLOCKS.items():
         if other == block:
             continue
+        # A field two blocks share is refused only under a block without it.
         for f, v in o.fields.items():
-            with pytest.raises(ValueError, match=f"need block '{other}'"):
-                validate_hparams("tx", {"block": block, f: v})
+            if f not in blk.fields:
+                with pytest.raises(ValueError, match=f"need block [^\n]*"
+                                                     f"'{other}'"):
+                    validate_hparams("tx", {"block": block, f: v})
         for f, v in blk.fields.items():
-            with pytest.raises(ValueError, match=f"need block '{block}'"):
-                validate_hparams("tx", {"block": other, f: v})
+            if f not in o.fields:
+                with pytest.raises(ValueError, match=f"need block [^\n]*"
+                                                     f"'{block}'"):
+                    validate_hparams("tx", {"block": other, f: v})
 
 
 # ---------------------------------------------------------------------------
@@ -771,8 +781,8 @@ def test_every_block_keeps_the_contract(block, tmp_path):
 
 @pytest.mark.parametrize("hparams,message", [
     ({"block": "moe"}, "hparam 'block' for classifier 'tx' is out of "
-                       "range: expected one of ['encoder', 'mla_moe'], "
-                       "got 'moe'"),
+                       "range: expected one of ['encoder', 'kda_mla_moe', "
+                       "'mla_moe'], got 'moe'"),
     ({"block": "mla_moe", "kv_lora_rank": 0},
      "hparam 'kv_lora_rank' for classifier 'tx' is out of range: "
      "expected an integer in [1, 8192], got 0"),
@@ -792,7 +802,8 @@ def test_every_block_keeps_the_contract(block, tmp_path):
      "hparam 'rms_norm_eps' for classifier 'tx' is out of range: "
      "expected a number > 0, got -1.0"),
     ({"kv_lora_rank": 64},
-     "hparams ['kv_lora_rank'] for classifier 'tx' need block 'mla_moe'"),
+     "hparams ['kv_lora_rank'] for classifier 'tx' need block 'mla_moe' or "
+     "'kda_mla_moe'"),
 ])
 def test_mla_hparams_are_validated(hparams, message):
     from learningorchestra_tpu_torch.models.registry import validate_hparams
