@@ -219,15 +219,17 @@ def _fold_masks(n: int, padded: int, folds: int
     f32 row weights over the padded global row index. Fold membership is
     ``row % folds == fid``; fid = -1 (folds <= 1) trains AND scores on
     every valid row."""
-    idx = np.arange(padded)
-    valid = (idx < n).astype(np.float32)
+    valid = np.zeros(padded, np.float32)
+    valid[:n] = 1.0
     if folds <= 1:
         return [-1], valid[None, :], valid[None, :]
-    fids = list(range(folds))
-    ev = np.stack([valid * (idx % folds == f) for f in fids]
-                  ).astype(np.float32)
-    tr = valid[None, :] - ev
-    return fids, tr, ev
+    tr = np.zeros((folds, padded), np.float32)
+    ev = np.zeros((folds, padded), np.float32)
+    tr[:, :n] = 1.0
+    for f in range(folds):
+        ev[f, f:n:folds] = 1.0
+        tr[f, f:n:folds] = 0.0
+    return list(range(folds)), tr, ev
 
 
 # -- family drivers -----------------------------------------------------------
@@ -700,8 +702,13 @@ def sweep(runtime, X, y, num_classes: int, family: str,
             "tune sweeps need a resident design matrix; materialize the "
             "dataset (streamed designs are fit-only)")
     n = int(len(X))
+    # The (folds, rows) masks reach the device once a sweep; each wave
+    # tiles them to its members there (config-major, as the drivers
+    # index them).
     with tracing.span("tune.masks", rows=n, members=folds):
         fold_ids, tr_all, ev_all = _fold_masks(n, n, folds)
+        tr_all = runtime.replicate(tr_all)
+        ev_all = runtime.replicate(ev_all)
     nf = len(fold_ids)
     d = int(X.shape[1])
     waves = plan_waves(family, configs, n=n, d=d, num_classes=num_classes,
@@ -737,8 +744,8 @@ def sweep(runtime, X, y, num_classes: int, family: str,
         nc = len(wave_cfgs)
         with tracing.span("tune.wave", wave=w, members=nc * nf):
             with tracing.span("tune.masks", rows=n, members=nc * nf):
-                tr = np.tile(tr_all, (nc, 1))
-                ev = np.tile(ev_all, (nc, 1))
+                tr = tr_all.repeat(nc, 1)
+                ev = ev_all.repeat(nc, 1)
             driver = _make_driver(family, runtime, X, y, num_classes,
                                   wave_cfgs, fold_ids, tr, ev, cfg=cfg,
                                   draws=draws)

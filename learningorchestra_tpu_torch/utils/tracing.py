@@ -58,10 +58,12 @@ The port's span names beyond the taxonomy in docs/observability.md
   bin edges;
 - ``registry.save`` (models/persistence.py; name, bytes): one model
   persisted;
-- ``tune.masks`` (models/tune.py; rows, members): fold masks built on the
-  host, per sweep and per wave's tiling;
-- ``tune.wave`` (models/tune.py; wave, members): one wave's set-up, the
-  tiling through its driver (masks, edges, copies, the binning launch);
+- ``tune.masks`` (models/tune.py; rows, members): a sweep's (folds, rows)
+  fold masks built on the host and copied to the device once, then each
+  wave's tiling of them to its members on the device;
+- ``tune.wave`` (models/tune.py; wave, members): one wave's set-up, from
+  its masks' tiling on the device through its driver (edges, copies, the
+  binning launch);
 - ``tune.promotion`` (models/builder.py): the winner's edges, its refit
   (the ``tune.promote`` timer) and its save;
 - ``viz.edge_table`` (viz/tsne.py; edges, in_cols, overflow_edges,

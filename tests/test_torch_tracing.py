@@ -243,13 +243,24 @@ def test_tune_records_masks_waves_and_the_promotion(builder):
     waves = [d for d in docs if d["name"] == "tune.wave"]
     assert len(waves) == 1 and waves[0]["attrs"] == {"wave": 0,
                                                      "members": 4}
+    sweep_masks, wave_masks = masks
+    assert "tune.wave" not in _ancestors(sweep_masks, by_id)
+    assert "tune.wave" in _ancestors(wave_masks, by_id)
+
+    def puts_under(span):
+        return [d["attrs"]["bytes"] for d in docs
+                if d["name"] == "runtime.put"
+                and span["span_id"] in _ancestor_ids(d, by_id)]
+
+    # Both (folds, rows) float32 fold masks are copied once, under the
+    # sweep's ``tune.masks``; the wave tiles them on the device.
+    assert puts_under(sweep_masks) == [2 * 1200 * 4] * 2
+    assert puts_under(wave_masks) == []
     under_wave = [d for d in docs if "tune.wave" in _ancestors(d, by_id)]
     names = [d["name"] for d in under_wave]
     assert names.count("tree.edges") == 2      # one per distinct n_bins
-    puts = [d["attrs"]["bytes"] for d in under_wave
-            if d["name"] == "runtime.put"]
-    # Both (members, rows) float32 fold masks are copied in the wave.
-    assert puts.count(4 * 1200 * 4) == 2
+    puts = puts_under(waves[0])
+    assert not {2 * 1200 * 4, 4 * 1200 * 4} & set(puts)
     # The promotion span holds the winner's edges, refit and save; the
     # operator-facing ``tune.promote`` timer holds the refit alone.
     promotion = next(d for d in docs if d["name"] == "tune.promotion")

@@ -95,13 +95,16 @@ def _mk_cfg(tmp_path=None, **knobs):
 # -- unit layer ---------------------------------------------------------------
 
 @pytest.mark.parametrize("n,padded,folds", [(10, 16, 3), (5, 8, 1),
-                                            (300, 300, 4)])
+                                            (300, 300, 4), (1000, 1024, 7),
+                                            (64, 70, 64)])
 def test_fold_masks_are_the_jax_masks(n, padded, folds):
     fids, tr, ev = tune._fold_masks(n, padded, folds)
     jf, jtr, jev = jtune._fold_masks(n, padded, folds)
     assert fids == jf
-    np.testing.assert_array_equal(tr, jtr)
-    np.testing.assert_array_equal(ev, jev)
+    for got, want in ((tr, jtr), (ev, jev)):
+        # Byte for byte: the same shape, dtype and bits (no -0.0).
+        assert got.shape == want.shape and got.dtype == want.dtype
+        assert got.tobytes() == want.tobytes()
     valid = (np.arange(padded) < n).astype(np.float32)
     if folds > 1:
         # Each fold's train/eval split partitions the valid rows, and the
@@ -389,6 +392,50 @@ def test_population_parity_across_budget_waves(trt):
     for c in configs:
         assert _by_config(board, c)["fold_scores"] == [
             _serial_score(trt, "dt", c, X, y, 2)], c
+
+
+@pytest.mark.parametrize("family,configs,budget_mb,wave_sizes", [
+    ("rf", [{"n_trees": 4, "max_depth": 3, "n_bins": 16},
+            {"n_trees": 4, "max_depth": 4, "n_bins": 32}], 0, [2]),
+    ("gb", [{"n_rounds": 3, "max_depth": 2},
+            {"n_rounds": 4, "max_depth": 3, "step_size": 0.3}], 0, [2]),
+    # 40 B a row an lr member (masks, its float32 design, its logits) at
+    # d = 6: two configs of 3 folds at 4,000 rows fit 1 MiB, three do not.
+    ("lr", [{"solver": "newton", "iters": 3},
+            {"solver": "newton", "iters": 4, "l2": 1e-2},
+            {"solver": "newton", "iters": 5, "l2": 1e-3}], 1, [2, 1]),
+], ids=["rf", "gb", "lr-budget-waves"])
+def test_sweep_tiles_the_fold_masks_to_each_wave(trt, monkeypatch, family,
+                                                 configs, budget_mb,
+                                                 wave_sizes):
+    """Each wave's drivers get the (folds, rows) masks tiled config-major
+    to its members on the device: bit for bit the host tiles."""
+    n, folds = 4000, 3
+    X, y = _blobs(n=n, seed=13, sep=0.8)
+    seen = []
+    make = tune._make_driver
+
+    def spy(family, runtime, X, y, num_classes, configs, fold_ids,
+            tr_masks, ev_masks, **kw):
+        seen.append((len(configs), tr_masks, ev_masks))
+        return make(family, runtime, X, y, num_classes, configs, fold_ids,
+                    tr_masks, ev_masks, **kw)
+
+    monkeypatch.setattr(tune, "_make_driver", spy)
+    monkeypatch.setattr(tune.resources, "family_watermarks", dict)
+    cfg = _mk_cfg(tune_hbm_budget_mb=budget_mb)
+    board = tune.sweep(trt, X, y, 2, family, configs, cfg=cfg, folds=folds,
+                       rungs=1)
+    assert board["waves"] == len(wave_sizes)
+    assert [nc for nc, _, _ in seen] == wave_sizes
+    _, tr_all, ev_all = tune._fold_masks(n, n, folds)
+    for nc, tr, ev in seen:
+        for got, host in ((tr, tr_all), (ev, ev_all)):
+            assert isinstance(got, torch.Tensor)
+            assert got.device == trt.device
+            want = np.tile(host, (nc, 1))
+            assert got.shape == want.shape and got.dtype == torch.float32
+            assert got.cpu().numpy().tobytes() == want.tobytes()
 
 
 def test_sweep_input_validation(trt):
